@@ -19,11 +19,27 @@ Phases:
            compared
   profile  device busy time and launches of one fit and one choose
            (torch.profiler, profiler on: wall times are inflated)
+  lm_kernel   flash-attention and flash-decode kernels vs their plain
+              versions in bfloat16 and float32 (gemma3-1b's serving shapes,
+              softcap, non-causal, ragged S, S = 1, hd 64/128, ring slot
+              maps, pos = 0, G = 1/2/4/8); device times (torch.profiler) and
+              CUDA-event times, bounds and the
+              scaled_dot_product_attention yardstick at the serving shapes
+  lm_serve    gemma3-1b at full width through repro_torch.launch.serve.run:
+              batch 8, prompt 2048, 64 new tokens; prefill ms, decode
+              ms/token, tokens/s, peak memory, the runtime-log line
+  lm_parity   one full-width period of gemma3-1b (6 layers), prompt 1024,
+              8 decode steps: card (bfloat16, kernels) vs CPU (float32,
+              plain) logits and greedy tokens
+  lm_profile  device busy time and top kernels of one full-width prefill
+              and 8 decode steps (torch.profiler)
 
-The phases fit, serve and loop are the main path: the kernels' launch
-counts are set to 0 before it and read after it.  Before the last line it
-prints the ``kernels`` line and the nvidia-smi line; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Without a
+Two main paths: the phases fit, serve and loop (the paper's loop, through
+the GBM kernel), and lm_serve (LM serving, through the two attention
+kernels).  Each path's kernel launch counts are set to 0 just before it
+and read just after it.  Before the last line it prints the ``kernels``
+line and the nvidia-smi line; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero.  Without a
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -413,6 +429,428 @@ def profile_phase(hub):
     emit("profile", t0, **out)
 
 
+# --------------------------------------------------------------- LM slice
+
+# bfloat16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
+# tests/test_kernels.py's tolerances: atol, with rtol ten times that
+LM_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# where the LM phases run: the card (a rehearsal on the CPU may change it)
+LM_DEVICE = "cuda"
+# gemma3-1b's serving shape (launch/serve.py: batch 8, prompt 2048, 64 new)
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
+SERVE_L = SERVE_PROMPT + SERVE_NEW + 8       # the global layers' cache
+# lm_parity: last-position logits of the card (bfloat16, kernels) against
+# the CPU (float32, plain versions) on the same weights.  bfloat16 keeps 8
+# significant bits, so each rounding of an activation is off by up to
+# 2**-9 (0.2%) relative; one period of 6 layers rounds the residual stream
+# some 30 times, which adds up like a random walk to about 1%.  5e-2
+# leaves room for that; a wrong mask, ring slot or rope offset gives
+# errors of order 1.
+PARITY_REL_TOL = 5e-2
+
+
+def _tdtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+def kept_pairs(S, causal, window):
+    """(query, key) pairs the masks keep in one [S, S] attention."""
+    q = np.arange(S)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(S, int)
+    return int(np.sum(hi - lo + 1))
+
+
+def attn_bound_ms(nbytes, flops, dtype):
+    """Least time for the work: bytes at the HBM rate against the products'
+    operations at the tensor-core peak of bfloat16 (or the float32 peak
+    outside the tensor cores for float32 inputs)."""
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound_ms(B, S, H, KV, hd, causal, window, dtype):
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * B * S * hd * (2 * H + 2 * KV)      # q, k, v in; o out
+    flops = 4 * B * H * hd * kept_pairs(S, causal, window)
+    return attn_bound_ms(nbytes, flops, dtype)
+
+
+def decode_bound_ms(B, H, KV, hd, n_kept, n_slots_map, dtype):
+    """Only the slots the mask keeps need reading (this run's data), plus q,
+    the output and the slot map."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (2 * B * H * hd + 2 * B * KV * hd * n_kept) \
+        + 4 * n_slots_map
+    return attn_bound_ms(nbytes, 4 * B * H * hd * n_kept, dtype)
+
+
+def _qkv(seed, B, S, H, KV, hd, dtype, L=None):
+    import torch
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    L = S if L is None else L
+    return [torch.randn(s, generator=g, device=LM_DEVICE).to(_tdtype(dtype))
+            for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+
+
+def _excess(got, want, dtype):
+    """Largest |got - want| beyond atol + rtol |want|, and the largest
+    |got - want|."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape and bool(g.isfinite().all())
+    d = (g - w).abs()
+    tol = LM_TOL[dtype]
+    return float((d - tol - 10 * tol * w.abs()).max()), float(d.max())
+
+
+def sdpa_has_gqa():
+    """``scaled_dot_product_attention`` takes ``enable_gqa`` from torch
+    2.5 on."""
+    import torch
+    major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+    return (major, minor) >= (2, 5)
+
+
+def sdpa_flash(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function (no softcap), on [B, H, S, hd] copies made outside the call.
+    Returns the call, or None where this torch has no ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    if not sdpa_has_gqa():
+        return None
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    S = q.shape[1]
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+
+
+def sdpa_decode(q, kc, vc, ok):
+    import torch.nn.functional as F
+    if not sdpa_has_gqa():
+        return None
+    qt = q[:, :, None].contiguous()                     # [B, H, 1, hd]
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    mask = ok[None, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def lm_time(fn, reps, kernels_per_call=1):
+    """Time of one call, two ways: CUDA events around ``reps`` back-to-back
+    calls (``events_ms``; when the host launches slower than the card runs,
+    as for a decode step's small launches, this is the host's time), and
+    the device time of the kernels and copies a torch.profiler trace
+    records over ``reps`` calls (``device_ms``).  ``ms`` is the device time
+    when the trace recorded at least ``kernels_per_call`` device events per
+    call, else the events time (``ms_from`` says which)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    events_ms = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_call = len(dev) / reps
+    device_ms = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    seen = per_call >= kernels_per_call
+    return {"ms": device_ms if seen else events_ms, "events_ms": events_ms,
+            "device_ms": device_ms, "device_events_per_call": per_call,
+            "ms_from": "profiler device time" if seen else "cuda events"}
+
+
+def lm_kernel_phase():
+    """Both attention kernels against their plain versions on the card, in
+    bfloat16 and float32, then times at the serving shapes."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.modeling.attention import ring_positions
+    t0 = time.perf_counter()
+    B, Sv, L = SERVE_B, SERVE_PROMPT, SERVE_L
+    flash_cases = [   # label, B, S, H, KV, hd, causal, window, cap
+        ("serve global", B, Sv, 4, 1, 256, True, 0, 0.0),
+        ("serve local window 512", B, Sv, 4, 1, 256, True, 512, 0.0),
+        ("softcap 50 H8 KV4", 2, 1024, 8, 4, 256, True, 0, 50.0),
+        ("non-causal", 2, 512, 4, 2, 128, False, 0, 0.0),
+        ("ragged S=1000 window 512", 2, 1000, 4, 1, 256, True, 512, 0.0),
+        ("S=1", 4, 1, 4, 1, 256, True, 0, 0.0),
+        ("hd=64 window 128", 2, 512, 8, 2, 64, True, 128, 0.0),
+        ("hd=128 softcap 30", 2, 512, 4, 4, 128, True, 0, 30.0)]
+    decode_cases = [  # label, B, L, H, KV, hd, pos, window, cap, ring
+        ("serve global pos 2100", B, L, 4, 1, 256, 2100, 0, 0.0, False),
+        ("global mid-cache pos 1000", B, L, 4, 1, 256, 1000, 0, 0.0, False),
+        ("pos=0", B, L, 4, 1, 256, 0, 0, 0.0, False),
+        ("serve local ring pos 2100", B, 512, 4, 1, 256, 2100, 512, 0.0,
+         True),
+        ("ring first turn, empty slots", B, 512, 4, 1, 256, 300, 512, 0.0,
+         True),
+        ("softcap 50 H8 KV4", 2, L, 8, 4, 256, 1500, 0, 50.0, False),
+        ("G=1 hd=128", 2, L, 4, 4, 128, 700, 0, 0.0, False),
+        ("G=8 hd=64 window 256", 2, 1000, 8, 1, 64, 999, 256, 0.0, False)]
+    worst = {"flash_attention": {}, "decode_attention": {}}
+    checked = {"flash_attention": [], "decode_attention": []}
+    for i, (label, b, S, H, KV, hd, causal, window, cap) in \
+            enumerate(flash_cases):
+        for dt in ("bfloat16", "float32"):
+            q, k, v = _qkv(i, b, S, H, KV, hd, dt)
+            got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, softcap=cap)
+            sync()
+            excess, err = _excess(got, want, dt)
+            assert excess <= 0, f"flash_attention {label} {dt}: " \
+                f"{excess} beyond tolerance"
+            w = worst["flash_attention"]
+            w[dt] = max(w.get(dt, 0.0), err)
+            checked["flash_attention"].append(f"{label} {dt}")
+    for i, (label, b, Lc, H, KV, hd, pos, window, cap, ring) in \
+            enumerate(decode_cases):
+        for dt in ("bfloat16", "float32"):
+            q, kc, vc = _qkv(100 + i, b, 1, H, KV, hd, dt, L=Lc)
+            q = q[:, 0].contiguous()
+            k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
+            got = DA.decode_attention(q, kc, vc, pos, window=window,
+                                      softcap=cap, k_pos=k_pos)
+            want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
+                                             softcap=cap, k_pos=k_pos)
+            sync()
+            excess, err = _excess(got, want, dt)
+            assert excess <= 0, f"decode_attention {label} {dt}: " \
+                f"{excess} beyond tolerance"
+            w = worst["decode_attention"]
+            w[dt] = max(w.get(dt, 0.0), err)
+            checked["decode_attention"].append(f"{label} {dt}")
+
+    times = {}
+    for name, window in (("global", 0), ("local", 512)):
+        q, k, v = _qkv(7, B, Sv, 4, 1, 256, "bfloat16")
+        kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
+        plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
+                                                         window=window), 5)
+        lib = sdpa_flash(q, k, v, True, window)
+        lib_t = lm_time(lib, 20) if lib else None
+        lib_err = None if lib is None else float(
+            (lib().transpose(1, 2).float()
+             - FA.flash_attention_plain(q, k, v, window=window).float())
+            .abs().max())
+        bnd, by = flash_bound_ms(B, Sv, 4, 1, 256, True, window, "bfloat16")
+        times[f"flash_{name}"] = {
+            "ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
+            "library_max_abs_err_vs_plain": lib_err,
+            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+    for name, Lc, window, ring in (("global", L, 0, False),
+                                   ("local", 512, 512, True)):
+        pos = SERVE_PROMPT + SERVE_NEW // 2
+        q, kc, vc = _qkv(8, B, 1, 4, 1, 256, "bfloat16", L=Lc)
+        q = q[:, 0].contiguous()
+        k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
+        kern = lm_time(lambda: DA.decode_attention(
+            q, kc, vc, pos, window=window, k_pos=k_pos), 200,
+            kernels_per_call=2)
+        plain = lm_time(lambda: DA.decode_attention_plain(
+            q, kc, vc, pos, window=window, k_pos=k_pos), 50)
+        ok = DA._mask(k_pos, Lc, pos, window, q.device)
+        lib = sdpa_decode(q, kc, vc, ok)
+        lib_t = lm_time(lib, 200) if lib else None
+        n_kept = int(ok.sum())
+        bnd, by = decode_bound_ms(B, 4, 1, 256, n_kept,
+                                  Lc if ring else 0, "bfloat16")
+        times[f"decode_{name}"] = {
+            "ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
+            "pos": pos, "slots_kept": n_kept,
+            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+    emit("lm_kernel", t0, cases=checked, max_abs_err=worst,
+         tolerances=LM_TOL, times=times)
+    return worst, times
+
+
+def lm_serve_phase():
+    """gemma3-1b at full width through ``repro_torch.launch.serve.run``:
+    batch 8, prompt 2048 (past the 512 window), 64 new tokens.  A short
+    warm-up run first; the counts are set to 0 just before the measured
+    run and read just after it."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    serve.run("gemma3-1b", SERVE_B, SERVE_PROMPT, 4, smoke=False,
+              seed=0, device=LM_DEVICE)                     # warm-up
+    sync()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        FA.LAUNCHES = DA.LAUNCHES = DA.COMBINE_LAUNCHES = 0
+        t1 = time.perf_counter()
+        toks = serve.run("gemma3-1b", SERVE_B, SERVE_PROMPT, SERVE_NEW,
+                         smoke=False, runtime_log=log, seed=0,
+                         device=LM_DEVICE)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = {"flash_attention": FA.LAUNCHES,
+                    "decode_attention": DA.LAUNCHES,
+                    "decode_attention_combine": DA.COMBINE_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+    assert rec["arch"] == "gemma3-1b" and rec["batch"] == SERVE_B
+    assert rec["prompt_len"] == SERVE_PROMPT
+    assert rec["prefill_s"] > 0 and rec["decode_median_s"] > 0
+    assert tuple(toks.shape) == (SERVE_B, SERVE_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    steps = SERVE_NEW - 1
+    assert launches["decode_attention"] == steps * cfg.n_layers, launches
+    assert launches["decode_attention_combine"] == steps * cfg.n_layers
+    emit("lm_serve", t0, arch="gemma3-1b", batch=SERVE_B,
+         prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+         prefill_ms=rec["prefill_s"] * 1e3,
+         prefill_tokens_per_s=SERVE_B * SERVE_PROMPT / rec["prefill_s"],
+         decode_median_ms_per_token=rec["decode_median_s"] * 1e3,
+         decode_tokens_per_s=SERVE_B / rec["decode_median_s"],
+         run_wall_s=wall, peak_device_bytes=peak, launches=launches,
+         runtime_log_line=rec)
+    return launches
+
+
+def lm_parity_phase():
+    """One period of gemma3-1b at full width (5 local + 1 global layer),
+    batch 1, prompt 1024 (past the window), 8 greedy decode steps: the card
+    (bfloat16, kernels) against the CPU (float32, plain versions) on the
+    same weights.  The card's decode steps take the CPU's tokens, so every
+    step compares the same inputs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.model import Model, init_params
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b", n_layers=6)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg, 1, LM_DEVICE)
+    tree_cpu = {"embed": params["embed"].float().cpu(),
+                "final_norm": params["final_norm"].float().cpu(),
+                "layers": [{k: ({n: t.float().cpu() for n, t in v.items()}
+                                if isinstance(v, dict) else v.float().cpu())
+                            for k, v in layer.items()}
+                           for layer in params["layers"]]}
+    card, cpu = Model(cfg, params), Model(cfg32, tree_cpu)
+    S, steps, max_seq = 1024, 8, 1024 + 16
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)))
+    rel, agree, decided, margins = [], 0, 0, []
+    with torch.inference_mode():
+        c_cpu, c_card = cpu.init_cache(1, max_seq), card.init_cache(1, max_seq)
+        want, _ = cpu(prompt, mode="prefill", cache=c_cpu)
+        got, _ = card(prompt.to(LM_DEVICE), mode="prefill", cache=c_card)
+        for step in range(steps + 1):
+            w, g = want[0, -1].double(), got[0, -1].double().cpu()
+            err = (g - w).abs().max().item()
+            rel.append(((g - w).norm() / w.norm()).item())
+            top2 = torch.topk(w, 2).values
+            margin = (top2[0] - top2[1]).item()
+            margins.append(margin)
+            same = int(g.argmax()) == int(w.argmax())
+            agree += same
+            if margin > 2 * err:          # the card's error cannot flip it
+                decided += 1
+                assert same, f"step {step}: greedy token differs"
+            if step == steps:
+                break
+            tok = w.argmax().reshape(1, 1)
+            pos = S + step
+            want, _ = cpu(tok, mode="decode", pos0=pos, cache=c_cpu)
+            got, _ = card(tok.to(LM_DEVICE), mode="decode", pos0=pos,
+                          cache=c_card)
+    assert max(rel) <= PARITY_REL_TOL, rel
+    emit("lm_parity", t0, layers=6, prompt_len=S, decode_steps=steps,
+         logits_rel_err=rel, max_logits_rel_err=max(rel),
+         tolerance=PARITY_REL_TOL,
+         greedy_tokens_agree=f"{agree}/{steps + 1}",
+         steps_where_margin_exceeds_twice_error=decided,
+         top2_margins=margins)
+    return max(rel)
+
+
+def lm_profile_phase():
+    """Device busy time and top device kernels of one full-width gemma3-1b
+    prefill (batch 8, prompt 2048) and of 8 decode steps, from a
+    torch.profiler trace (profiler on: wall times are inflated)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.model import Model
+    from repro_torch.serve.serve_step import make_decode_step, \
+        make_prefill_step
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    model = Model.from_seed(cfg, 0, LM_DEVICE)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(3))
+    prompt = prompt.to(LM_DEVICE)
+    out = {}
+    with torch.inference_mode():
+        def run_prefill():
+            cache = model.init_cache(SERVE_B, SERVE_L)
+            logits, cache = prefill(prompt, cache)
+            return logits.argmax(-1), cache
+
+        tok, cache = run_prefill()                       # warm
+        sync()
+
+        def run_decode():
+            t = tok
+            for pos in range(SERVE_PROMPT, SERVE_PROMPT + 8):
+                logits, _ = decode(t, pos, cache)
+                t = logits.argmax(-1)
+            return t
+
+        run_decode()
+        sync()
+        for name, fn in (("prefill", run_prefill),
+                         ("decode_8_steps", run_decode)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                fn()
+                sync()
+                wall = time.perf_counter() - t1
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+            by_name = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0) + \
+                    e.time_range.elapsed_us()
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            out[name] = {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
+                         "idle_share": 1.0 - busy_us * 1e-6 / wall,
+                         "kernel_launches": len(kernels),
+                         "hand_written_kernels_seen": sum(
+                             1 for e in kernels
+                             if "flash_fwd" in e.name or "decode_" in e.name),
+                         "top_kernels_us": top}
+    emit("lm_profile", t0, **out)
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -432,15 +870,20 @@ def main():
     t0 = time.perf_counter()
     build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln for ln in build.BUILD_INFO["gbm_predict"]["log"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+    ptxas = {n: [ln for ln in info["log"].splitlines()
+                 if "registers" in ln or "Compiling entry" in ln
+                 or "spill" in ln]
+             for n, info in build.BUILD_INFO.items()}
     emit("device", t0, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-         build_s=build_s, ptxas=ptxas)
+         build_s=build_s, nvcc_s={n: i["seconds"]
+                                  for n, i in build.BUILD_INFO.items()},
+         ptxas=ptxas)
 
     max_abs, times = kernel_phase(dev)
+    lm_worst, lm_times = lm_kernel_phase()
 
-    # ---- main path: counts from 0 before it, read after it
+    # ---- main path of slice 1: counts from 0 before it, read after it
     K.LAUNCHES = 0
     hub = make_hub("cuda")
     fit_rows = fit_phase(hub, "cuda")
@@ -452,7 +895,14 @@ def main():
     parity_phase(fit_rows)
     profile_phase(hub)
 
+    # ---- main path of slice 2 (lm_serve sets its counts to 0 itself)
+    lm_launches = lm_serve_phase()
+    lm_parity_phase()
+    lm_profile_phase()
+
     serve, big = times["serve_d3"], times["n2p20_d3"]
+    fg, fl = lm_times["flash_global"], lm_times["flash_local"]
+    dg, dl = lm_times["decode_global"], lm_times["decode_local"]
     print(json.dumps({"kernels": [{
         "name": "gbm_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbm_predict.cu",
@@ -462,7 +912,36 @@ def main():
         "bound_by": serve[3], "library_ms": None,
         "shape": f"n={N_CONTEXTS * len(SCALEOUTS)} d=3 T=200 D=3",
         "ms_n2p20": big[0], "plain_ms_n2p20": big[1],
-        "bound_ms_n2p20": big[2]}]}), flush=True)
+        "bound_ms_n2p20": big[2]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:72",
+        "launches": lm_launches["flash_attention"],
+        "max_abs_err": max(lm_worst["flash_attention"].values()),
+        "max_abs_err_by_dtype": lm_worst["flash_attention"],
+        "ms": fg["ms"], "plain_ms": fg["plain_ms"],
+        "bound_ms": fg["bound_ms"], "bound_by": fg["bound_by"],
+        "library_ms": fg["library_ms"],
+        "shape": f"global layer B={SERVE_B} S={SERVE_PROMPT} H=4 KV=1 "
+                 "hd=256 causal bf16",
+        "ms_local": fl["ms"], "plain_ms_local": fl["plain_ms"],
+        "bound_ms_local": fl["bound_ms"],
+        "library_ms_local": fl["library_ms"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:62",
+        "launches": lm_launches["decode_attention"],
+        "combine_launches": lm_launches["decode_attention_combine"],
+        "max_abs_err": max(lm_worst["decode_attention"].values()),
+        "max_abs_err_by_dtype": lm_worst["decode_attention"],
+        "ms": dg["ms"], "plain_ms": dg["plain_ms"],
+        "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
+        "library_ms": dg["library_ms"],
+        "shape": f"global layer B={SERVE_B} L={SERVE_L} H=4 KV=1 hd=256 "
+                 f"pos={dg['pos']} bf16, split + combine",
+        "ms_local": dl["ms"], "plain_ms_local": dl["plain_ms"],
+        "bound_ms_local": dl["bound_ms"],
+        "library_ms_local": dl["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,192 @@
+"""Flash decode: the CUDA kernels' wrapper and their plain PyTorch version.
+
+``decode_attention(q, k_cache, v_cache, pos)`` with q [B, H, hd] (one token
+per row) and caches [B, L, KV, hd] returns [B, H, hd] in q's type: softmax
+attention over the cache in float32, scores ``(q * scale) . k``, an
+optional logit softcap, grouped KV heads (kv head = h // (H // KV)), and a
+mask that keeps slot j when its position p satisfies p <= pos and, with a
+window, p > pos - window.  The position of slot j is j, or ``k_pos[j]``
+when a slot -> position map is given: the ring buffer of a sliding-window
+cache (``modeling/attention.py:ring_positions``), with 2**30 for an empty
+slot.  With ``k_pos=None`` this is the Pallas kernel
+``repro/kernels/decode_attention.py`` (oracle ``ref.decode_attention_ref``);
+``k_pos`` is the ``buf_offset`` of ``repro/modeling/attention.py``'s
+``decode_attention``.
+
+``pos`` is a host int, one for the whole batch, so that no decode step
+waits on the device.  A CUDA tensor always launches the hand-written
+kernels (``csrc/decode_attention.cu``: a split pass over parts of the
+cache, then a combine pass) and raises on what they do not take; a CPU
+tensor uses ``decode_attention_plain``.  There is no fallback from one to
+the other.  ``LAUNCHES`` counts split-pass launches and
+``COMBINE_LAUNCHES`` combine-pass launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -2.0e38
+HEAD_DIMS = (64, 128, 256)       # the kernel's instantiations
+GROUPS = (1, 2, 4, 8)            # query heads per kv head it takes
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MIN_PER_PART = 16                # fewest cache slots one warp walks
+TARGET_WARPS = 132 * 8           # parts to aim for: 8 warps on each H100 SM
+MAX_PARTS = 48 * 1024 // 4       # the combine kernel's weights in smem
+
+LAUNCHES = 0
+COMBINE_LAUNCHES = 0
+
+
+def _mask(k_pos, L, pos, window, device):
+    kp = torch.arange(L, device=device) if k_pos is None else k_pos
+    ok = kp <= pos
+    if window:
+        ok &= kp > pos - window
+    return ok
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0,
+                           softcap=0.0, scale=None, k_pos=None):
+    """The same function in plain PyTorch, float32 inside, out in q's
+    type."""
+    B, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.float().reshape(B, KV, G, hd) * scale
+    s = torch.einsum("bkgh,blkh->bkgl", qg, k_cache.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    ok = _mask(k_pos, L, pos, window, q.device)
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgl,blkh->bkgh", p, v_cache.float())
+    return o.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def slot_range(L, pos, window, k_pos):
+    """[lo, hi): the cache slots the split pass walks.  Without a slot map
+    only positions pos - window + 1 .. pos can be kept; with one, or when
+    no slot can be kept (then every score is NEG_INF and the answer is the
+    plain version's uniform average), the whole cache."""
+    if k_pos is not None:
+        return 0, L
+    lo = max(0, pos - window + 1) if window else 0
+    hi = min(L, pos + 1)
+    return (lo, hi) if lo < hi else (0, L)
+
+
+def split_plan(n_slots, B, KV):
+    """(slots per part, number of parts) for n_slots slots of B * KV heads:
+    enough parts to give the card about TARGET_WARPS warps, none shorter
+    than MIN_PER_PART slots."""
+    per = max(MIN_PER_PART, -(-n_slots * B * KV // TARGET_WARPS))
+    return per, -(-n_slots // per)
+
+
+def _check(q, k_cache, v_cache, pos, window, k_pos):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"q must be [B, H, hd] and the caches [B, L, KV, "
+                         f"hd], got {tuple(q.shape)}, {tuple(k_cache.shape)}")
+    B, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    if tuple(k_cache.shape) != (B, L, KV, hd) or \
+            tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k_cache "
+                         f"{tuple(k_cache.shape)}, v_cache "
+                         f"{tuple(v_cache.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if KV < 1 or H % KV or H // KV not in GROUPS:
+        raise ValueError(f"{H} query heads over {KV} kv heads: the kernel "
+                         f"takes {GROUPS} query heads per kv head")
+    if L < 1 or B * KV > 65535 or B * L * KV * hd >= 2 ** 62:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} not taken")
+    if isinstance(pos, torch.Tensor) or not 0 <= int(pos) < 2 ** 31:
+        raise ValueError(f"pos must be a host int in [0, 2**31), got {pos!r}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if k_pos is not None:
+        if k_pos.device != q.device or k_pos.dtype != torch.int32 or \
+                tuple(k_pos.shape) != (L,) or not k_pos.is_contiguous():
+            raise ValueError("k_pos must be a contiguous int32 [L] tensor on "
+                             "q's device")
+    return B, L, H, KV, hd
+
+
+def _libs():
+    from repro_torch.kernels.build import load
+    lib = load("decode_attention")
+    split, combine = (lib.decode_attention_split_launch,
+                      lib.decode_attention_combine_launch)
+    if split.argtypes is None:
+        split.restype = combine.restype = ctypes.c_int
+        split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+    return split, combine
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window=0, softcap=0.0,
+                     scale=None, k_pos=None) -> torch.Tensor:
+    """Attention of one token per row over the cache, [B, H, hd] in q's
+    type.  On CUDA tensors this launches the split and combine kernels on
+    the current stream; on CPU tensors it is ``decode_attention_plain``."""
+    global LAUNCHES, COMBINE_LAUNCHES
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, pos, window=window,
+                                      softcap=softcap, scale=scale,
+                                      k_pos=k_pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode_attention for device {q.device}")
+    B, L, H, KV, hd = _check(q, k_cache, v_cache, pos, window, k_pos)
+    pos = int(pos)
+    scale = hd ** -0.5 if scale is None else scale
+    lo, hi = slot_range(L, pos, window, k_pos)
+    per, n_parts = split_plan(hi - lo, B, KV)
+    if n_parts > MAX_PARTS:
+        raise ValueError(f"{n_parts} parts exceed the combine kernel's "
+                         f"{MAX_PARTS}")
+    part_ml = torch.empty((2, B, H, n_parts), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, H, n_parts, hd), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    split, combine = _libs()
+    dev = q.device.index or 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = split(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+               None if k_pos is None else k_pos.data_ptr(),
+               part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+               part_acc.data_ptr(), B, L, H, KV, hd, DTYPES[q.dtype],
+               float(scale), pos, int(window), float(softcap), lo, hi, per,
+               n_parts, dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention split kernel failed to launch: "
+                           f"CUDA error {rc}")
+    LAUNCHES += 1
+    rc = combine(part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+                 part_acc.data_ptr(), out.data_ptr(), B, H, hd, n_parts,
+                 DTYPES[q.dtype], dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention combine kernel failed to "
+                           f"launch: CUDA error {rc}")
+    COMBINE_LAUNCHES += 1
+    return out

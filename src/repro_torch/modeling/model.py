@@ -1,0 +1,192 @@
+"""The dense decoder: embeddings, one Python loop over the layers, final
+norm and the tied head.
+
+Port of ``repro/modeling/model.py`` for the dense attention families
+(gemma3, gemma2, deepseek-7b).  The JAX package scans over pattern periods
+to keep its compiled graph small; PyTorch runs eagerly, so the blocks and
+the tail are one loop over ``cfg.n_layers`` layers.  ``modeling.convert``
+carries a JAX parameter tree into this model; ``Model.from_seed`` draws
+weights with ``materialize``'s distributions.
+
+Sharding does nothing on one card, so ``sharding.shard`` and
+``_maybe_shard_heads`` have no counterpart.  What the slice does not cover
+raises ``NotImplementedError`` at construction.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.core.models.api import as_device
+from repro_torch.modeling import attention
+from repro_torch.modeling.layers import (ffn_apply, init_normal, rms_norm,
+                                         softcap)
+
+_WAITS = "not ported yet (ROADMAP.md §1 item 9)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port's LM slice does not
+    cover yet."""
+    missing = []
+    if cfg.use_mla:
+        missing.append("MLA attention")
+    if cfg.n_experts:
+        missing.append("MoE layers")
+    other = sorted(set(cfg.block_pattern) - {ATTN, ATTN_LOCAL})
+    if other:
+        missing.append(f"{'/'.join(other)} layers")
+    if cfg.n_encoder_layers or cfg.frontend != "none":
+        missing.append("encoders and frontends")
+    if cfg.kv_cache_dtype:
+        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)}: "
+                                  f"{_WAITS}")
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _pdict(d: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm attention + FFN layer (``layer_apply``).  ``p`` holds
+    ln1, attn {wq, wk, wv, wo}, ln2, ffn {w_up, w_down[, w_gate]} and, with
+    ``post_norm``, ln1_post and ln2_post."""
+
+    def __init__(self, cfg: ModelConfig, i: int, p: dict):
+        super().__init__()
+        self.cfg, self.kind = cfg, cfg.layer_kind(i)
+        self.attn = _pdict(p["attn"])
+        self.ffn = _pdict(p["ffn"])
+        self.norms = _pdict({k: v for k, v in p.items()
+                             if k.startswith("ln")})
+
+    def forward(self, x, *, mode: str, pos0: int, cache: Optional[dict],
+                ring_pos=None):
+        cfg, n = self.cfg, self.norms
+        h = rms_norm(x, n["ln1"], cfg.norm_eps)
+        h = attention.attn_apply(cfg, self.attn, h, kind=self.kind,
+                                 mode=mode, pos0=pos0, cache=cache,
+                                 ring_pos=ring_pos)
+        if cfg.post_norm:
+            h = rms_norm(h, n["ln1_post"], cfg.norm_eps)
+        x = x + h
+        h = ffn_apply(self.ffn, rms_norm(x, n["ln2"], cfg.norm_eps), cfg.act)
+        if cfg.post_norm:
+            h = rms_norm(h, n["ln2_post"], cfg.norm_eps)
+        return x + h
+
+
+class Model(nn.Module):
+    """``params``: {"embed" [V, d], "final_norm" [d], "layers": [one dict
+    per layer, as ``DecoderLayer`` takes], and "lm_head" [d, V] when the
+    embeddings are not tied}, as tensors on one device."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        check_supported(cfg)
+        if len(params["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(params['layers'])} layers given, "
+                             f"{cfg.name} has {cfg.n_layers}")
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        self.embed = _frozen(params["embed"])
+        self.final_norm = _frozen(params["final_norm"])
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _frozen(params["lm_head"]))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, p)
+                                    for i, p in enumerate(params["layers"]))
+
+    @classmethod
+    def from_seed(cls, cfg: ModelConfig, seed: int = 0,
+                  device="cuda") -> "Model":
+        return cls(cfg, init_params(cfg, seed, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init_cache(self, batch: int, max_seq: int) -> List[dict]:
+        """Zeroed K/V caches, one {"k", "v"} per layer, in the activation
+        type: [batch, max_seq or the window, KV, hd]."""
+        return [attention.init_attn_cache(self.cfg, batch, max_seq, layer.kind,
+                                          self.dtype, self.device)
+                for layer in self.layers]
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens].to(self.dtype)
+        return (x * math.sqrt(self.cfg.d_model)).to(self.dtype)
+
+    def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.embed.T if self.lm_head is None else self.lm_head
+        return softcap(x @ w.to(x.dtype), self.cfg.final_logit_softcap)
+
+    def forward(self, tokens: torch.Tensor, *, mode: str = "train",
+                pos0: int = 0, cache: Optional[List[dict]] = None):
+        """tokens [B, S] -> (logits [B, S, V], cache); prefill returns only
+        the last position's logits, [B, 1, V].  ``pos0`` (a host int) is
+        the position of tokens[:, 0]; a decode step takes S = 1 and writes
+        the caches in place."""
+        cfg = self.cfg
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode != "train" and cache is None:
+            raise ValueError(f"{mode} needs a cache")
+        x = self.embed_tokens(tokens)
+        ring_pos = None
+        if mode == "decode" and cfg.window_size and any(
+                c["k"].shape[1] == cfg.window_size for c in cache):
+            ring_pos = attention.ring_positions(cfg.window_size, pos0,
+                                                x.device)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mode=mode, pos0=pos0,
+                      cache=cache[i] if cache is not None else None,
+                      ring_pos=ring_pos)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if mode == "prefill":
+            x = x[:, -1:]             # only the next-token head is needed
+        return self.lm_logits(x), cache
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
+    """Seeded parameters in ``cfg.param_dtype`` with ``materialize``'s
+    distributions (``modeling/layers.py``): a layer inside the scanned
+    blocks draws each leaf with the fan-in of its stacked
+    [n_scan_blocks, ...] JAX leaf, a tail layer with its own.  The numbers
+    come from a CPU ``torch.Generator(seed)``, so one seed gives the same
+    weights on every device."""
+    check_supported(cfg)
+    dev = as_device(device)
+    dt = getattr(torch, cfg.param_dtype)
+    gen = torch.Generator().manual_seed(seed)
+    d = cfg.d_model
+    out = {"embed": init_normal((cfg.padded_vocab_size, d), gen, dt, dev,
+                                scale=0.02, embed=True),
+           "final_norm": torch.zeros(d, dtype=dt, device=dev),
+           "layers": []}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = init_normal((d, cfg.padded_vocab_size), gen, dt, dev)
+    ffn = {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
+    if cfg.act == "swiglu":
+        ffn["w_gate"] = (d, cfg.d_ff)
+    norms = ["ln1", "ln2"] + (["ln1_post", "ln2_post"] if cfg.post_norm
+                              else [])
+    in_blocks = cfg.n_scan_blocks * cfg.pattern_period
+    for i in range(cfg.n_layers):
+        lead = cfg.n_scan_blocks if cfg.scan_layers and i < in_blocks else 0
+        out["layers"].append({
+            "attn": {n: init_normal(s, gen, dt, dev, lead=lead)
+                     for n, s in attention.attn_shapes(cfg).items()},
+            "ffn": {n: init_normal(s, gen, dt, dev, lead=lead)
+                    for n, s in ffn.items()},
+            **{n: torch.zeros(d, dtype=dt, device=dev) for n in norms}})
+    return out

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written GBM-ensemble
 kernel against its plain PyTorch version, the engine's routing to it, and a
-predictor fitted on the card against the same fit on the CPU.  They skip
-without a card.  This file imports no JAX, so it also runs where only
+predictor fitted on the card against the same fit on the CPU; the
+flash-attention and flash-decode kernels against their plain versions, and
+a small LM served through them.  They skip without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -10,11 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
 from repro_torch.core import engine
 from repro_torch.core.models.api import ModelSpec
 from repro_torch.core.models.gbm import GBM_SPEC
 from repro_torch.core.predictor import C3OPredictor
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gbm_predict as K
+from repro_torch.modeling.attention import ring_positions
+from repro_torch.modeling.model import Model
+from repro_torch.serve.serve_step import greedy_generate
 from repro_torch.workloads import spark_emul as W
 
 pytestmark = pytest.mark.gpu
@@ -90,3 +97,122 @@ def test_cpu_fit_carried_to_card_predicts_the_same(cuda_device):
     card = C3OPredictor.from_state(cpu.export_state(), v.X, device="cuda")
     np.testing.assert_allclose(card.predict(v.X), cpu.predict(v.X),
                                rtol=1e-5)
+
+
+# ------------------------------------------------------------ LM attention
+
+# tests/test_kernels.py's tolerances: float32 2e-5, bfloat16 3e-2 (atol;
+# rtol ten times that)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(seed, B, S, H, KV, hd, dtype, device, L=None):
+    rng = np.random.default_rng(seed)
+    L = S if L is None else L
+    t = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+    return [torch.as_tensor(a, device=device).to(dtype) for a in t]
+
+
+FLASH_CASES = [
+    # (B, S, H, KV, hd, causal, window, cap)
+    (2, 256, 4, 2, 64, True, 0, 0.0),
+    (1, 384, 4, 1, 128, True, 64, 0.0),
+    (2, 128, 8, 4, 256, True, 0, 50.0),
+    (1, 256, 4, 4, 64, False, 0, 0.0),
+    (1, 1000, 4, 1, 256, True, 512, 0.0),
+    (2, 1, 4, 1, 256, True, 0, 0.0),
+    (1, 77, 2, 2, 128, False, 16, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
+    B, S, H, KV, hd, causal, window, cap = case
+    q, k, v = _qkv(S + hd, B, S, H, KV, hd, dtype, cuda_device)
+    before = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=cap)
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype] * 10)
+
+
+DECODE_CASES = [
+    # (B, L, H, KV, hd, pos, window, cap, ring)
+    (2, 300, 4, 1, 256, 150, 0, 0.0, False),
+    (2, 300, 4, 4, 128, 0, 0, 0.0, False),
+    (1, 257, 8, 1, 64, 256, 64, 50.0, False),
+    (3, 64, 4, 2, 256, 70, 64, 0.0, True),     # full ring
+    (2, 64, 4, 1, 256, 40, 64, 0.0, True),     # first turn: empty slots
+    (2, 2120, 4, 1, 256, 2100, 0, 0.0, False),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda_device, case, dtype):
+    B, L, H, KV, hd, pos, window, cap, ring = case
+    q, kc, vc = _qkv(L + pos, B, 1, H, KV, hd, dtype, cuda_device, L=L)
+    q = q[:, 0].contiguous()
+    k_pos = ring_positions(L, pos, cuda_device) if ring else None
+    before = (DA.LAUNCHES, DA.COMBINE_LAUNCHES)
+    got = DA.decode_attention(q, kc, vc, pos, window=window, softcap=cap,
+                              k_pos=k_pos)
+    torch.cuda.synchronize()
+    assert (DA.LAUNCHES, DA.COMBINE_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
+                                     softcap=cap, k_pos=k_pos)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype] * 10)
+
+
+def test_attention_kernels_raise_on_what_they_do_not_take(cuda_device):
+    q, k, v = _qkv(0, 1, 64, 4, 1, 256, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        FA.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        FA.flash_attention(q.transpose(1, 2), k, v)
+    k3 = torch.zeros(1, 64, 3, 256, device=cuda_device)
+    with pytest.raises(ValueError):                  # 4 heads over 3
+        FA.flash_attention(q, k3, k3)
+    with pytest.raises(ValueError):
+        DA.decode_attention(q[:, 0].contiguous(), k, v, torch.tensor(3))
+    with pytest.raises(ValueError):
+        DA.decode_attention(q[:, 0].contiguous(), k, v, 3,
+                            k_pos=torch.arange(64, device=cuda_device))
+
+
+def test_small_model_serves_through_the_kernels(cuda_device):
+    """One prefill and a few decode steps of a reduced gemma3 (head_dim 64,
+    window 16, prompt past the window) on the card, against the same
+    seeded weights on the CPU: the kernels' launch counts grow, the
+    last-position logits agree and the greedy tokens are the same."""
+    cfg = smoke_config("gemma3-1b", head_dim=64)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    cpu = Model.from_seed(cfg, 0, "cpu")
+    card = Model.from_seed(cfg, 0, cuda_device)
+    before = (FA.LAUNCHES, DA.LAUNCHES)
+    got = greedy_generate(card, prompt.to(cuda_device), 6, 48)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES - before[0] == cfg.n_layers
+    assert DA.LAUNCHES - before[1] == 5 * cfg.n_layers
+    want = greedy_generate(cpu, prompt, 6, 48)
+    assert torch.equal(got.cpu(), want)
+    with torch.inference_mode():
+        lc, _ = card(prompt.to(cuda_device), mode="train")
+        lp, _ = cpu(prompt, mode="train")
+    np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), atol=1e-4,
+                               rtol=1e-4)

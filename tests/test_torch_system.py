@@ -1,7 +1,8 @@
 """The port's slice as a whole against the JAX package: the paper's loop
 (publish on a hub, fit one predictor per machine type, choose clusters for
 a backlog of contexts, contribute a run back) on sort and grep, and a check
-that the port runs that loop without loading JAX or the JAX package.
+that the port runs that loop, and the LM serving driver, without loading
+JAX or the JAX package.
 """
 import os
 import subprocess
@@ -212,6 +213,9 @@ PURITY = textwrap.dedent("""
     rep = repo.contribute(RuntimeData(
         repo.schema, np.asarray([out[0].machine_type]),
         np.asarray([[out[0].scale_out, 18.0, 0.02]]), np.asarray([300.0])))
+    from repro_torch.launch import serve
+    toks = serve.run("gemma3-1b", 2, 20, 4, device="cpu")
+    assert tuple(toks.shape) == (2, 4)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print("LOADED", bad)
