@@ -33,10 +33,26 @@ Phases:
               plain) logits and greedy tokens
   lm_profile  device busy time and top kernels of one full-width prefill
               and 8 decode steps (torch.profiler)
+  rwkv_kernel   WKV6 kernel vs its chunked plain version at rwkv6-3b's
+                serving shape (B 8, S 2048, H 40, hd 64, float32), and vs
+                both plain versions on edge cases (given s0, two chunks,
+                B 1 H 1, hd 32, log w down to -12, u = 0, s0 = None, a
+                sequence split across two calls); device times
+                (torch.profiler) and the bound
+  rwkv_profile  device busy time and top kernels of one full-width rwkv6-3b
+                prefill and 8 decode steps (torch.profiler)
+  rwkv_serve    rwkv6-3b at full width and depth through
+                repro_torch.launch.serve.run: batch 8, prompt 2048, 64 new
+                tokens; prefill ms, decode ms/token, tokens/s, peak memory,
+                the runtime-log line; wkv6 launches = 32 (prefill only)
+  rwkv_parity   rwkv6-3b at full width cut to 4 layers, prompt 512, 8
+                decode steps: card (bfloat16, kernel) vs CPU (float32,
+                plain) logits, greedy tokens and the bf16 state's drift
 
-Two main paths: the phases fit, serve and loop (the paper's loop, through
-the GBM kernel), and lm_serve (LM serving, through the two attention
-kernels).  Each path's kernel launch counts are set to 0 just before it
+Three main paths: the phases fit, serve and loop (the paper's loop,
+through the GBM kernel), lm_serve (gemma3-1b serving, through the two
+attention kernels) and rwkv_serve (rwkv6-3b serving, through the WKV6
+kernel).  Each path's kernel launch counts are set to 0 just before it
 and read just after it.  Before the last line it prints the ``kernels``
 line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero.  Without a
@@ -731,6 +747,15 @@ def lm_serve_phase():
     return launches
 
 
+def _cpu_f32(tree):
+    """A parameter tree as float32 tensors on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_f32(v) for v in tree]
+    return tree.float().cpu()
+
+
 def lm_parity_phase():
     """One period of gemma3-1b at full width (5 local + 1 global layer),
     batch 1, prompt 1024 (past the window), 8 greedy decode steps: the card
@@ -745,13 +770,7 @@ def lm_parity_phase():
     cfg = get_config("gemma3-1b", n_layers=6)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     params = init_params(cfg, 1, LM_DEVICE)
-    tree_cpu = {"embed": params["embed"].float().cpu(),
-                "final_norm": params["final_norm"].float().cpu(),
-                "layers": [{k: ({n: t.float().cpu() for n, t in v.items()}
-                                if isinstance(v, dict) else v.float().cpu())
-                            for k, v in layer.items()}
-                           for layer in params["layers"]]}
-    card, cpu = Model(cfg, params), Model(cfg32, tree_cpu)
+    card, cpu = Model(cfg, params), Model(cfg32, _cpu_f32(params))
     S, steps, max_seq = 1024, 8, 1024 + 16
     prompt = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (1, S)))
@@ -789,18 +808,19 @@ def lm_parity_phase():
     return max(rel)
 
 
-def lm_profile_phase():
-    """Device busy time and top device kernels of one full-width gemma3-1b
-    prefill (batch 8, prompt 2048) and of 8 decode steps, from a
-    torch.profiler trace (profiler on: wall times are inflated)."""
+def profile_serving(arch, kernel_marks):
+    """Device busy time and top device kernels of one full-width prefill
+    of ``arch`` (batch 8, prompt 2048) and of 8 decode steps after it, from
+    a torch.profiler trace (profiler on: wall times are inflated).  A
+    device kernel whose name holds one of ``kernel_marks`` counts as one
+    of the port's hand-written kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.modeling.model import Model
     from repro_torch.serve.serve_step import make_decode_step, \
         make_prefill_step
-    t0 = time.perf_counter()
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(arch)
     model = Model.from_seed(cfg, 0, LM_DEVICE)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
@@ -841,14 +861,250 @@ def lm_profile_phase():
                 by_name[e.name] = by_name.get(e.name, 0) + \
                     e.time_range.elapsed_us()
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            ours = [e for e in kernels
+                    if any(m in e.name for m in kernel_marks)]
             out[name] = {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
                          "idle_share": 1.0 - busy_us * 1e-6 / wall,
                          "kernel_launches": len(kernels),
-                         "hand_written_kernels_seen": sum(
-                             1 for e in kernels
-                             if "flash_fwd" in e.name or "decode_" in e.name),
+                         "hand_written_kernels_seen": len(ours),
+                         "hand_written_device_s": sum(
+                             e.time_range.elapsed_us() for e in ours) * 1e-6,
                          "top_kernels_us": top}
-    emit("lm_profile", t0, **out)
+    return out
+
+
+def lm_profile_phase():
+    """profile_serving for gemma3-1b: the flash and decode kernels."""
+    t0 = time.perf_counter()
+    emit("lm_profile", t0, **profile_serving("gemma3-1b",
+                                             ("flash_fwd", "decode_")))
+
+
+# -------------------------------------------------------------- RWKV slice
+
+RWKV_ARCH = "rwkv6-3b"
+# rwkv6-3b's serving shape inside the kernel: 40 heads of 64
+RWKV_H, RWKV_HD = 40, 64
+# tests/test_kernels.py's wkv6 tolerance: atol 2e-4, rtol 1e-3 (float32
+# sums in another order, chunk-local exponents up to 72)
+WKV_ATOL, WKV_RTOL = 2e-4, 1e-3
+
+
+def wkv6_bound_ms(B, S, H, hd):
+    """Least time for one call: r, k, v, w read once, y written once, u,
+    s0 read and s_end written, float32, at the HBM rate; against the
+    products' float32 operations per (b, h, chunk of 16): scores and their
+    product with v (16 x 16 x hd each), the carried-state term and the
+    state update (16 x hd x hd each), two operations per multiply-add."""
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+    flops = 2 * (2 * 16 * 16 * hd + 2 * 16 * hd * hd) * B * H * (S // 16)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _wkv_inputs(seed, B, S, H, hd, s0=True, log_w_min=None, zero_u=False):
+    """Seeded float32 inputs on the card: r, k, v ~ N(0, 0.5^2), decays in
+    RWKV6's domain w = exp(-exp(x)), x = clip(N(0, 1), -8, 2), or log w
+    uniform in [log_w_min, -0.01]; u ~ N(0, 0.3^2), s0 ~ N(0, 0.5^2)."""
+    import torch
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=LM_DEVICE)
+    r, k, v = (0.5 * randn(B, S, H, hd) for _ in range(3))
+    if log_w_min is None:
+        w = torch.exp(-torch.exp(randn(B, S, H, hd).clamp(-8.0, 2.0)))
+    else:
+        w = torch.exp(log_w_min + (-0.01 - log_w_min) * torch.rand(
+            B, S, H, hd, generator=g, device=LM_DEVICE))
+    u = torch.zeros(H, hd, device=LM_DEVICE) if zero_u else 0.3 * randn(H, hd)
+    return r, k, v, w, u, (0.5 * randn(B, H, hd, hd) if s0 else None)
+
+
+def _wkv_excess(got, want):
+    """Largest |got - want| beyond atol + rtol |want|, and the largest
+    |got - want|, over y and the state."""
+    ex, err = -float("inf"), 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(g.isfinite().all())
+        d = (g - w).abs()
+        ex = max(ex, float((d - WKV_ATOL - WKV_RTOL * w.abs()).max()))
+        err = max(err, float(d.max()))
+    return ex, err
+
+
+def rwkv_kernel_phase():
+    """The WKV6 kernel against its chunked plain version at rwkv6-3b's
+    serving shape, and against both plain versions on the edge cases; then
+    device times at the serving shape and the bound."""
+    import torch
+    from repro_torch.kernels import wkv6 as WK
+    t0 = time.perf_counter()
+    B, S, H, hd = SERVE_B, SERVE_PROMPT, RWKV_H, RWKV_HD
+    checked, worst = [], {"vs_chunked_plain": 0.0, "vs_sequential_plain": 0.0}
+
+    def check(label, got, want, which):
+        excess, err = _wkv_excess(got, want)
+        assert excess <= 0, f"wkv6 {label} vs {which}: {excess} beyond " \
+            "tolerance"
+        worst[which] = max(worst[which], err)
+        checked.append(f"{label} {which}")
+
+    serve_in = _wkv_inputs(0, B, S, H, hd)
+    got = WK.wkv6(*serve_in)
+    check(f"serve B{B} S{S} H{H} hd{hd}", got, WK.wkv6_plain(*serve_in),
+          "vs_chunked_plain")
+    cases = [   # label, B, S, H, hd, s0, log w down to, u = 0
+        ("given s0", 2, 64, 4, 64, True, None, False),
+        ("S=32 two chunks", 2, 32, 4, 64, True, None, False),
+        ("B=1 H=1", 1, 64, 1, 64, True, None, False),
+        ("hd=32", 2, 64, 4, 32, True, None, False),
+        ("log w down to -12", 2, 64, 4, 64, True, -12.0, False),
+        ("u=0", 2, 64, 4, 64, True, None, True),
+        ("s0=None", 2, 64, 4, 64, False, None, False)]
+    w_min = float(np.exp(WK.LOG_W_MIN))
+    for i, (label, b, s, h, d, s0, lw_min, zero_u) in enumerate(cases):
+        r, k, v, w, u, st = _wkv_inputs(10 + i, b, s, h, d, s0, lw_min,
+                                        zero_u)
+        got = WK.wkv6(r, k, v, w, u, st)
+        check(label, got, WK.wkv6_plain(r, k, v, w, u, st),
+              "vs_chunked_plain")
+        # the exact recurrence on the clamped decays (log w >= -9)
+        check(label, got, WK.wkv6_sequential_plain(
+            r, k, v, w.clamp(min=w_min), u, st), "vs_sequential_plain")
+    r, k, v, w, u, st = _wkv_inputs(30, 2, 128, 4, 64)
+    y, s_end = WK.wkv6(r, k, v, w, u, st)
+    y1, s1 = WK.wkv6(*(t[:, :64].contiguous() for t in (r, k, v, w)), u, st)
+    y2, s2 = WK.wkv6(*(t[:, 64:].contiguous() for t in (r, k, v, w)), u, s1)
+    check("split across two calls", (torch.cat([y1, y2], 1), s2),
+          (y, s_end), "vs_chunked_plain")
+    sync()
+
+    kern = lm_time(lambda: WK.wkv6(*serve_in), 20)
+    plain = lm_time(lambda: WK.wkv6_plain(*serve_in), 3)
+    bnd, by = wkv6_bound_ms(B, S, H, hd)
+    times = {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+             "bound_by": by, "library_ms": None,
+             "timings": {"kernel": kern, "plain": plain}}
+    emit("rwkv_kernel", t0, cases=checked, max_abs_err=worst,
+         tolerance={"atol": WKV_ATOL, "rtol": WKV_RTOL}, times=times,
+         library="none: no one PyTorch call computes WKV6")
+    return max(worst.values()), times
+
+
+def rwkv_profile_phase():
+    """profile_serving for rwkv6-3b: the WKV6 kernel, seen in the prefill
+    only.  It runs before rwkv_serve and leaves the card warm for it."""
+    t0 = time.perf_counter()
+    out = profile_serving(RWKV_ARCH, ("wkv6_kernel",))
+    assert out["prefill"]["hand_written_kernels_seen"] > 0
+    assert out["decode_8_steps"]["hand_written_kernels_seen"] == 0
+    emit("rwkv_profile", t0, **out)
+
+
+def rwkv_serve_phase():
+    """rwkv6-3b at full width and depth through
+    ``repro_torch.launch.serve.run``: batch 8, prompt 2048 (128 chunks of
+    16), 64 new tokens.  rwkv_profile ran the same shapes before it, so
+    the card is warm.  The count is set to 0 just before the run and read
+    just after it: the prefill launches the kernel once per layer, and no
+    decode step launches it (S = 1 takes the sequential branch)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as WK
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        WK.LAUNCHES = 0
+        t1 = time.perf_counter()
+        toks = serve.run(RWKV_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW,
+                         smoke=False, runtime_log=log, seed=0,
+                         device=LM_DEVICE)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = WK.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+    assert rec["arch"] == RWKV_ARCH and rec["batch"] == SERVE_B
+    assert rec["prompt_len"] == SERVE_PROMPT
+    assert rec["prefill_s"] > 0 and rec["decode_median_s"] > 0
+    assert tuple(toks.shape) == (SERVE_B, SERVE_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert launches == cfg.n_layers, launches
+    emit("rwkv_serve", t0, arch=RWKV_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=cfg.param_counts()["total"],
+         batch=SERVE_B, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+         prefill_ms=rec["prefill_s"] * 1e3,
+         prefill_tokens_per_s=SERVE_B * SERVE_PROMPT / rec["prefill_s"],
+         decode_median_ms_per_token=rec["decode_median_s"] * 1e3,
+         decode_tokens_per_s=SERVE_B / rec["decode_median_s"],
+         run_wall_s=wall, peak_device_bytes=peak,
+         launches={"wkv6": launches}, runtime_log_line=rec)
+    return launches
+
+
+def rwkv_parity_phase():
+    """rwkv6-3b at full width with depth cut to 4 layers, batch 1, prompt
+    512 (32 chunks), 8 decode steps: the card (bfloat16 activations and
+    state, the kernel) against the CPU (float32, plain versions) on the
+    same weights.  The card's decode steps take the CPU's tokens, so every
+    step compares the same inputs.  The state round-trips through bf16
+    after the prefill and every step, as in the reference; the per-step
+    errors and the states' relative errors show how far that drifts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.model import Model, init_params
+    t0 = time.perf_counter()
+    cfg = get_config(RWKV_ARCH, n_layers=4)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg, 1, LM_DEVICE)
+    card, cpu = Model(cfg, params), Model(cfg32, _cpu_f32(params))
+    S, steps = 512, 8
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)))
+    rel, agree, decided, margins, state_rel = [], 0, 0, [], []
+    with torch.inference_mode():
+        c_cpu, c_card = cpu.init_cache(1, S), card.init_cache(1, S)
+        want, _ = cpu(prompt, mode="prefill", cache=c_cpu)
+        got, _ = card(prompt.to(LM_DEVICE), mode="prefill", cache=c_card)
+        for step in range(steps + 1):
+            w, g = want[0, -1].double(), got[0, -1].double().cpu()
+            err = (g - w).abs().max().item()
+            rel.append(((g - w).norm() / w.norm()).item())
+            state_rel.append(max(
+                ((a["s"].double().cpu() - b["s"].double()).norm()
+                 / b["s"].double().norm()).item()
+                for a, b in zip(c_card, c_cpu)))
+            top2 = torch.topk(w, 2).values
+            margin = (top2[0] - top2[1]).item()
+            margins.append(margin)
+            same = int(g.argmax()) == int(w.argmax())
+            agree += same
+            if margin > 2 * err:          # the card's error cannot flip it
+                decided += 1
+                assert same, f"step {step}: greedy token differs"
+            if step == steps:
+                break
+            tok = w.argmax().reshape(1, 1)
+            pos = S + step
+            want, _ = cpu(tok, mode="decode", pos0=pos, cache=c_cpu)
+            got, _ = card(tok.to(LM_DEVICE), mode="decode", pos0=pos,
+                          cache=c_card)
+    assert max(rel) <= PARITY_REL_TOL, rel
+    emit("rwkv_parity", t0, layers=4, prompt_len=S, decode_steps=steps,
+         logits_rel_err=rel, max_logits_rel_err=max(rel),
+         tolerance=PARITY_REL_TOL, state_rel_err_max_over_layers=state_rel,
+         greedy_tokens_agree=f"{agree}/{steps + 1}",
+         steps_where_margin_exceeds_twice_error=decided,
+         top2_margins=margins)
+    return max(rel)
 
 
 # ------------------------------------------------------------------ main
@@ -900,6 +1156,12 @@ def main():
     lm_parity_phase()
     lm_profile_phase()
 
+    # ---- main path of slice 3 (rwkv_serve sets its count to 0 itself)
+    wkv_err, wkv_times = rwkv_kernel_phase()
+    rwkv_profile_phase()
+    wkv_launches = rwkv_serve_phase()
+    rwkv_parity_phase()
+
     serve, big = times["serve_d3"], times["n2p20_d3"]
     fg, fl = lm_times["flash_global"], lm_times["flash_local"]
     dg, dl = lm_times["decode_global"], lm_times["decode_local"]
@@ -941,7 +1203,16 @@ def main():
                  f"pos={dg['pos']} bf16, split + combine",
         "ms_local": dl["ms"], "plain_ms_local": dl["plain_ms"],
         "bound_ms_local": dl["bound_ms"],
-        "library_ms_local": dl["library_ms"]}]}), flush=True)
+        "library_ms_local": dl["library_ms"]}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:66",
+        "launches": wkv_launches, "max_abs_err": wkv_err,
+        "ms": wkv_times["ms"], "plain_ms": wkv_times["plain_ms"],
+        "bound_ms": wkv_times["bound_ms"],
+        "bound_by": wkv_times["bound_by"], "library_ms": None,
+        "shape": f"B={SERVE_B} S={SERVE_PROMPT} H={RWKV_H} hd={RWKV_HD} "
+                 "float32, given s0"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

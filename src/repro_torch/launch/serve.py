@@ -1,14 +1,18 @@
 """Batched serving driver: prefill a batch of prompts, then decode greedily.
 
-Port of ``repro/launch/serve.py`` for the dense attention families.  It
-serves a reduced (``--smoke``, the default) or full (``--full``)
-architecture with seeded weights, reports prefill time and the median
-per-token decode time, and appends them to the C3O runtime log that the
-configurator predicts from.  Prefill runs the flash-attention kernel in
-every layer and each decode step the flash-decode kernels.
+Port of ``repro/launch/serve.py`` for the dense attention families and
+RWKV6.  It serves a reduced (``--smoke``, the default) or full
+(``--full``) architecture with seeded weights, reports prefill time and
+the median per-token decode time, and appends them to the C3O runtime log
+that the configurator predicts from.  In an attention model prefill runs
+the flash-attention kernel in every layer and each decode step the
+flash-decode kernels; in rwkv6-3b prefill runs the WKV6 kernel in every
+layer, and its state caches do not depend on the cache length.
 
 Usage (on the card, full width):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \\
+      --batch 8 --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full \\
       --batch 8 --prompt-len 2048 --max-new 64
 """
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""The dense decoder: embeddings, one Python loop over the layers, final
-norm and the tied head.
+"""The decoder: embeddings, one Python loop over the layers, final norm and
+the tied head.
 
 Port of ``repro/modeling/model.py`` for the dense attention families
-(gemma3, gemma2, deepseek-7b).  The JAX package scans over pattern periods
-to keep its compiled graph small; PyTorch runs eagerly, so the blocks and
-the tail are one loop over ``cfg.n_layers`` layers.  ``modeling.convert``
-carries a JAX parameter tree into this model; ``Model.from_seed`` draws
-weights with ``materialize``'s distributions.
+(gemma3, gemma2, deepseek-7b) and RWKV6 (rwkv6-3b).  The JAX package scans
+over pattern periods to keep its compiled graph small; PyTorch runs
+eagerly, so the blocks and the tail are one loop over ``cfg.n_layers``
+layers, each an attention or an RWKV layer by ``cfg.layer_kind(i)``.
+``modeling.convert`` carries a JAX parameter tree into this model;
+``Model.from_seed`` draws weights with ``materialize``'s distributions.
 
 Sharding does nothing on one card, so ``sharding.shard`` and
 ``_maybe_shard_heads`` have no counterpart.  What the slice does not cover
@@ -20,9 +21,9 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, RWKV, ModelConfig
 from repro_torch.core.models.api import as_device
-from repro_torch.modeling import attention
+from repro_torch.modeling import attention, rwkv
 from repro_torch.modeling.layers import (ffn_apply, init_normal, rms_norm,
                                          softcap)
 
@@ -37,7 +38,7 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MLA attention")
     if cfg.n_experts:
         missing.append("MoE layers")
-    other = sorted(set(cfg.block_pattern) - {ATTN, ATTN_LOCAL})
+    other = sorted(set(cfg.block_pattern) - {ATTN, ATTN_LOCAL, RWKV})
     if other:
         missing.append(f"{'/'.join(other)} layers")
     if cfg.n_encoder_layers or cfg.frontend != "none":
@@ -70,6 +71,10 @@ class DecoderLayer(nn.Module):
         self.norms = _pdict({k: v for k, v in p.items()
                              if k.startswith("ln")})
 
+    def init_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+        return attention.init_attn_cache(self.cfg, batch, max_seq, self.kind,
+                                         dtype, device)
+
     def forward(self, x, *, mode: str, pos0: int, cache: Optional[dict],
                 ring_pos=None):
         cfg, n = self.cfg, self.norms
@@ -86,10 +91,50 @@ class DecoderLayer(nn.Module):
         return x + h
 
 
+class RwkvLayer(nn.Module):
+    """One pre-norm RWKV6 layer: time mix, then channel mix (the RWKV
+    branch of ``layer_apply``).  ``p`` holds ln1, tm (``rwkv.tm_defs``),
+    ln2, cm (``rwkv.cm_defs``) and, with ``post_norm``, ln1_post and
+    ln2_post.  A cache {"s", "x_tm", "x_cm"} is read and then overwritten
+    in place, cast to its own type as the reference casts it."""
+
+    def __init__(self, cfg: ModelConfig, i: int, p: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.tm = _pdict(p["tm"])
+        self.cm = _pdict(p["cm"])
+        self.norms = _pdict({k: v for k, v in p.items()
+                             if k.startswith("ln")})
+
+    def init_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+        return rwkv.init_rwkv_cache(self.cfg, batch, dtype, device)
+
+    def forward(self, x, *, mode: str, pos0: int, cache: Optional[dict],
+                ring_pos=None):
+        cfg, n = self.cfg, self.norms
+        h = rms_norm(x, n["ln1"], cfg.norm_eps)
+        h, s_new, x_tm = rwkv.rwkv_time_mix(
+            cfg, self.tm, h, cache_s=cache["s"] if cache else None,
+            cache_x=cache["x_tm"] if cache else None)
+        if cfg.post_norm:
+            h = rms_norm(h, n["ln1_post"], cfg.norm_eps)
+        x = x + h
+        h = rms_norm(x, n["ln2"], cfg.norm_eps)
+        h, x_cm = rwkv.rwkv_channel_mix(
+            cfg, self.cm, h, cache_x=cache["x_cm"] if cache else None)
+        if cache:
+            cache["s"].copy_(s_new)
+            cache["x_tm"].copy_(x_tm)
+            cache["x_cm"].copy_(x_cm)
+        if cfg.post_norm:
+            h = rms_norm(h, n["ln2_post"], cfg.norm_eps)
+        return x + h
+
+
 class Model(nn.Module):
     """``params``: {"embed" [V, d], "final_norm" [d], "layers": [one dict
-    per layer, as ``DecoderLayer`` takes], and "lm_head" [d, V] when the
-    embeddings are not tied}, as tensors on one device."""
+    per layer, as ``DecoderLayer`` or ``RwkvLayer`` takes], and "lm_head"
+    [d, V] when the embeddings are not tied}, as tensors on one device."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -103,8 +148,9 @@ class Model(nn.Module):
         self.final_norm = _frozen(params["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings
                         else _frozen(params["lm_head"]))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, i, p)
-                                    for i, p in enumerate(params["layers"]))
+        self.layers = nn.ModuleList(
+            (RwkvLayer if cfg.layer_kind(i) == RWKV else DecoderLayer)(
+                cfg, i, p) for i, p in enumerate(params["layers"]))
 
     @classmethod
     def from_seed(cls, cfg: ModelConfig, seed: int = 0,
@@ -116,10 +162,11 @@ class Model(nn.Module):
         return self.embed.device
 
     def init_cache(self, batch: int, max_seq: int) -> List[dict]:
-        """Zeroed K/V caches, one {"k", "v"} per layer, in the activation
-        type: [batch, max_seq or the window, KV, hd]."""
-        return [attention.init_attn_cache(self.cfg, batch, max_seq, layer.kind,
-                                          self.dtype, self.device)
+        """Zeroed caches, one per layer, in the activation type: {"k", "v"}
+        [batch, max_seq or the window, KV, hd] for an attention layer,
+        {"s", "x_tm", "x_cm"} for an RWKV layer, whose size does not
+        depend on ``max_seq``."""
+        return [layer.init_cache(batch, max_seq, self.dtype, self.device)
                 for layer in self.layers]
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -144,7 +191,8 @@ class Model(nn.Module):
         x = self.embed_tokens(tokens)
         ring_pos = None
         if mode == "decode" and cfg.window_size and any(
-                c["k"].shape[1] == cfg.window_size for c in cache):
+                "k" in c and c["k"].shape[1] == cfg.window_size
+                for c in cache):
             ring_pos = attention.ring_positions(cfg.window_size, pos0,
                                                 x.device)
         for i, layer in enumerate(self.layers):
@@ -183,10 +231,26 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     in_blocks = cfg.n_scan_blocks * cfg.pattern_period
     for i in range(cfg.n_layers):
         lead = cfg.n_scan_blocks if cfg.scan_layers and i < in_blocks else 0
-        out["layers"].append({
-            "attn": {n: init_normal(s, gen, dt, dev, lead=lead)
-                     for n, s in attention.attn_shapes(cfg).items()},
-            "ffn": {n: init_normal(s, gen, dt, dev, lead=lead)
-                    for n, s in ffn.items()},
-            **{n: torch.zeros(d, dtype=dt, device=dev) for n in norms}})
+        layer = {n: torch.zeros(d, dtype=dt, device=dev) for n in norms}
+        if cfg.layer_kind(i) == RWKV:
+            for group, defs in (("tm", rwkv.tm_defs(cfg)),
+                                ("cm", rwkv.cm_defs(cfg))):
+                layer[group] = {n: _leaf(shape, kind, scale, gen, dt, dev,
+                                         lead)
+                                for n, (shape, kind, scale) in defs.items()}
+        else:
+            layer["attn"] = {n: init_normal(s, gen, dt, dev, lead=lead)
+                             for n, s in attention.attn_shapes(cfg).items()}
+            layer["ffn"] = {n: init_normal(s, gen, dt, dev, lead=lead)
+                            for n, s in ffn.items()}
+        out["layers"].append(layer)
     return out
+
+
+def _leaf(shape, kind, scale, gen, dt, dev, lead) -> torch.Tensor:
+    """One leaf of ``materialize``'s "normal", "ones" (filled with
+    ``scale``) or "zeros" kind."""
+    if kind == "normal":
+        return init_normal(shape, gen, dt, dev, scale=scale, lead=lead)
+    return torch.full(shape, scale if kind == "ones" else 0.0, dtype=dt,
+                      device=dev)

@@ -2,7 +2,9 @@
 kernel against its plain PyTorch version, the engine's routing to it, and a
 predictor fitted on the card against the same fit on the CPU; the
 flash-attention and flash-decode kernels against their plain versions, and
-a small LM served through them.  They skip without a card.  This file imports no JAX, so it also runs where only
+a small LM served through them; the WKV6 kernel against both of its plain
+versions, and a small RWKV6 model served through it.  They skip without a
+card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -19,6 +21,7 @@ from repro_torch.core.predictor import C3OPredictor
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gbm_predict as K
+from repro_torch.kernels import wkv6 as WK
 from repro_torch.modeling.attention import ring_positions
 from repro_torch.modeling.model import Model
 from repro_torch.serve.serve_step import greedy_generate
@@ -216,3 +219,131 @@ def test_small_model_serves_through_the_kernels(cuda_device):
         lp, _ = cpu(prompt, mode="train")
     np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+# ------------------------------------------------------------------- WKV6
+
+# tests/test_kernels.py's wkv6 tolerance: atol 2e-4, rtol 1e-3
+WKV_ATOL, WKV_RTOL = 2e-4, 1e-3
+
+
+def _wkv_inputs(seed, B, S, H, hd, device, s0=False, log_w_min=None,
+                zero_u=False):
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, S, H, hd)) for _ in range(3))
+    if log_w_min is None:
+        x = np.clip(rng.standard_normal((B, S, H, hd)), -8.0, 2.0)
+        w = np.exp(-np.exp(x))
+    else:
+        w = np.exp(rng.uniform(log_w_min, -0.01, (B, S, H, hd)))
+    u = np.zeros((H, hd)) if zero_u else 0.3 * rng.standard_normal((H, hd))
+    st = 0.5 * rng.standard_normal((B, H, hd, hd)) if s0 else None
+    return [None if a is None else
+            torch.as_tensor(a.astype(np.float32), device=device)
+            for a in (r, k, v, w, u, st)]
+
+
+def _wkv_close(got, want):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=WKV_ATOL, rtol=WKV_RTOL)
+
+
+WKV_CASES = [
+    # (B, S, H, hd, s0 given, log w down to, u = 0)
+    (2, 64, 4, 64, False, None, False),
+    (2, 64, 4, 64, True, None, False),     # given s0
+    (1, 32, 2, 64, True, None, False),     # two chunks
+    (1, 48, 1, 64, False, None, False),    # B 1, H 1
+    (2, 64, 4, 32, True, None, False),     # hd 32, the smoke width
+    (2, 32, 2, 16, False, None, False),    # hd 16
+    (2, 64, 4, 64, True, -12.0, False),    # decays past the clamp
+    (1, 64, 2, 64, False, None, True),     # u = 0
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_both_plain_versions(cuda_device, case):
+    """Against the chunked plain version as it is, and against the exact
+    recurrence on the clamped decays (log w >= -9), which is what the
+    chunked form computes."""
+    B, S, H, hd, has_s0, log_w_min, zero_u = case
+    r, k, v, w, u, s0 = _wkv_inputs(S + hd + B, B, S, H, hd, cuda_device,
+                                    has_s0, log_w_min, zero_u)
+    before = WK.LAUNCHES
+    y, s = WK.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES == before + 1
+    assert y.shape == r.shape and s.shape == (B, H, hd, hd)
+    y_p, s_p = WK.wkv6_plain(r, k, v, w, u, s0)
+    _wkv_close(y, y_p)
+    _wkv_close(s, s_p)
+    w_c = torch.clamp(w, min=float(np.exp(WK.LOG_W_MIN)))
+    y_q, s_q = WK.wkv6_sequential_plain(r, k, v, w_c, u, s0)
+    _wkv_close(y, y_q)
+    _wkv_close(s, s_q)
+
+
+def test_wkv6_kernel_carries_state_across_calls(cuda_device):
+    r, k, v, w, u, _ = _wkv_inputs(11, 2, 64, 4, 64, cuda_device)
+    y, s = WK.wkv6(r, k, v, w, u)
+    y1, s1 = WK.wkv6(*(t[:, :32].contiguous() for t in (r, k, v, w)), u)
+    y2, s2 = WK.wkv6(*(t[:, 32:].contiguous() for t in (r, k, v, w)), u, s1)
+    _wkv_close(torch.cat([y1, y2], 1), y)
+    _wkv_close(s2, s)
+
+
+def test_wkv6_raises_on_what_it_does_not_take(cuda_device):
+    r, k, v, w, u, s0 = _wkv_inputs(0, 1, 32, 2, 64, cuda_device, s0=True)
+    with pytest.raises(ValueError):                   # S % 16 != 0
+        WK.wkv6(*(t[:, :20].contiguous() for t in (r, k, v, w)), u)
+    with pytest.raises(TypeError):
+        WK.wkv6(r.bfloat16(), k, v, w, u)
+    with pytest.raises(TypeError):
+        WK.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError):                   # a CPU tensor
+        WK.wkv6(r, k.cpu(), v, w, u)
+    with pytest.raises(ValueError):
+        WK.wkv6(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError):                   # shapes disagree
+        WK.wkv6(r, k[:, :, :1].contiguous(), v, w, u)
+    with pytest.raises(ValueError):
+        WK.wkv6(r, k, v, w, u[:1].contiguous())
+    with pytest.raises(ValueError):
+        WK.wkv6(r, k, v, w, u, s0[:, :1].contiguous())
+    with pytest.raises(ValueError):                   # strided
+        WK.wkv6(r.transpose(1, 2), k, v, w, u)
+    r3 = torch.zeros(1, 32, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError):                   # hd 48
+        WK.wkv6(r3, r3, r3, r3, torch.zeros(2, 48, device=cuda_device))
+
+
+def test_small_rwkv_model_serves_through_the_kernel(cuda_device):
+    """A 2-layer reduced rwkv6 (hd 32) on the card against the same seeded
+    weights on the CPU: one prefill of 64 tokens launches the kernel once
+    per layer, the decode steps never; logits of the prefill and of
+    teacher-forced decode steps agree, and so do the greedy tokens."""
+    cfg = smoke_config("rwkv6-3b", n_layers=2)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64)))
+    cpu = Model.from_seed(cfg, 0, "cpu")
+    card = Model.from_seed(cfg, 0, cuda_device)
+    before = WK.LAUNCHES
+    got = greedy_generate(card, prompt.to(cuda_device), 6, 80)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES - before == cfg.n_layers
+    want = greedy_generate(cpu, prompt, 6, 80)
+    assert torch.equal(got.cpu(), want)
+    with torch.inference_mode():
+        cc, cp = card.init_cache(2, 80), cpu.init_cache(2, 80)
+        lc, _ = card(prompt.to(cuda_device), mode="prefill", cache=cc)
+        lp, _ = cpu(prompt, mode="prefill", cache=cp)
+        steps = [(lc, lp)]
+        for i in range(4):
+            tok = prompt[:, i:i + 1]
+            lc, _ = card(tok.to(cuda_device), mode="decode", pos0=64 + i,
+                         cache=cc)
+            lp, _ = cpu(tok, mode="decode", pos0=64 + i, cache=cp)
+            steps.append((lc, lp))
+    for a, b in steps:
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-4)

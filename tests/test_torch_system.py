@@ -216,6 +216,8 @@ PURITY = textwrap.dedent("""
     from repro_torch.launch import serve
     toks = serve.run("gemma3-1b", 2, 20, 4, device="cpu")
     assert tuple(toks.shape) == (2, 4)
+    toks = serve.run("rwkv6-3b", 2, 32, 3, device="cpu")
+    assert tuple(toks.shape) == (2, 3)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print("LOADED", bad)
