@@ -48,12 +48,30 @@ Phases:
   rwkv_parity   rwkv6-3b at full width cut to 4 layers, prompt 512, 8
                 decode steps: card (bfloat16, kernel) vs CPU (float32,
                 plain) logits, greedy tokens and the bf16 state's drift
+  jamba_kernel  selective-scan kernel vs its plain version at
+                jamba-1.5-large's serving shape (B 8, S 2048, D 16,384,
+                N 16, float32, given h0) and on edge cases (h0 = None,
+                N 8 and 4, B 1 with ragged D and S, bf16 u, dt*A down to
+                -50, a sequence split across two calls); CUDA-event times
+                and the bound
+  jamba_profile device busy time and top kernels of one prefill and 8
+                decode steps of jamba-1.5-large at full width cut to 4
+                layers (torch.profiler); the scan kernel in prefill only
+  jamba_serve   the same model through repro_torch.launch.serve.run:
+                batch 8, prompt 2048, 64 new tokens; init s, prefill ms,
+                decode ms/token, peak memory, MoE drop share; scan
+                launches = 3 (prefill only), flash 1, decode 63
+  jamba_parity  the same 4 layers with d_ff and moe_d_ff cut to 2,048,
+                prompt 256, 8 decode steps: card in float32 and in bf16
+                vs CPU (float32, plain) logits, greedy tokens and MoE
+                routing
 
-Three main paths: the phases fit, serve and loop (the paper's loop,
+Four main paths: the phases fit, serve and loop (the paper's loop,
 through the GBM kernel), lm_serve (gemma3-1b serving, through the two
-attention kernels) and rwkv_serve (rwkv6-3b serving, through the WKV6
-kernel).  Each path's kernel launch counts are set to 0 just before it
-and read just after it.  Before the last line it prints the ``kernels``
+attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
+kernel) and jamba_serve (jamba-1.5-large serving, through the scan and
+the attention kernels).  Each path's kernel launch counts are set to 0
+just before it and read just after it.  Before the last line it prints the ``kernels``
 line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero.  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -135,12 +153,16 @@ def smem_bound_ms(n, T, depth):
     feature id and a threshold per level and one leaf per tree, and an SM
     serves 32 four-byte loads per clock, at the card's maximum SM clock."""
     import torch
-    mhz = float(subprocess.run(
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n * T * (2 * depth + 1) / (sms * 32 * max_sm_clock_mhz() * 1e6) \
+        * 1e3
+
+
+def max_sm_clock_mhz():
+    return float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return n * T * (2 * depth + 1) / (sms * 32 * mhz * 1e6) * 1e3
 
 
 def cuda_ms(fn, reps, warm=3):
@@ -587,12 +609,100 @@ def lm_time(fn, reps, kernels_per_call=1):
             "ms_from": "profiler device time" if seen else "cuda events"}
 
 
-def lm_kernel_phase():
-    """Both attention kernels against their plain versions on the card, in
-    bfloat16 and float32, then times at the serving shapes."""
+def flash_times(seed, B, S, H, KV, hd, window):
+    """Kernel, plain and SDPA times of one causal bf16 flash_attention call
+    at [B, S, H over KV, hd], and its bound."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(seed, B, S, H, KV, hd, "bfloat16")
+    kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
+    plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
+                                                     window=window), 5)
+    lib = sdpa_flash(q, k, v, True, window)
+    lib_t = lm_time(lib, 20) if lib else None
+    lib_err = None if lib is None else float(
+        (lib().transpose(1, 2).float()
+         - FA.flash_attention_plain(q, k, v, window=window).float())
+        .abs().max())
+    bnd, by = flash_bound_ms(B, S, H, KV, hd, True, window, "bfloat16")
+    return {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
+            "library_max_abs_err_vs_plain": lib_err,
+            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+
+
+def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
+    """Kernel (split + combine), plain and SDPA times of one bf16
+    decode_attention call over a [B, Lc, KV, hd] cache at ``pos`` (a ring
+    cache through its slot map when ``ring``), and its bound."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.modeling.attention import ring_positions
+    q, kc, vc = _qkv(seed, B, 1, H, KV, hd, "bfloat16", L=Lc)
+    q = q[:, 0].contiguous()
+    k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
+    kern = lm_time(lambda: DA.decode_attention(
+        q, kc, vc, pos, window=window, k_pos=k_pos), 200,
+        kernels_per_call=2)
+    plain = lm_time(lambda: DA.decode_attention_plain(
+        q, kc, vc, pos, window=window, k_pos=k_pos), 50)
+    ok = DA._mask(k_pos, Lc, pos, window, q.device)
+    lib = sdpa_decode(q, kc, vc, ok)
+    lib_t = lm_time(lib, 200) if lib else None
+    n_kept = int(ok.sum())
+    bnd, by = decode_bound_ms(B, H, KV, hd, n_kept, Lc if ring else 0,
+                              "bfloat16")
+    return {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
+            "pos": pos, "slots_kept": n_kept,
+            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+
+
+def check_attention(flash_cases, decode_cases, seed=0):
+    """Each case of both attention kernels against its plain version on
+    the card, in bfloat16 and float32, within LM_TOL: the largest abs
+    error by kernel and type, and the cases checked."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.modeling.attention import ring_positions
+    worst = {"flash_attention": {}, "decode_attention": {}}
+    checked = {"flash_attention": [], "decode_attention": []}
+    for i, (label, b, S, H, KV, hd, causal, window, cap) in \
+            enumerate(flash_cases):
+        for dt in ("bfloat16", "float32"):
+            q, k, v = _qkv(seed + i, b, S, H, KV, hd, dt)
+            got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, softcap=cap)
+            sync()
+            excess, err = _excess(got, want, dt)
+            assert excess <= 0, f"flash_attention {label} {dt}: " \
+                f"{excess} beyond tolerance"
+            w = worst["flash_attention"]
+            w[dt] = max(w.get(dt, 0.0), err)
+            checked["flash_attention"].append(f"{label} {dt}")
+    for i, (label, b, Lc, H, KV, hd, pos, window, cap, ring) in \
+            enumerate(decode_cases):
+        for dt in ("bfloat16", "float32"):
+            q, kc, vc = _qkv(seed + 100 + i, b, 1, H, KV, hd, dt, L=Lc)
+            q = q[:, 0].contiguous()
+            k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
+            got = DA.decode_attention(q, kc, vc, pos, window=window,
+                                      softcap=cap, k_pos=k_pos)
+            want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
+                                             softcap=cap, k_pos=k_pos)
+            sync()
+            excess, err = _excess(got, want, dt)
+            assert excess <= 0, f"decode_attention {label} {dt}: " \
+                f"{excess} beyond tolerance"
+            w = worst["decode_attention"]
+            w[dt] = max(w.get(dt, 0.0), err)
+            checked["decode_attention"].append(f"{label} {dt}")
+    return worst, checked
+
+
+def lm_kernel_phase():
+    """Both attention kernels against their plain versions on the card, in
+    bfloat16 and float32, then times at the serving shapes."""
     t0 = time.perf_counter()
     B, Sv, L = SERVE_B, SERVE_PROMPT, SERVE_L
     flash_cases = [   # label, B, S, H, KV, hd, causal, window, cap
@@ -615,81 +725,15 @@ def lm_kernel_phase():
         ("softcap 50 H8 KV4", 2, L, 8, 4, 256, 1500, 0, 50.0, False),
         ("G=1 hd=128", 2, L, 4, 4, 128, 700, 0, 0.0, False),
         ("G=8 hd=64 window 256", 2, 1000, 8, 1, 64, 999, 256, 0.0, False)]
-    worst = {"flash_attention": {}, "decode_attention": {}}
-    checked = {"flash_attention": [], "decode_attention": []}
-    for i, (label, b, S, H, KV, hd, causal, window, cap) in \
-            enumerate(flash_cases):
-        for dt in ("bfloat16", "float32"):
-            q, k, v = _qkv(i, b, S, H, KV, hd, dt)
-            got = FA.flash_attention(q, k, v, causal=causal, window=window,
-                                     softcap=cap)
-            want = FA.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window, softcap=cap)
-            sync()
-            excess, err = _excess(got, want, dt)
-            assert excess <= 0, f"flash_attention {label} {dt}: " \
-                f"{excess} beyond tolerance"
-            w = worst["flash_attention"]
-            w[dt] = max(w.get(dt, 0.0), err)
-            checked["flash_attention"].append(f"{label} {dt}")
-    for i, (label, b, Lc, H, KV, hd, pos, window, cap, ring) in \
-            enumerate(decode_cases):
-        for dt in ("bfloat16", "float32"):
-            q, kc, vc = _qkv(100 + i, b, 1, H, KV, hd, dt, L=Lc)
-            q = q[:, 0].contiguous()
-            k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
-            got = DA.decode_attention(q, kc, vc, pos, window=window,
-                                      softcap=cap, k_pos=k_pos)
-            want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
-                                             softcap=cap, k_pos=k_pos)
-            sync()
-            excess, err = _excess(got, want, dt)
-            assert excess <= 0, f"decode_attention {label} {dt}: " \
-                f"{excess} beyond tolerance"
-            w = worst["decode_attention"]
-            w[dt] = max(w.get(dt, 0.0), err)
-            checked["decode_attention"].append(f"{label} {dt}")
+    worst, checked = check_attention(flash_cases, decode_cases)
 
     times = {}
     for name, window in (("global", 0), ("local", 512)):
-        q, k, v = _qkv(7, B, Sv, 4, 1, 256, "bfloat16")
-        kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
-        plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
-                                                         window=window), 5)
-        lib = sdpa_flash(q, k, v, True, window)
-        lib_t = lm_time(lib, 20) if lib else None
-        lib_err = None if lib is None else float(
-            (lib().transpose(1, 2).float()
-             - FA.flash_attention_plain(q, k, v, window=window).float())
-            .abs().max())
-        bnd, by = flash_bound_ms(B, Sv, 4, 1, 256, True, window, "bfloat16")
-        times[f"flash_{name}"] = {
-            "ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
-            "library_max_abs_err_vs_plain": lib_err,
-            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+        times[f"flash_{name}"] = flash_times(7, B, Sv, 4, 1, 256, window)
     for name, Lc, window, ring in (("global", L, 0, False),
                                    ("local", 512, 512, True)):
-        pos = SERVE_PROMPT + SERVE_NEW // 2
-        q, kc, vc = _qkv(8, B, 1, 4, 1, 256, "bfloat16", L=Lc)
-        q = q[:, 0].contiguous()
-        k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
-        kern = lm_time(lambda: DA.decode_attention(
-            q, kc, vc, pos, window=window, k_pos=k_pos), 200,
-            kernels_per_call=2)
-        plain = lm_time(lambda: DA.decode_attention_plain(
-            q, kc, vc, pos, window=window, k_pos=k_pos), 50)
-        ok = DA._mask(k_pos, Lc, pos, window, q.device)
-        lib = sdpa_decode(q, kc, vc, ok)
-        lib_t = lm_time(lib, 200) if lib else None
-        n_kept = int(ok.sum())
-        bnd, by = decode_bound_ms(B, 4, 1, 256, n_kept,
-                                  Lc if ring else 0, "bfloat16")
-        times[f"decode_{name}"] = {
-            "ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
-            "pos": pos, "slots_kept": n_kept,
-            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+        times[f"decode_{name}"] = decode_times(
+            8, B, Lc, 4, 1, 256, SERVE_PROMPT + SERVE_NEW // 2, window, ring)
     emit("lm_kernel", t0, cases=checked, max_abs_err=worst,
          tolerances=LM_TOL, times=times)
     return worst, times
@@ -747,13 +791,18 @@ def lm_serve_phase():
     return launches
 
 
+def _map_tree(fn, tree):
+    """``fn`` applied to every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _cpu_f32(tree):
     """A parameter tree as float32 tensors on the CPU."""
-    if isinstance(tree, dict):
-        return {k: _cpu_f32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cpu_f32(v) for v in tree]
-    return tree.float().cpu()
+    return _map_tree(lambda t: t.float().cpu(), tree)
 
 
 def lm_parity_phase():
@@ -810,18 +859,19 @@ def lm_parity_phase():
 
 def profile_serving(arch, kernel_marks):
     """Device busy time and top device kernels of one full-width prefill
-    of ``arch`` (batch 8, prompt 2048) and of 8 decode steps after it, from
-    a torch.profiler trace (profiler on: wall times are inflated).  A
-    device kernel whose name holds one of ``kernel_marks`` counts as one
-    of the port's hand-written kernels."""
+    of ``arch`` (batch 8, prompt 2048; depth cut as ``launch.serve`` cuts
+    it, weights drawn on the card) and of 8 decode steps after it, from a
+    torch.profiler trace (profiler on: wall times are inflated).  A device
+    kernel whose name holds one of ``kernel_marks`` counts as one of the
+    port's hand-written kernels; ``launches_by_mark`` counts each mark."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import card_config
     from repro_torch.modeling.model import Model
     from repro_torch.serve.serve_step import make_decode_step, \
         make_prefill_step
-    cfg = get_config(arch)
-    model = Model.from_seed(cfg, 0, LM_DEVICE)
+    cfg = card_config(arch)
+    model = Model.from_seed(cfg, 0, LM_DEVICE, gen_device=LM_DEVICE)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
                            generator=torch.Generator().manual_seed(3))
@@ -867,6 +917,9 @@ def profile_serving(arch, kernel_marks):
                          "idle_share": 1.0 - busy_us * 1e-6 / wall,
                          "kernel_launches": len(kernels),
                          "hand_written_kernels_seen": len(ours),
+                         "launches_by_mark": {
+                             m: sum(m in e.name for e in kernels)
+                             for m in kernel_marks},
                          "hand_written_device_s": sum(
                              e.time_range.elapsed_us() for e in ours) * 1e-6,
                          "top_kernels_us": top}
@@ -1107,6 +1160,458 @@ def rwkv_parity_phase():
     return max(rel)
 
 
+# ------------------------------------------------------------- jamba slice
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# the mamba layers' scan at jamba-1.5-large's serving shape: d_inner 16,384,
+# d_state 16
+JAMBA_D, JAMBA_N = 16384, 16
+# its attention layer: 64 query heads over 8 KV heads of 128
+JAMBA_H, JAMBA_KV, JAMBA_HD = 64, 8, 128
+# mamba_scan against its plain version: float32 exponentials (the kernel's
+# ex2.approx is ~1e-6 relative from torch.exp) and products in another
+# order, over up to 2,048 steps whose decays keep the state O(1)
+SCAN_ATOL, SCAN_RTOL = 1e-4, 1e-3
+# bf16 y: both sides round float32 values ~1e-6 apart to bf16, which may
+# land one bf16 step apart (2**-8 relative, 2**-7 at most)
+SCAN_BF16_RTOL = 2.0 ** -7
+# special-function unit rate of one Hopper SM: 16 exponentials per
+# clock (CUDA C++ programming guide, arithmetic instruction throughput,
+# compute capability 9.0)
+SFU_PER_SM_CLOCK = 16
+# float32-pipe instructions of one exponential computed without the
+# special-function unit: range reduction (round, subtract), a degree-5
+# polynomial (5 FMAs) and the exponent insert
+EXP_EMULATION_FMAS = 8
+# jamba_parity, float32 on both sides (the card's kernels, TF32 off,
+# against the CPU's plain versions): float32 sums in another order through
+# 4 layers move logits of magnitude ~1 by ~1e-5; 1e-3 relative leaves room
+# and a wrong layout, cast or routing gives errors of order 1
+JAMBA_F32_TOL = 1e-3
+
+
+def scan_bound_ms(B, S, D, N, u_item):
+    """Least time for one mamba_scan call: u read and y written in u's
+    type, dt read in float32, A, B_in, C_in, h0 read and h_end written, at
+    the HBM rate; against the operations: the float32 products (dt*A,
+    h*dA, du*B, the add, h*C and its sum for every (b, t, d, n), dt*u for
+    every (b, t, d)) at the float32 peak, and the B*S*D*N exponentials
+    split between the special-function units (their rate at the card's
+    maximum SM clock) and a polynomial on the float32 pipes
+    (EXP_EMULATION_FMAS FMAs each, 2 operations an FMA) in the share that
+    finishes both at once."""
+    import torch
+    nbytes = 2 * u_item * B * S * D + 4 * B * S * D + 4 * (
+        D * N + 2 * B * S * N + 2 * B * D * N)
+    flops = 6 * B * S * D * N + B * S * D
+    n_exp = B * S * D * N
+    mhz = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_fp32 = flops / FP32_OPS_PER_S * 1e3
+    t_sfu = n_exp / (sms * SFU_PER_SM_CLOCK * mhz * 1e6) * 1e3
+    t_emul = 2 * EXP_EMULATION_FMAS * n_exp / FP32_OPS_PER_S * 1e3
+    # share f emulated: t_fp32 + f * t_emul = (1 - f) * t_sfu
+    f = min(max((t_sfu - t_fp32) / (t_emul + t_sfu), 0.0), 1.0)
+    t_ops = max(t_fp32 + f * t_emul, (1 - f) * t_sfu)
+    parts = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_ops_ms": t_fp32, "exp_sfu_only_ms": t_sfu,
+             "exp_emulated_share": f, "operations_ms": t_ops,
+             "max_sm_clock_mhz": mhz, "sms": sms}
+    if parts["bytes_ms"] >= t_ops:
+        return parts["bytes_ms"], "bytes", parts
+    return t_ops, "operations", parts
+
+
+def serve_bounds_ms(cfg, B, S):
+    """Least times of one serving prefill and one decode step of ``cfg``
+    at batch B and prompt S: the prefill's bf16 products (projections,
+    FFNs, the MoE router and its experts over all E*C capacity slots, the
+    causal attention scores, the last position's head) at the bf16 peak;
+    a decode step's read of every weight once at the HBM rate."""
+    from repro_torch.modeling import moe
+    T, d, hd = B * S, cfg.d_model, cfg.resolved_head_dim
+    din, n, dtr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.resolved_dt_rank
+    macs = B * d * cfg.padded_vocab_size                  # the head
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "mamba":
+            macs += T * (d * 2 * din + din * (dtr + 2 * n) + dtr * din
+                         + din * d)
+        else:
+            macs += T * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+            macs += 2 * B * cfg.n_heads * hd * kept_pairs(S, True, 0)
+        if cfg.is_moe_layer(i):
+            macs += T * d * cfg.n_experts + cfg.n_experts * moe.capacity(
+                cfg, T) * 3 * d * cfg.moe_d_ff
+        else:
+            macs += T * 3 * d * cfg.d_ff
+    weight_bytes = 2 * cfg.param_counts()["total"]
+    return {"prefill_products_ms": 2 * macs / BF16_OPS_PER_S * 1e3,
+            "prefill_tflop": 2 * macs / 1e12,
+            "decode_weight_read_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "weight_bytes": weight_bytes}
+
+
+def _scan_inputs(seed, B, S, D, N, h0=True, dt_max=None, u_bf16=False):
+    """Seeded inputs on the card: u ~ N(0, 0.5^2), dt = softplus(N(0,
+    0.3^2)) (or uniform in [0, dt_max]), A = -exp(N(0, 0.3^2)) random in
+    every entry (a transposed A would show), B_in, C_in ~ N(0, 0.5^2),
+    h0 ~ N(0, 0.5^2)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=LM_DEVICE)
+    u = 0.5 * randn(B, S, D)
+    if u_bf16:
+        u = u.bfloat16()
+    if dt_max is None:
+        dt = F.softplus(0.3 * randn(B, S, D))
+    else:
+        dt = dt_max * torch.rand(B, S, D, generator=g, device=LM_DEVICE)
+    A = -torch.exp(0.3 * randn(D, N))
+    return [u, dt, A, 0.5 * randn(B, S, N), 0.5 * randn(B, S, N),
+            0.5 * randn(B, D, N) if h0 else None]
+
+
+def _scan_excess(got, want):
+    """Largest |got - want| beyond the tolerance, and the largest
+    |got - want|, over y and h_end (y in bf16 gets one bf16 step)."""
+    ex, err = -float("inf"), 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(g.isfinite().all())
+        rtol = SCAN_BF16_RTOL if g.dtype == _tdtype("bfloat16") else \
+            SCAN_RTOL
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        ex = max(ex, float((d - SCAN_ATOL - rtol * w.abs()).max()))
+        err = max(err, float(d.max()))
+    return ex, err
+
+
+def jamba_kernel_phase():
+    """The selective-scan kernel against its plain version on the card: the
+    serving shape with a given h0, then h0 = None, a sequence split across
+    two calls (carrying h) against one call, B 1 with a small ragged D,
+    bf16 u, and dt * A down to about -50 (exponentials that underflow);
+    N 16, 8 and 4.  Then CUDA-event times at the serving shape and the
+    bound.  Last, the attention layer's kernels at the shapes jamba's path
+    gives them (flash over the 8 x 2048 prompt, 64 heads over 8 KV heads of
+    128; decode over the 2,120-slot cache), against their plain versions
+    in bf16 and float32 within LM_TOL, and their times, bounds and SDPA
+    times in bf16."""
+    import torch
+    from repro_torch.kernels import mamba_scan as MS
+    t0 = time.perf_counter()
+    B, S, D, N = SERVE_B, SERVE_PROMPT, JAMBA_D, JAMBA_N
+    checked, worst = [], {}
+
+    def check(label, got, want):
+        excess, err = _scan_excess(got, want)
+        assert excess <= 0, f"mamba_scan {label}: {excess} beyond tolerance"
+        dt = str(got[0].dtype).split(".")[-1]     # y's type, u's type
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        checked.append(label)
+
+    serve_in = _scan_inputs(0, B, S, D, N)
+    check(f"serve B{B} S{S} D{D} N{N} given h0", MS.mamba_scan(*serve_in),
+          MS.mamba_scan_plain(*serve_in))
+    cases = [   # label, B, S, D, N, h0, dt_max, bf16 u
+        ("h0=None N8", 2, 256, 2048, 8, False, None, False),
+        ("B=1 D=100 S=77 N4", 1, 77, 100, 4, True, None, False),
+        ("bf16 u", 2, 256, 2048, 16, True, None, True),
+        ("dt*A down to -50", 2, 256, 2048, 16, True, 20.0, False)]
+    min_dta = 0.0
+    for i, (label, b, s, d, n, h0, dt_max, bf) in enumerate(cases):
+        ins = _scan_inputs(10 + i, b, s, d, n, h0, dt_max, bf)
+        if dt_max is not None:
+            dt_max_d = ins[1].amax(dim=(0, 1))
+            min_dta = float((dt_max_d[:, None] * ins[2]).min())
+        check(label, MS.mamba_scan(*ins), MS.mamba_scan_plain(*ins))
+    u, dt, A, Bi, Ci, h0 = _scan_inputs(30, 2, 500, 2048, 16)
+    y, h = MS.mamba_scan(u, dt, A, Bi, Ci, h0)
+    cut = 197                  # off the 64-step tiles and 8-step groups
+    y1, h1 = MS.mamba_scan(*(t[:, :cut].contiguous() for t in (u, dt)), A,
+                           *(t[:, :cut].contiguous() for t in (Bi, Ci)), h0)
+    y2, h2 = MS.mamba_scan(*(t[:, cut:].contiguous() for t in (u, dt)), A,
+                           *(t[:, cut:].contiguous() for t in (Bi, Ci)), h1)
+    check("split across two calls", (torch.cat([y1, y2], 1), h2), (y, h))
+    sync()
+    assert min_dta < -45.0, min_dta
+
+    kern_ms = cuda_ms(lambda: MS.mamba_scan(*serve_in), 10)
+    plain = lm_time(lambda: MS.mamba_scan_plain(*serve_in), 2)
+    bnd, by, parts = scan_bound_ms(B, S, D, N, 4)
+    times = {"ms": kern_ms, "plain_ms": plain["events_ms"], "bound_ms": bnd,
+             "bound_by": by, "library_ms": None, "bound_parts": parts,
+             "ms_from": "cuda events", "plain_timings": plain}
+    del serve_in
+    _free_card()
+
+    H, KV, hd = JAMBA_H, JAMBA_KV, JAMBA_HD
+    attn_worst, attn_checked = check_attention(
+        [("jamba attention layer", B, S, H, KV, hd, True, 0, 0.0)],
+        [("jamba decode pos 2100", B, SERVE_L, H, KV, hd, 2100, 0, 0.0,
+          False)], seed=200)
+    attn = {"max_abs_err": attn_worst, "times": {
+        "flash_attention": flash_times(207, B, S, H, KV, hd, 0),
+        "decode_attention": decode_times(
+            208, B, SERVE_L, H, KV, hd, SERVE_PROMPT + SERVE_NEW // 2, 0,
+            False)}}
+    _free_card()
+    emit("jamba_kernel", t0, cases=checked, max_abs_err_by_dtype=worst,
+         tolerance={"atol": SCAN_ATOL, "rtol": SCAN_RTOL,
+                    "rtol_bf16_y": SCAN_BF16_RTOL},
+         min_dt_times_A=min_dta, times=times,
+         library="none: no one PyTorch call computes a selective scan",
+         attention_cases=attn_checked, attention_tolerances=LM_TOL,
+         attention=attn)
+    return worst, times, attn
+
+
+def _free_card():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def jamba_profile_phase():
+    """profile_serving for jamba-1.5-large cut to 4 layers: the scan kernel
+    (seen in the prefill only), flash attention and the decode kernels.
+    It runs before jamba_serve and leaves the card warm for it."""
+    t0 = time.perf_counter()
+    _free_card()
+    marks = ("mamba_scan_kernel", "flash_fwd", "decode_split",
+             "decode_combine")
+    out = profile_serving(JAMBA_ARCH, marks)
+    _free_card()
+    assert out["prefill"]["launches_by_mark"]["mamba_scan_kernel"] == 3
+    decode = out["decode_8_steps"]["launches_by_mark"]
+    assert decode["mamba_scan_kernel"] == 0
+    emit("jamba_profile", t0, **out)
+
+
+def jamba_serve_phase():
+    """jamba-1.5-large at full width, cut to its first 4 layers (mamba +
+    FFN, mamba + MoE, mamba + FFN, attention + MoE), through
+    ``repro_torch.launch.serve.run``: batch 8, prompt 2048, 64 new tokens,
+    weights drawn on the card.  The counts are set to 0 just before the
+    run and read just after it: the prefill launches the scan kernel once
+    per mamba layer and flash attention once; each of the 63 decode steps
+    launches the decode kernels once and the scan kernel never.  A forward
+    pre-hook keeps a reference to each MoE input (no device work, no
+    synchronisation; it holds one 268 MB prefill input a little longer),
+    from which the share of dropped (token, k) assignments is recomputed
+    after the run."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.launch import serve
+    from repro_torch.modeling import moe
+    t0 = time.perf_counter()
+    cfg = serve.card_config(JAMBA_ARCH)
+    seen = []
+
+    def keep_input(module, args):
+        if isinstance(module, moe.MoE):
+            seen.append((module.p["router"], args[0]))
+
+    _free_card()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        keep_input)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            log = os.path.join(tmp, "runtime.jsonl")
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            MS.LAUNCHES = FA.LAUNCHES = DA.LAUNCHES = DA.COMBINE_LAUNCHES = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                toks = serve.run(JAMBA_ARCH, SERVE_B, SERVE_PROMPT,
+                                 SERVE_NEW, smoke=False, runtime_log=log,
+                                 seed=0, device=LM_DEVICE)
+            sync()
+            wall = time.perf_counter() - t1
+            launches = {"mamba_scan": MS.LAUNCHES,
+                        "flash_attention": FA.LAUNCHES,
+                        "decode_attention": DA.LAUNCHES,
+                        "decode_attention_combine": DA.COMBINE_LAUNCHES}
+            peak = torch.cuda.max_memory_allocated()
+            with open(log) as f:
+                rec = json.loads(f.read().splitlines()[-1])
+    finally:
+        hook.remove()
+    line = out.getvalue().strip()
+    print(line, file=sys.stderr, flush=True)
+    init_s = float(line.split("init ")[1].split("s;")[0])
+    drops = {"prefill": [0, 0], "decode": [0, 0]}
+    with torch.inference_mode():
+        for router, x in seen:
+            xt = x.reshape(-1, cfg.d_model)
+            ids = moe.route(cfg, router, xt)[0]
+            pos = moe.queue_positions(ids, cfg.n_experts)
+            d = drops["prefill" if xt.shape[0] > SERVE_B else "decode"]
+            d[0] += int((pos >= moe.capacity(cfg, xt.shape[0])).sum())
+            d[1] += ids.numel()
+    seen.clear()
+    _free_card()
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    steps = SERVE_NEW - 1
+    assert rec["arch"] == JAMBA_ARCH and rec["batch"] == SERVE_B
+    assert rec["prompt_len"] == SERVE_PROMPT
+    assert rec["n_layers"] == cfg.n_layers == 4, rec
+    assert rec["prefill_s"] > 0 and rec["decode_median_s"] > 0
+    assert tuple(toks.shape) == (SERVE_B, SERVE_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert n_mamba == 3 and launches["mamba_scan"] == n_mamba, launches
+    assert launches["flash_attention"] == 1, launches
+    assert launches["decode_attention"] == steps, launches
+    assert launches["decode_attention_combine"] == steps, launches
+    emit("jamba_serve", t0, arch=JAMBA_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=cfg.param_counts()["total"],
+         batch=SERVE_B, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+         init_s=init_s, prefill_ms=rec["prefill_s"] * 1e3,
+         prefill_tokens_per_s=SERVE_B * SERVE_PROMPT / rec["prefill_s"],
+         decode_median_ms_per_token=rec["decode_median_s"] * 1e3,
+         decode_tokens_per_s=SERVE_B / rec["decode_median_s"],
+         run_wall_s=wall, peak_device_bytes=peak, launches=launches,
+         bounds=serve_bounds_ms(cfg, SERVE_B, SERVE_PROMPT),
+         moe_dropped_share={k: v[0] / v[1] for k, v in drops.items()},
+         moe_assignments=drops, runtime_log_line=rec)
+    return launches
+
+
+def _moe_inputs(model):
+    """Forward pre-hooks that record each MoE layer's input: returns the
+    list they append (layer index, input) to, and the hook handles."""
+    seen, handles = [], []
+    for i, layer in enumerate(model.layers):
+        if layer.moe is not None:
+            handles.append(layer.moe.register_forward_pre_hook(
+                lambda mod, args, i=i: seen.append((i, args[0]))))
+    return seen, handles
+
+
+def _routing(model, seen):
+    """Per recorded MoE input: the expert ids [T, K] its router gives."""
+    from repro_torch.modeling import moe
+    cfg = model.cfg
+    return [moe.route(cfg, model.layers[i].moe.p["router"],
+                      x.reshape(-1, cfg.d_model))[0].cpu()
+            for i, x in seen]
+
+
+def _routing_diff(got, want):
+    """(token, k) assignments of ``got`` whose expert is not among the
+    token's experts in ``want``: over all tokens, and at the last one."""
+    total = last = 0
+    for g, w in zip(got, want):
+        miss = ~(g[:, :, None] == w[:, None, :]).any(-1)
+        total += int(miss.sum())
+        last += int(miss[-1].sum())
+    return total, last
+
+
+def jamba_parity_phase():
+    """jamba-1.5-large's first 4 layers at full width with d_ff and
+    moe_d_ff cut from 24,576 to 2,048 (3.66 B parameters, 14.6 GB in
+    float32), batch 1, prompt 256, 8 decode steps.  One set of float32
+    weights drawn on the card; the CPU (float32, plain versions) runs
+    first, and the card's decode steps take the CPU's greedy tokens.  The
+    card in float32 (kernels, TF32 off) is held to JAMBA_F32_TOL relative
+    on the last-position logits and to the CPU's greedy tokens.  The card
+    in bf16 (the same weights rounded) is reported per step, with the MoE
+    routing recomputed from each MoE layer's recorded input on both sides;
+    its logits are held to PARITY_REL_TOL only at steps where the last
+    position's routing agrees with the CPU's in every MoE layer."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import card_config
+    from repro_torch.modeling.model import Model, init_params
+    t0 = time.perf_counter()
+    _free_card()
+    cfg = card_config(JAMBA_ARCH, d_ff=2048, moe_d_ff=2048)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg32, 1, LM_DEVICE, gen_device=LM_DEVICE)
+    cpu = Model(cfg32, _cpu_f32(params))
+    S, steps = 256, 8
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)))
+
+    def drive(model, toks=None):
+        """Prefill, then ``steps`` decode steps on ``toks`` (or greedy):
+        per step the last-position logits (float64, CPU) and the routing
+        of every MoE input."""
+        seen, handles = _moe_inputs(model)
+        dev = model.device
+        logits, routes, fed = [], [], []
+        with torch.inference_mode():
+            cache = model.init_cache(1, S + steps)
+            out, _ = model(prompt.to(dev), mode="prefill", cache=cache)
+            for step in range(steps + 1):
+                logits.append(out[0, -1].double().cpu())
+                routes.append(_routing(model, seen))
+                seen.clear()
+                if step == steps:
+                    break
+                tok = (logits[-1].argmax() if toks is None
+                       else toks[step]).reshape(1, 1)
+                fed.append(tok)
+                out, _ = model(tok.to(dev), mode="decode", pos0=S + step,
+                               cache=cache)
+        for h in handles:
+            h.remove()
+        return logits, routes, fed
+
+    want, want_routes, toks = drive(cpu)
+    del cpu
+    gc.collect()
+    report = {}
+    makers = {"float32": lambda: Model(cfg32, params),
+              "bfloat16": lambda: Model(cfg, _map_tree(
+                  lambda t: t.to(_tdtype("bfloat16")), params))}
+    for name, make in makers.items():
+        model = make()
+        got, routes, _ = drive(model, toks)
+        del model
+        _free_card()
+        rel, agree, diff_all, diff_last = [], 0, [], []
+        for step, (g, w) in enumerate(zip(got, want)):
+            rel.append(((g - w).norm() / w.norm()).item())
+            agree += int(g.argmax()) == int(w.argmax())
+            a, last = _routing_diff(routes[step], want_routes[step])
+            diff_all.append(a)
+            diff_last.append(last)
+        report[name] = {"logits_rel_err": rel,
+                        "max_logits_rel_err": max(rel),
+                        "greedy_tokens_agree": f"{agree}/{steps + 1}",
+                        "routing_assignments_differing": diff_all,
+                        "routing_differs_at_last_position": diff_last}
+        if name == "float32":
+            assert max(rel) <= JAMBA_F32_TOL, rel
+            assert agree == steps + 1, "float32 greedy tokens differ"
+        else:
+            held = [r for r, d in zip(rel, diff_last) if d == 0]
+            assert held and max(held) <= PARITY_REL_TOL, (rel, diff_last)
+            report[name]["steps_held"] = len(held)
+    del params
+    _free_card()
+    emit("jamba_parity", t0, layers=cfg.n_layers, d_ff=cfg.d_ff,
+         moe_d_ff=cfg.moe_d_ff,
+         params=cfg.param_counts()["total"], prompt_len=S,
+         decode_steps=steps,
+         cuts="depth 72 -> 4 layers; d_ff and moe_d_ff 24,576 -> 2,048; "
+              "batch 1, prompt 256",
+         tolerance={"float32": JAMBA_F32_TOL, "bfloat16": PARITY_REL_TOL},
+         moe_tokens_prefill=S, **report)
+    return report["float32"]["max_logits_rel_err"]
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -1162,9 +1667,19 @@ def main():
     wkv_launches = rwkv_serve_phase()
     rwkv_parity_phase()
 
+    # ---- main path of slice 4 (jamba_serve sets its counts to 0 itself)
+    scan_err, scan_times, jamba_attn = jamba_kernel_phase()
+    jamba_profile_phase()
+    jamba_launches = jamba_serve_phase()
+    jamba_parity_phase()
+
     serve, big = times["serve_d3"], times["n2p20_d3"]
     fg, fl = lm_times["flash_global"], lm_times["flash_local"]
     dg, dl = lm_times["decode_global"], lm_times["decode_local"]
+    fj, dj = (jamba_attn["times"][k]
+              for k in ("flash_attention", "decode_attention"))
+    errs = {k: {dt: max(lm_worst[k][dt], jamba_attn["max_abs_err"][k][dt])
+                for dt in lm_worst[k]} for k in lm_worst}
     print(json.dumps({"kernels": [{
         "name": "gbm_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbm_predict.cu",
@@ -1179,8 +1694,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:72",
         "launches": lm_launches["flash_attention"],
-        "max_abs_err": max(lm_worst["flash_attention"].values()),
-        "max_abs_err_by_dtype": lm_worst["flash_attention"],
+        "max_abs_err": max(errs["flash_attention"].values()),
+        "max_abs_err_by_dtype": errs["flash_attention"],
         "ms": fg["ms"], "plain_ms": fg["plain_ms"],
         "bound_ms": fg["bound_ms"], "bound_by": fg["bound_by"],
         "library_ms": fg["library_ms"],
@@ -1188,14 +1703,20 @@ def main():
                  "hd=256 causal bf16",
         "ms_local": fl["ms"], "plain_ms_local": fl["plain_ms"],
         "bound_ms_local": fl["bound_ms"],
-        "library_ms_local": fl["library_ms"]}, {
+        "library_ms_local": fl["library_ms"],
+        "launches_jamba": jamba_launches["flash_attention"],
+        "shape_jamba": f"attention layer B={SERVE_B} S={SERVE_PROMPT} "
+                       f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} causal bf16",
+        "ms_jamba": fj["ms"], "plain_ms_jamba": fj["plain_ms"],
+        "bound_ms_jamba": fj["bound_ms"], "bound_by_jamba": fj["bound_by"],
+        "library_ms_jamba": fj["library_ms"]}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:62",
         "launches": lm_launches["decode_attention"],
         "combine_launches": lm_launches["decode_attention_combine"],
-        "max_abs_err": max(lm_worst["decode_attention"].values()),
-        "max_abs_err_by_dtype": lm_worst["decode_attention"],
+        "max_abs_err": max(errs["decode_attention"].values()),
+        "max_abs_err_by_dtype": errs["decode_attention"],
         "ms": dg["ms"], "plain_ms": dg["plain_ms"],
         "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
         "library_ms": dg["library_ms"],
@@ -1203,7 +1724,15 @@ def main():
                  f"pos={dg['pos']} bf16, split + combine",
         "ms_local": dl["ms"], "plain_ms_local": dl["plain_ms"],
         "bound_ms_local": dl["bound_ms"],
-        "library_ms_local": dl["library_ms"]}, {
+        "library_ms_local": dl["library_ms"],
+        "launches_jamba": jamba_launches["decode_attention"],
+        "combine_launches_jamba": jamba_launches["decode_attention_combine"],
+        "shape_jamba": f"attention layer B={SERVE_B} L={SERVE_L} "
+                       f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} "
+                       f"pos={dj['pos']} bf16, split + combine",
+        "ms_jamba": dj["ms"], "plain_ms_jamba": dj["plain_ms"],
+        "bound_ms_jamba": dj["bound_ms"], "bound_by_jamba": dj["bound_by"],
+        "library_ms_jamba": dj["library_ms"]}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:66",
@@ -1212,7 +1741,18 @@ def main():
         "bound_ms": wkv_times["bound_ms"],
         "bound_by": wkv_times["bound_by"], "library_ms": None,
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} H={RWKV_H} hd={RWKV_HD} "
-                 "float32, given s0"}]}), flush=True)
+                 "float32, given s0"}, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:51",
+        "launches": jamba_launches["mamba_scan"],
+        "max_abs_err": max(scan_err.values()),
+        "max_abs_err_by_dtype": scan_err,
+        "ms": scan_times["ms"], "plain_ms": scan_times["plain_ms"],
+        "bound_ms": scan_times["bound_ms"],
+        "bound_by": scan_times["bound_by"], "library_ms": None,
+        "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
+                 "float32, given h0"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,24 @@
 """Batched serving driver: prefill a batch of prompts, then decode greedily.
 
-Port of ``repro/launch/serve.py`` for the dense attention families and
-RWKV6.  It serves a reduced (``--smoke``, the default) or full
-(``--full``) architecture with seeded weights, reports prefill time and
-the median per-token decode time, and appends them to the C3O runtime log
-that the configurator predicts from.  In an attention model prefill runs
-the flash-attention kernel in every layer and each decode step the
-flash-decode kernels; in rwkv6-3b prefill runs the WKV6 kernel in every
-layer, and its state caches do not depend on the cache length.
+Port of ``repro/launch/serve.py`` for the dense attention families,
+RWKV6 and the Mamba + attention + MoE hybrid.  It serves a reduced
+(``--smoke``, the default) or full (``--full``) architecture with seeded
+weights, reports prefill time and the median per-token decode time, and
+appends them to the C3O runtime log that the configurator predicts from.
+In an attention layer prefill runs the flash-attention kernel and each
+decode step the flash-decode kernels; in an RWKV6 layer prefill runs the
+WKV6 kernel, in a Mamba layer the selective-scan kernel, and their state
+caches do not depend on the cache length.  A full-width model draws its
+weights on the run's device (a reduced one on the CPU, as the tests do).
 
 Usage (on the card, full width):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \\
       --batch 8 --prompt-len 2048 --max-new 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full \\
       --batch 8 --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --full --batch 8 --prompt-len 2048 \\
+      --max-new 64
 """
 from __future__ import annotations
 
@@ -27,8 +32,36 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.models.api import as_device
 from repro_torch.modeling.model import Model
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+
+# Depth of a full-width model on one 80 GB card, where the whole model does
+# not fit: jamba-1.5-large's 72 layers are 398 B parameters, and its first
+# 4 (mamba + FFN, mamba + MoE, mamba + FFN, attention + MoE) hold every
+# kind of layer in 22.5 B parameters, 45 GB in bf16.
+CARD_DEPTH = {"jamba-1.5-large-398b": 4}
+
+
+def card_config(arch: str, **kw):
+    """``get_config(arch, **kw)`` at full width, its depth cut to
+    ``CARD_DEPTH`` where the whole model does not fit one card."""
+    cut = {"n_layers": CARD_DEPTH[arch]} if arch in CARD_DEPTH else {}
+    return get_config(arch, **{**cut, **kw})
+
+
+def runtime_record(arch: str, cfg, smoke: bool, batch: int, prompt_len: int,
+                   prefill_s: float, decode_median_s: float) -> dict:
+    """The runtime-log record of one run: the JAX driver's keys, and
+    ``n_layers`` where a full-width model's depth was cut, so that a cut
+    run's times never pass for the whole architecture's."""
+    rec = {"arch": arch, "mode": "serve", "batch": batch,
+           "prompt_len": prompt_len, "prefill_s": prefill_s,
+           "decode_median_s": decode_median_s}
+    if not smoke and cfg.n_layers != get_config(arch).n_layers:
+        rec["n_layers"] = cfg.n_layers
+    return rec
 
 
 def _sync(device: torch.device) -> None:
@@ -43,11 +76,18 @@ def run(arch: str, batch: int, prompt_len: int, max_new: int,
         device="cuda") -> torch.Tensor:
     """Serve one batch; returns the generated tokens [batch, max_new].
     Times are host clocks around work that ends in a device
-    synchronisation."""
+    synchronisation; a full-width model's weights are drawn on ``device``
+    from a generator seeded with ``seed``, and its depth is cut to
+    ``CARD_DEPTH`` where the whole model does not fit one card (the
+    runtime-log record then gives the depth served)."""
     cfg = (smoke_config(arch, kv_cache_dtype=kv_dtype) if smoke
-           else get_config(arch, kv_cache_dtype=kv_dtype))
-    model = Model.from_seed(cfg, seed, device)
-    dev = model.device
+           else card_config(arch, kv_cache_dtype=kv_dtype))
+    dev = as_device(device)
+    t0 = time.perf_counter()
+    model = Model.from_seed(cfg, seed, dev,
+                            gen_device="cpu" if smoke else dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
     max_seq = prompt_len + max_new + 8
     cache = model.init_cache(batch, max_seq)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
@@ -71,16 +111,15 @@ def run(arch: str, batch: int, prompt_len: int, max_new: int,
         lat.append(time.perf_counter() - t1)
         outs.append(tok)
     med = float(np.median(lat)) if lat else 0.0
-    print(f"{arch}: prefill({prompt_len} toks x {batch}) "
+    print(f"{arch} ({cfg.n_layers} layers): init {t_init:.2f}s; "
+          f"prefill({prompt_len} toks x {batch}) "
           f"{t_prefill*1e3:.1f}ms; decode median {med*1e3:.2f}ms/token "
           f"(kv={cfg.kv_cache_dtype or cfg.dtype})")
     if runtime_log:
         os.makedirs(os.path.dirname(runtime_log) or ".", exist_ok=True)
         with open(runtime_log, "a") as f:
-            f.write(json.dumps({"arch": arch, "mode": "serve",
-                                "batch": batch, "prompt_len": prompt_len,
-                                "prefill_s": t_prefill,
-                                "decode_median_s": med}) + "\n")
+            f.write(json.dumps(runtime_record(
+                arch, cfg, smoke, batch, prompt_len, t_prefill, med)) + "\n")
     return torch.stack(outs, dim=1)
 
 

@@ -5,8 +5,10 @@ init_params`` (or a checkpoint of it) with its leaves as numpy arrays.
 Leaves under ``blocks`` are stacked on a leading [n_scan_blocks] axis;
 layer i = b * period + j is block b, slot j, and tail slot j is layer
 n_scan_blocks * period + j.  The layouts are the same on both sides, so
-carrying a weight is a copy.  bfloat16 arrays (numpy's ml_dtypes type) go
-through float32, which holds them exactly.
+carrying a weight is a copy, and a layer's sub-trees (attn, mamba, rwkv's
+tm and cm, ffn or moe, the norms) are carried as they are.  bfloat16
+arrays (numpy's ml_dtypes type) go through float32, which holds them
+exactly.
 """
 from __future__ import annotations
 

@@ -62,13 +62,14 @@ def ffn_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 def init_normal(shape: Sequence[int], gen: torch.Generator, dtype,
                 device, scale: float = 1.0, embed: bool = False,
                 lead: int = 0) -> torch.Tensor:
-    """One leaf of ``materialize``'s "normal"/"embed" init, drawn on the CPU
-    from ``gen`` (so that the same seed gives the same weights on every
-    device) and moved to ``device`` in ``dtype``.  ``lead`` > 0 draws one
-    slice of a stacked [lead, *shape] leaf of the JAX tree, whose fan_in
-    counts the leading axis."""
+    """One leaf of ``materialize``'s "normal"/"embed" init, drawn in
+    float32 on the generator's device (the CPU's gives the same weights on
+    every device) and moved to ``device`` in ``dtype``.  ``lead`` > 0 draws
+    one slice of a stacked [lead, *shape] leaf of the JAX tree, whose
+    fan_in counts the leading axis."""
     fan = [lead, *shape] if lead else list(shape)
     fan_in = (fan[0] if fan else 1) if len(fan) <= 1 else math.prod(fan[:-1])
     std = scale if embed else scale / math.sqrt(max(fan_in, 1))
-    v = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-    return (v * std).to(device=device, dtype=dtype)
+    v = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return v.mul_(std).to(device=device, dtype=dtype)

@@ -2,10 +2,12 @@
 the tied head.
 
 Port of ``repro/modeling/model.py`` for the dense attention families
-(gemma3, gemma2, deepseek-7b) and RWKV6 (rwkv6-3b).  The JAX package scans
-over pattern periods to keep its compiled graph small; PyTorch runs
-eagerly, so the blocks and the tail are one loop over ``cfg.n_layers``
-layers, each an attention or an RWKV layer by ``cfg.layer_kind(i)``.
+(gemma3, gemma2, deepseek-7b), RWKV6 (rwkv6-3b), the Mamba + attention
+hybrid (jamba-1.5-large) and attention + MoE (olmoe-1b-7b).  The JAX
+package scans over pattern periods to keep its compiled graph small;
+PyTorch runs eagerly, so the blocks and the tail are one loop over
+``cfg.n_layers`` layers, each an attention, Mamba or RWKV layer by
+``cfg.layer_kind(i)``, whose FFN is an MoE where ``cfg.is_moe_layer(i)``.
 ``modeling.convert`` carries a JAX parameter tree into this model;
 ``Model.from_seed`` draws weights with ``materialize``'s distributions.
 
@@ -21,9 +23,9 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, RWKV, ModelConfig
+from repro_torch.configs.base import MAMBA, RWKV, ModelConfig
 from repro_torch.core.models.api import as_device
-from repro_torch.modeling import attention, rwkv
+from repro_torch.modeling import attention, mamba, moe, rwkv
 from repro_torch.modeling.layers import (ffn_apply, init_normal, rms_norm,
                                          softcap)
 
@@ -36,11 +38,6 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.use_mla:
         missing.append("MLA attention")
-    if cfg.n_experts:
-        missing.append("MoE layers")
-    other = sorted(set(cfg.block_pattern) - {ATTN, ATTN_LOCAL, RWKV})
-    if other:
-        missing.append(f"{'/'.join(other)} layers")
     if cfg.n_encoder_layers or cfg.frontend != "none":
         missing.append("encoders and frontends")
     if cfg.kv_cache_dtype:
@@ -59,36 +56,67 @@ def _pdict(d: dict) -> nn.ParameterDict:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm attention + FFN layer (``layer_apply``).  ``p`` holds
-    ln1, attn {wq, wk, wv, wo}, ln2, ffn {w_up, w_down[, w_gate]} and, with
-    ``post_norm``, ln1_post and ln2_post."""
+    """One pre-norm attention layer, then its FFN or MoE
+    (``layer_apply``).  ``p`` holds ln1, attn {wq, wk, wv, wo}, ln2, ffn
+    {w_up, w_down[, w_gate]} or moe {router, w_up, w_down[, w_gate]} and,
+    with ``post_norm``, ln1_post and ln2_post.  The MoE's aux loss is for
+    training, which the port does not cover, and is dropped."""
 
     def __init__(self, cfg: ModelConfig, i: int, p: dict):
         super().__init__()
         self.cfg, self.kind = cfg, cfg.layer_kind(i)
-        self.attn = _pdict(p["attn"])
-        self.ffn = _pdict(p["ffn"])
+        self._init_mixer(p)
+        self.moe = moe.MoE(cfg, p["moe"]) if "moe" in p else None
+        self.ffn = _pdict(p["ffn"]) if "ffn" in p else None
         self.norms = _pdict({k: v for k, v in p.items()
                              if k.startswith("ln")})
+
+    def _init_mixer(self, p: dict) -> None:
+        self.attn = _pdict(p["attn"])
 
     def init_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
         return attention.init_attn_cache(self.cfg, batch, max_seq, self.kind,
                                          dtype, device)
 
+    def mix(self, h, *, mode: str, pos0: int, cache: Optional[dict],
+            ring_pos=None):
+        return attention.attn_apply(self.cfg, self.attn, h, kind=self.kind,
+                                    mode=mode, pos0=pos0, cache=cache,
+                                    ring_pos=ring_pos)
+
     def forward(self, x, *, mode: str, pos0: int, cache: Optional[dict],
                 ring_pos=None):
         cfg, n = self.cfg, self.norms
-        h = rms_norm(x, n["ln1"], cfg.norm_eps)
-        h = attention.attn_apply(cfg, self.attn, h, kind=self.kind,
-                                 mode=mode, pos0=pos0, cache=cache,
-                                 ring_pos=ring_pos)
+        h = self.mix(rms_norm(x, n["ln1"], cfg.norm_eps), mode=mode,
+                     pos0=pos0, cache=cache, ring_pos=ring_pos)
         if cfg.post_norm:
             h = rms_norm(h, n["ln1_post"], cfg.norm_eps)
         x = x + h
-        h = ffn_apply(self.ffn, rms_norm(x, n["ln2"], cfg.norm_eps), cfg.act)
+        h = rms_norm(x, n["ln2"], cfg.norm_eps)
+        if self.moe is not None:
+            h, _ = self.moe(h)
+        else:
+            h = ffn_apply(self.ffn, h, cfg.act)
         if cfg.post_norm:
             h = rms_norm(h, n["ln2_post"], cfg.norm_eps)
         return x + h
+
+
+class MambaLayer(DecoderLayer):
+    """One pre-norm Mamba layer, then its FFN or MoE (the MAMBA branch of
+    ``layer_apply``).  ``p`` holds mamba (``mamba.mamba_defs``) in place of
+    attn.  A cache {"h", "conv"} is read and then overwritten in place."""
+
+    def _init_mixer(self, p: dict) -> None:
+        self.mamba = _pdict(p["mamba"])
+
+    def init_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+        return mamba.init_mamba_cache(self.cfg, batch, dtype, device)
+
+    def mix(self, h, *, mode: str, pos0: int, cache: Optional[dict],
+            ring_pos=None):
+        return mamba.mamba_apply(self.cfg, self.mamba, h, mode=mode,
+                                 cache=cache)
 
 
 class RwkvLayer(nn.Module):
@@ -133,8 +161,9 @@ class RwkvLayer(nn.Module):
 
 class Model(nn.Module):
     """``params``: {"embed" [V, d], "final_norm" [d], "layers": [one dict
-    per layer, as ``DecoderLayer`` or ``RwkvLayer`` takes], and "lm_head"
-    [d, V] when the embeddings are not tied}, as tensors on one device."""
+    per layer, as ``DecoderLayer``, ``MambaLayer`` or ``RwkvLayer`` takes],
+    and "lm_head" [d, V] when the embeddings are not tied}, as tensors on
+    one device."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -148,14 +177,15 @@ class Model(nn.Module):
         self.final_norm = _frozen(params["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings
                         else _frozen(params["lm_head"]))
+        kinds = {RWKV: RwkvLayer, MAMBA: MambaLayer}
         self.layers = nn.ModuleList(
-            (RwkvLayer if cfg.layer_kind(i) == RWKV else DecoderLayer)(
-                cfg, i, p) for i, p in enumerate(params["layers"]))
+            kinds.get(cfg.layer_kind(i), DecoderLayer)(cfg, i, p)
+            for i, p in enumerate(params["layers"]))
 
     @classmethod
-    def from_seed(cls, cfg: ModelConfig, seed: int = 0,
-                  device="cuda") -> "Model":
-        return cls(cfg, init_params(cfg, seed, device))
+    def from_seed(cls, cfg: ModelConfig, seed: int = 0, device="cuda",
+                  gen_device="cpu") -> "Model":
+        return cls(cfg, init_params(cfg, seed, device, gen_device))
 
     @property
     def device(self) -> torch.device:
@@ -164,8 +194,8 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_seq: int) -> List[dict]:
         """Zeroed caches, one per layer, in the activation type: {"k", "v"}
         [batch, max_seq or the window, KV, hd] for an attention layer,
-        {"s", "x_tm", "x_cm"} for an RWKV layer, whose size does not
-        depend on ``max_seq``."""
+        {"s", "x_tm", "x_cm"} for an RWKV layer and {"h", "conv"} for a
+        Mamba layer, whose sizes do not depend on ``max_seq``."""
         return [layer.init_cache(batch, max_seq, self.dtype, self.device)
                 for layer in self.layers]
 
@@ -205,17 +235,21 @@ class Model(nn.Module):
         return self.lm_logits(x), cache
 
 
-def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int, device="cuda",
+                gen_device="cpu") -> dict:
     """Seeded parameters in ``cfg.param_dtype`` with ``materialize``'s
     distributions (``modeling/layers.py``): a layer inside the scanned
     blocks draws each leaf with the fan-in of its stacked
     [n_scan_blocks, ...] JAX leaf, a tail layer with its own.  The numbers
-    come from a CPU ``torch.Generator(seed)``, so one seed gives the same
-    weights on every device."""
+    come from a ``torch.Generator`` on ``gen_device`` seeded with ``seed``:
+    the CPU's by default, so that one seed gives the same weights on every
+    device.  A CUDA generator draws on the card instead, with other
+    numbers; a full-width model's billions of normals take minutes on the
+    host."""
     check_supported(cfg)
     dev = as_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=gen_device).manual_seed(seed)
     d = cfg.d_model
     out = {"embed": init_normal((cfg.padded_vocab_size, d), gen, dt, dev,
                                 scale=0.02, embed=True),
@@ -232,17 +266,27 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     for i in range(cfg.n_layers):
         lead = cfg.n_scan_blocks if cfg.scan_layers and i < in_blocks else 0
         layer = {n: torch.zeros(d, dtype=dt, device=dev) for n in norms}
-        if cfg.layer_kind(i) == RWKV:
-            for group, defs in (("tm", rwkv.tm_defs(cfg)),
-                                ("cm", rwkv.cm_defs(cfg))):
-                layer[group] = {n: _leaf(shape, kind, scale, gen, dt, dev,
-                                         lead)
-                                for n, (shape, kind, scale) in defs.items()}
+
+        def leaves(defs):
+            return {n: _leaf(shape, kind, scale, gen, dt, dev, lead)
+                    for n, (shape, kind, scale) in defs.items()}
+
+        def normals(shapes):
+            return {n: init_normal(s, gen, dt, dev, lead=lead)
+                    for n, s in shapes.items()}
+        kind = cfg.layer_kind(i)
+        if kind == RWKV:
+            layer["tm"] = leaves(rwkv.tm_defs(cfg))
+            layer["cm"] = leaves(rwkv.cm_defs(cfg))
         else:
-            layer["attn"] = {n: init_normal(s, gen, dt, dev, lead=lead)
-                             for n, s in attention.attn_shapes(cfg).items()}
-            layer["ffn"] = {n: init_normal(s, gen, dt, dev, lead=lead)
-                            for n, s in ffn.items()}
+            if kind == MAMBA:
+                layer["mamba"] = leaves(mamba.mamba_defs(cfg))
+            else:
+                layer["attn"] = normals(attention.attn_shapes(cfg))
+            if cfg.is_moe_layer(i):
+                layer["moe"] = normals(moe.moe_shapes(cfg))
+            else:
+                layer["ffn"] = normals(ffn)
         out["layers"].append(layer)
     return out
 

@@ -3,8 +3,10 @@ kernel against its plain PyTorch version, the engine's routing to it, and a
 predictor fitted on the card against the same fit on the CPU; the
 flash-attention and flash-decode kernels against their plain versions, and
 a small LM served through them; the WKV6 kernel against both of its plain
-versions, and a small RWKV6 model served through it.  They skip without a
-card.  This file imports no JAX, so it also runs where only
+versions, and a small RWKV6 model served through it; the selective-scan
+kernel against its plain version, and a small jamba (mamba, attention and
+MoE layers) served through it and the attention kernels.  They skip
+without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -21,6 +23,7 @@ from repro_torch.core.predictor import C3OPredictor
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gbm_predict as K
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import wkv6 as WK
 from repro_torch.modeling.attention import ring_positions
 from repro_torch.modeling.model import Model
@@ -126,6 +129,7 @@ FLASH_CASES = [
     (1, 1000, 4, 1, 256, True, 512, 0.0),
     (2, 1, 4, 1, 256, True, 0, 0.0),
     (1, 77, 2, 2, 128, False, 16, 30.0),
+    (2, 2048, 64, 8, 128, True, 0, 0.0),       # jamba's attention layer
 ]
 
 
@@ -155,6 +159,7 @@ DECODE_CASES = [
     (3, 64, 4, 2, 256, 70, 64, 0.0, True),     # full ring
     (2, 64, 4, 1, 256, 40, 64, 0.0, True),     # first turn: empty slots
     (2, 2120, 4, 1, 256, 2100, 0, 0.0, False),
+    (8, 2120, 64, 8, 128, 2100, 0, 0.0, False),  # jamba's decode step
 ]
 
 
@@ -343,6 +348,132 @@ def test_small_rwkv_model_serves_through_the_kernel(cuda_device):
             lc, _ = card(tok.to(cuda_device), mode="decode", pos0=64 + i,
                          cache=cc)
             lp, _ = cpu(tok, mode="decode", pos0=64 + i, cache=cp)
+            steps.append((lc, lp))
+    for a, b in steps:
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+# ------------------------------------------------------------- mamba scan
+
+# chip_smoke.py's mamba_scan tolerance: atol 1e-4, rtol 1e-3 (the kernel's
+# ex2.approx is ~1e-6 relative from torch.exp, products in another order);
+# y in bf16 gets one bf16 step (2**-7 relative)
+SCAN_ATOL, SCAN_RTOL, SCAN_BF16_RTOL = 1e-4, 1e-3, 2.0 ** -7
+
+
+def _scan_inputs(seed, B, S, D, N, device, h0=True, dt_max=None,
+                 u_bf16=False):
+    """u, B, C ~ N(0, 0.5^2), dt = softplus(N(0, 0.3^2)) or uniform in
+    [0, dt_max], A = -exp(N(0, 0.3^2)) random in every entry."""
+    rng = np.random.default_rng(seed)
+    u = 0.5 * rng.standard_normal((B, S, D))
+    dt = (np.logaddexp(0.3 * rng.standard_normal((B, S, D)), 0.0)
+          if dt_max is None else rng.uniform(0.0, dt_max, (B, S, D)))
+    A = -np.exp(0.3 * rng.standard_normal((D, N)))
+    Bi, Ci = (0.5 * rng.standard_normal((B, S, N)) for _ in range(2))
+    h = 0.5 * rng.standard_normal((B, D, N)) if h0 else None
+    out = [None if a is None else
+           torch.as_tensor(a.astype(np.float32), device=device)
+           for a in (u, dt, A, Bi, Ci, h)]
+    if u_bf16:
+        out[0] = out[0].bfloat16()
+    return out
+
+
+def _scan_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        rtol = SCAN_BF16_RTOL if g.dtype == torch.bfloat16 else SCAN_RTOL
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), atol=SCAN_ATOL,
+                                   rtol=rtol)
+
+
+SCAN_CASES = [
+    # (B, S, D, N, h0 given, dt up to, bf16 u)
+    (8, 2048, 16384, 16, True, None, False),   # jamba's serving shape
+    (2, 256, 2048, 16, False, None, False),    # h0 = None
+    (2, 256, 2048, 8, True, None, False),      # N 8
+    (1, 77, 100, 4, True, None, False),        # B 1, ragged D and S, N 4
+    (2, 256, 2048, 16, True, None, True),      # bf16 u
+    (2, 256, 2048, 16, True, 20.0, False),     # dt * A down to about -50
+    (2, 128, 256, 16, True, None, False),      # the smoke width
+]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_mamba_scan_kernel_matches_plain(cuda_device, case):
+    B, S, D, N, h0, dt_max, bf16 = case
+    ins = _scan_inputs(S + D + N, B, S, D, N, cuda_device, h0, dt_max, bf16)
+    before = MS.LAUNCHES
+    y, h = MS.mamba_scan(*ins)
+    torch.cuda.synchronize()
+    assert MS.LAUNCHES == before + 1
+    assert y.dtype == ins[0].dtype and h.dtype == torch.float32
+    _scan_close((y, h), MS.mamba_scan_plain(*ins))
+
+
+def test_mamba_scan_kernel_carries_state_across_calls(cuda_device):
+    u, dt, A, Bi, Ci, h0 = _scan_inputs(3, 2, 500, 2048, 16, cuda_device)
+    y, h = MS.mamba_scan(u, dt, A, Bi, Ci, h0)
+    cut = 197
+    y1, h1 = MS.mamba_scan(*(t[:, :cut].contiguous() for t in (u, dt)), A,
+                           *(t[:, :cut].contiguous() for t in (Bi, Ci)), h0)
+    y2, h2 = MS.mamba_scan(*(t[:, cut:].contiguous() for t in (u, dt)), A,
+                           *(t[:, cut:].contiguous() for t in (Bi, Ci)), h1)
+    _scan_close((torch.cat([y1, y2], 1), h2), (y, h))
+
+
+def test_mamba_scan_raises_on_what_it_does_not_take(cuda_device):
+    u, dt, A, Bi, Ci, h0 = _scan_inputs(0, 1, 32, 256, 16, cuda_device)
+    with pytest.raises(TypeError):
+        MS.mamba_scan(u.double(), dt, A, Bi, Ci, h0)
+    with pytest.raises(TypeError):
+        MS.mamba_scan(u, dt.bfloat16(), A, Bi, Ci, h0)
+    with pytest.raises(ValueError):                   # a CPU tensor
+        MS.mamba_scan(u, dt, A.cpu(), Bi, Ci, h0)
+    with pytest.raises(ValueError):                   # shapes disagree
+        MS.mamba_scan(u, dt, A[:128].contiguous(), Bi, Ci, h0)
+    with pytest.raises(ValueError):
+        MS.mamba_scan(u, dt, A, Bi, Ci, h0[:, :1].contiguous())
+    with pytest.raises(ValueError):                   # strided
+        MS.mamba_scan(u.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                      A, Bi, Ci, h0)
+    with pytest.raises(ValueError):                   # N 12
+        MS.mamba_scan(u, dt, A[:, :12].contiguous(),
+                      Bi[..., :12].contiguous(), Ci[..., :12].contiguous())
+
+
+def test_small_jamba_model_serves_through_the_kernels(cuda_device):
+    """jamba's 4-layer cut at smoke width (head_dim 64 for the attention
+    kernels) on the card against the same seeded weights on the CPU: a
+    prefill of 128 tokens launches the scan kernel once per mamba layer
+    and flash attention once; the decode steps never launch the scan;
+    the greedy tokens and the teacher-forced logits agree."""
+    cfg = smoke_config("jamba-1.5-large-398b", n_layers=4, head_dim=64)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 128)))
+    cpu = Model.from_seed(cfg, 0, "cpu")
+    card = Model.from_seed(cfg, 0, cuda_device)
+    before = (MS.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES)
+    got = greedy_generate(card, prompt.to(cuda_device), 6, 140)
+    torch.cuda.synchronize()
+    assert MS.LAUNCHES - before[0] == 3
+    assert FA.LAUNCHES - before[1] == 1
+    assert DA.LAUNCHES - before[2] == 5
+    want = greedy_generate(cpu, prompt, 6, 140)
+    assert torch.equal(got.cpu(), want)
+    with torch.inference_mode():
+        cc, cp = card.init_cache(2, 140), cpu.init_cache(2, 140)
+        lc, _ = card(prompt.to(cuda_device), mode="prefill", cache=cc)
+        lp, _ = cpu(prompt, mode="prefill", cache=cp)
+        steps = [(lc, lp)]
+        for i in range(4):
+            tok = prompt[:, i:i + 1]
+            lc, _ = card(tok.to(cuda_device), mode="decode", pos0=128 + i,
+                         cache=cc)
+            lp, _ = cpu(tok, mode="decode", pos0=128 + i, cache=cp)
             steps.append((lc, lp))
     for a, b in steps:
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,

@@ -208,8 +208,7 @@ def test_seeded_init_has_materialize_distributions():
 
 
 @pytest.mark.parametrize("arch,kw", [
-    ("olmoe-1b-7b", {}), ("minicpm3-4b", {}),
-    ("jamba-1.5-large-398b", {}), ("seamless-m4t-medium", {}),
+    ("minicpm3-4b", {}), ("seamless-m4t-medium", {}),
     ("internvl2-2b", {}), ("gemma3-1b", {"kv_cache_dtype": "int8"})])
 def test_what_the_slice_does_not_cover_raises(arch, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

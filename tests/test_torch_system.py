@@ -218,6 +218,8 @@ PURITY = textwrap.dedent("""
     assert tuple(toks.shape) == (2, 4)
     toks = serve.run("rwkv6-3b", 2, 32, 3, device="cpu")
     assert tuple(toks.shape) == (2, 3)
+    toks = serve.run("jamba-1.5-large-398b", 2, 32, 3, device="cpu")
+    assert tuple(toks.shape) == (2, 3)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print("LOADED", bad)
