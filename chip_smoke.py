@@ -8,6 +8,9 @@ and prints one JSON line per phase.
 
 Phases:
   device   card name and power limit, torch version, kernel build time
+  flash_build  per instantiation of the flash-attention kernels: ptxas's
+               registers and spills, dynamic shared memory, and the HGMMA
+               and UTMALDG instructions in the library's SASS
   kernel   GBM-ensemble kernel vs its plain version at the serving shape,
            edge cases and n = 2**20; CUDA-event times and the bound
   fit      all five Table I jobs published on a hub, 15 predictors fitted
@@ -20,11 +23,13 @@ Phases:
   profile  device busy time and launches of one fit and one choose
            (torch.profiler, profiler on: wall times are inflated)
   lm_kernel   flash-attention and flash-decode kernels vs their plain
-              versions in bfloat16 and float32 (gemma3-1b's serving shapes,
-              softcap, non-causal, ragged S, S = 1, hd 64/128, ring slot
-              maps, pos = 0, G = 1/2/4/8); device times (torch.profiler) and
-              CUDA-event times, bounds and the
-              scaled_dot_product_attention yardstick at the serving shapes
+              versions in bfloat16 (flash: the wgmma/TMA kernel) and
+              float32 (the SIMT kernel) (gemma3-1b's serving shapes,
+              softcap, non-causal, ragged S, S = 1 and 129, a window
+              across a kv tile, hd 64/128, ring slot maps, pos = 0,
+              G = 1/2/4/8); CUDA-event and profiler device times, achieved
+              TFLOP/s (flash), bounds and the scaled_dot_product_attention
+              yardstick at the serving shapes
   lm_serve    gemma3-1b at full width through repro_torch.launch.serve.run:
               batch 8, prompt 2048, 64 new tokens; prefill ms, decode
               ms/token, tokens/s, peak memory, the runtime-log line
@@ -80,6 +85,8 @@ non-zero and prints no result.
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -473,6 +480,14 @@ def profile_phase(hub):
 BF16_OPS_PER_S = 989e12
 # tests/test_kernels.py's tolerances: atol, with rtol ten times that
 LM_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# A tighter check of the bf16 flash route beside LM_TOL, whose atol is as
+# large as a typical output at S 2048: ||got - want|| / ||want|| over the
+# whole output.  The kernel rounds P and the output to bf16 (8 significant
+# bits); the replay of its arithmetic gives about 2e-3 on the CPU.  P
+# rounded to fp8 e4m3 (4 significant bits) or a scale off by 10% gives
+# 1.7e-2 and 8e-2 or more, and each case's controls must exceed the limit.
+# PERF.md gives the card's readings this limit was set from.
+FLASH_BF16_REL = 5e-3
 # where the LM phases run: the card (a rehearsal on the CPU may change it)
 LM_DEVICE = "cuda"
 # gemma3-1b's serving shape (launch/serve.py: batch 8, prompt 2048, 64 new)
@@ -545,6 +560,41 @@ def _excess(got, want, dtype):
     return float((d - tol - 10 * tol * w.abs()).max()), float(d.max())
 
 
+def _rel_err(got, want):
+    """||got - want|| / ||want||, in float64."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-300))
+
+
+def _coarse_p_attention(q, k, v, causal, window, cap, p_type):
+    """A control for the bf16 check: attention with the kernel's
+    unnormalised P = exp(s - rowmax) rounded to ``p_type`` before P.V, the
+    row sums taken before the rounding.  One batch row at a time, to keep
+    the score matrix small at jamba's shape."""
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    ok = kp <= qp if causal else torch.ones(S, S, dtype=torch.bool,
+                                             device=q.device)
+    if window:
+        ok = ok & (kp > qp - window)
+    out = []
+    for b in range(B):
+        qg = q[b].float().reshape(S, KV, G, hd) * hd ** -0.5
+        s = torch.einsum("qkgh,skh->kgqs", qg, k[b].float())
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(ok, s, torch.tensor(-2.0e38, device=q.device))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("kgqs,skh->kgqh", p.to(p_type).float(), v[b].float())
+        o = o / p.sum(-1, keepdim=True)
+        out.append(o.permute(2, 0, 1, 3).reshape(S, H, hd))
+    return torch.stack(out).to(q.dtype)
+
+
 def sdpa_has_gqa():
     """``scaled_dot_product_attention`` takes ``enable_gqa`` from torch
     2.5 on."""
@@ -588,9 +638,15 @@ def lm_time(fn, reps, kernels_per_call=1):
     calls (``events_ms``; when the host launches slower than the card runs,
     as for a decode step's small launches, this is the host's time), and
     the device time of the kernels and copies a torch.profiler trace
-    records over ``reps`` calls (``device_ms``).  ``ms`` is the device time
-    when the trace recorded at least ``kernels_per_call`` device events per
-    call, else the events time (``ms_from`` says which)."""
+    records over ``reps`` calls (``device_ms``).  The trace may drop events
+    (it kept 7 of 20 launches of 23 ms, and some of SDPA's): the device
+    time of a call is, over the kernel names, the mean recorded duration
+    times the launches a call makes, ceil(recorded / reps);
+    ``trace_complete`` says whether every name was recorded a whole number
+    of times per call.  ``ms`` is the device time when the trace recorded
+    at least ``kernels_per_call`` device events per call, else the events
+    time (``ms_from`` says which).  ``kernel_names`` are the device
+    events' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     events_ms = cuda_ms(fn, reps)
@@ -602,19 +658,33 @@ def lm_time(fn, reps, kernels_per_call=1):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     per_call = len(dev) / reps
-    device_ms = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    by_name = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_ms = sum(sum(d) / len(d) * -(-len(d) // reps)
+                    for d in by_name.values()) / 1e3 if dev else None
     seen = per_call >= kernels_per_call
     return {"ms": device_ms if seen else events_ms, "events_ms": events_ms,
             "device_ms": device_ms, "device_events_per_call": per_call,
-            "ms_from": "profiler device time" if seen else "cuda events"}
+            "ms_from": "profiler device time" if seen else "cuda events",
+            "trace_complete": all(len(d) % reps == 0
+                                  for d in by_name.values()),
+            "kernel_names": sorted({n[:80] for n in by_name})}
 
 
 def flash_times(seed, B, S, H, KV, hd, window):
     """Kernel, plain and SDPA times of one causal bf16 flash_attention call
-    at [B, S, H over KV, hd], and its bound."""
+    at [B, S, H over KV, hd], and its bound.  The times are CUDA events,
+    the kernel's and SDPA's over the same 20 calls; beside them the
+    profiler's device times, and for each reading of the kernel and SDPA
+    its achieved TFLOP/s (the operations of ``flash_bound_ms`` over the
+    time).  Fails on a reading above the bf16 peak, and unless the trace
+    shows the tensor-core kernel."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _qkv(seed, B, S, H, KV, hd, "bfloat16")
     kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
+    assert any("flash_fwd_wgmma" in n for n in kern["kernel_names"]), \
+        kern["kernel_names"]
     plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
                                                      window=window), 5)
     lib = sdpa_flash(q, k, v, True, window)
@@ -624,8 +694,17 @@ def flash_times(seed, B, S, H, KV, hd, window):
          - FA.flash_attention_plain(q, k, v, window=window).float())
         .abs().max())
     bnd, by = flash_bound_ms(B, S, H, KV, hd, True, window, "bfloat16")
-    return {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_t and lib_t["ms"],
+    flops = 4 * B * H * hd * kept_pairs(S, True, window)
+    tflops = {f"{who}_{how}": flops / t[f"{how}_ms"] * 1e-9
+              for who, t in (("kernel", kern), ("library", lib_t))
+              if t is not None for how in ("events", "device")
+              if t[f"{how}_ms"]}
+    over = {n: x for n, x in tflops.items() if x > BF16_OPS_PER_S * 1e-12}
+    assert not over, f"flash readings above the bf16 peak: {over}"
+    return {"ms": kern["events_ms"], "plain_ms": plain["events_ms"],
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_t and lib_t["events_ms"],
+            "ms_from": "cuda events", "tflops": tflops,
             "library_max_abs_err_vs_plain": lib_err,
             "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
 
@@ -656,15 +735,43 @@ def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
             "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
 
 
+def check_flash_bf16_rel(label, q, k, v, causal, window, cap, got, want):
+    """The tighter bf16 check of one flash case: the kernel's relative error
+    within FLASH_BF16_REL, and, where a row sees more than one key, each
+    control (P rounded to fp8, the scale off by 10%) beyond it.  Returns
+    the readings."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    hd = q.shape[-1]
+    r = {"kernel": _rel_err(got, want)}
+    assert r["kernel"] <= FLASH_BF16_REL, \
+        f"flash_attention {label} bfloat16: relative error {r['kernel']} " \
+        f"beyond {FLASH_BF16_REL}"
+    r["control_p_fp8"] = _rel_err(_coarse_p_attention(
+        q, k, v, causal, window, cap, torch.float8_e4m3fn), want)
+    r["control_scale_1.1"] = _rel_err(FA.flash_attention_plain(
+        q, k, v, causal=causal, window=window, softcap=cap,
+        scale=1.1 * hd ** -0.5), want)
+    if q.shape[1] > 1 and window != 1:
+        for name in ("control_p_fp8", "control_scale_1.1"):
+            assert r[name] > FLASH_BF16_REL, \
+                f"flash_attention {label}: the bf16 check passes its " \
+                f"{name} ({r[name]})"
+    return r
+
+
 def check_attention(flash_cases, decode_cases, seed=0):
     """Each case of both attention kernels against its plain version on
-    the card, in bfloat16 and float32, within LM_TOL: the largest abs
-    error by kernel and type, and the cases checked."""
+    the card, in bfloat16 and float32, within LM_TOL, and bf16 flash within
+    FLASH_BF16_REL (``check_flash_bf16_rel``): the largest abs error by
+    kernel and type, the cases checked, and the relative errors of bf16
+    flash and its controls by case."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.modeling.attention import ring_positions
     worst = {"flash_attention": {}, "decode_attention": {}}
     checked = {"flash_attention": [], "decode_attention": []}
+    rel = {}
     for i, (label, b, S, H, KV, hd, causal, window, cap) in \
             enumerate(flash_cases):
         for dt in ("bfloat16", "float32"):
@@ -677,6 +784,9 @@ def check_attention(flash_cases, decode_cases, seed=0):
             excess, err = _excess(got, want, dt)
             assert excess <= 0, f"flash_attention {label} {dt}: " \
                 f"{excess} beyond tolerance"
+            if dt == "bfloat16":
+                rel[label] = check_flash_bf16_rel(
+                    label, q, k, v, causal, window, cap, got, want)
             w = worst["flash_attention"]
             w[dt] = max(w.get(dt, 0.0), err)
             checked["flash_attention"].append(f"{label} {dt}")
@@ -697,7 +807,75 @@ def check_attention(flash_cases, decode_cases, seed=0):
             w = worst["decode_attention"]
             w[dt] = max(w.get(dt, 0.0), err)
             checked["decode_attention"].append(f"{label} {dt}")
-    return worst, checked
+    return worst, checked, rel
+
+
+def _flash_instance(mangled):
+    """The label of a mangled kernel name of flash_attention.cu, such as
+    'bf16 wgmma hd 128', or None for another function."""
+    m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", mangled)
+    if m:
+        return f"bf16 wgmma hd {m.group(1)}"
+    m = re.search(r"flash_fwd_kernelIfLi(\d+)E", mangled)
+    return f"float32 simt hd {m.group(1)}" if m else None
+
+
+def flash_build_phase(build, so_path):
+    """What the compiler made of flash_attention.cu, per instantiation:
+    ptxas's registers, static shared memory and spills (from
+    ``build.BUILD_INFO``), the dynamic shared memory of a bf16 block
+    (``tc::Cfg``'s SMEM, through ``tile_config``), and the counts of
+    tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
+    ``cuobjdump --dump-sass`` of the built library.  Fails unless every
+    bf16 instantiation holds both and spills nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    t0 = time.perf_counter()
+    per = {}
+    cur = None
+    for ln in build.BUILD_INFO["flash_attention"]["log"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = _flash_instance(m.group(1))
+            if cur:
+                per[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            per[cur]["spill_stores"] = int(m.group(1))
+            per[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            per[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            per[cur]["static_smem_bytes"] = int(m.group(1))
+    for name, info in per.items():
+        if name.startswith("bf16"):
+            cfg = FA.tile_config(int(name.split()[-1]))
+            info.update(BK=cfg["BK"], stages=cfg["NS"],
+                        dynamic_smem_bytes=cfg["SMEM"])
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = _flash_instance(part.split()[0])
+        if name in per:
+            per[name]["HGMMA"] = part.count("HGMMA")
+            per[name]["UTMALDG"] = part.count("UTMALDG")
+    for name, info in per.items():
+        assert info.get("spill_stores", 1) == 0, (name, info)
+        if name.startswith("bf16"):
+            assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
+                (name, info)
+    assert sum(n.startswith("bf16") for n in per) == 3, per
+    emit("flash_build", t0, instances=per,
+         sass_total={"HGMMA": sass.count("HGMMA"),
+                     "UTMALDG": sass.count("UTMALDG")})
 
 
 def lm_kernel_phase():
@@ -713,7 +891,11 @@ def lm_kernel_phase():
         ("ragged S=1000 window 512", 2, 1000, 4, 1, 256, True, 512, 0.0),
         ("S=1", 4, 1, 4, 1, 256, True, 0, 0.0),
         ("hd=64 window 128", 2, 512, 8, 2, 64, True, 128, 0.0),
-        ("hd=128 softcap 30", 2, 512, 4, 4, 128, True, 0, 30.0)]
+        ("hd=128 softcap 30", 2, 512, 4, 4, 128, True, 0, 30.0),
+        ("S=129 hd=128", 2, 129, 4, 1, 128, True, 0, 0.0),
+        ("window 16 across a kv tile, first tile fully masked", 1, 384, 2,
+         1, 64, True, 16, 0.0),
+        ("G=8 hd=128 non-causal", 1, 512, 16, 2, 128, False, 0, 0.0)]
     decode_cases = [  # label, B, L, H, KV, hd, pos, window, cap, ring
         ("serve global pos 2100", B, L, 4, 1, 256, 2100, 0, 0.0, False),
         ("global mid-cache pos 1000", B, L, 4, 1, 256, 1000, 0, 0.0, False),
@@ -725,7 +907,7 @@ def lm_kernel_phase():
         ("softcap 50 H8 KV4", 2, L, 8, 4, 256, 1500, 0, 50.0, False),
         ("G=1 hd=128", 2, L, 4, 4, 128, 700, 0, 0.0, False),
         ("G=8 hd=64 window 256", 2, 1000, 8, 1, 64, 999, 256, 0.0, False)]
-    worst, checked = check_attention(flash_cases, decode_cases)
+    worst, checked, rel = check_attention(flash_cases, decode_cases)
 
     times = {}
     for name, window in (("global", 0), ("local", 512)):
@@ -735,8 +917,9 @@ def lm_kernel_phase():
         times[f"decode_{name}"] = decode_times(
             8, B, Lc, 4, 1, 256, SERVE_PROMPT + SERVE_NEW // 2, window, ring)
     emit("lm_kernel", t0, cases=checked, max_abs_err=worst,
-         tolerances=LM_TOL, times=times)
-    return worst, times
+         tolerances=LM_TOL, flash_bf16_rel_err=rel,
+         flash_bf16_rel_limit=FLASH_BF16_REL, times=times)
+    return worst, times, rel
 
 
 def lm_serve_phase():
@@ -863,7 +1046,8 @@ def profile_serving(arch, kernel_marks):
     it, weights drawn on the card) and of 8 decode steps after it, from a
     torch.profiler trace (profiler on: wall times are inflated).  A device
     kernel whose name holds one of ``kernel_marks`` counts as one of the
-    port's hand-written kernels; ``launches_by_mark`` counts each mark."""
+    port's hand-written kernels; ``launches_by_mark`` counts each mark and
+    ``device_s_by_mark`` sums its device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import card_config
@@ -919,6 +1103,10 @@ def profile_serving(arch, kernel_marks):
                          "hand_written_kernels_seen": len(ours),
                          "launches_by_mark": {
                              m: sum(m in e.name for e in kernels)
+                             for m in kernel_marks},
+                         "device_s_by_mark": {
+                             m: sum(e.time_range.elapsed_us()
+                                    for e in kernels if m in e.name) * 1e-6
                              for m in kernel_marks},
                          "hand_written_device_s": sum(
                              e.time_range.elapsed_us() for e in ours) * 1e-6,
@@ -1350,15 +1538,17 @@ def jamba_kernel_phase():
     _free_card()
 
     H, KV, hd = JAMBA_H, JAMBA_KV, JAMBA_HD
-    attn_worst, attn_checked = check_attention(
+    attn_worst, attn_checked, attn_rel = check_attention(
         [("jamba attention layer", B, S, H, KV, hd, True, 0, 0.0)],
         [("jamba decode pos 2100", B, SERVE_L, H, KV, hd, 2100, 0, 0.0,
           False)], seed=200)
-    attn = {"max_abs_err": attn_worst, "times": {
+    attn_times = {
         "flash_attention": flash_times(207, B, S, H, KV, hd, 0),
         "decode_attention": decode_times(
             208, B, SERVE_L, H, KV, hd, SERVE_PROMPT + SERVE_NEW // 2, 0,
-            False)}}
+            False)}
+    attn = {"max_abs_err": attn_worst, "flash_bf16_rel_err": attn_rel,
+            "times": attn_times}
     _free_card()
     emit("jamba_kernel", t0, cases=checked, max_abs_err_by_dtype=worst,
          tolerance={"atol": SCAN_ATOL, "rtol": SCAN_RTOL,
@@ -1366,7 +1556,7 @@ def jamba_kernel_phase():
          min_dt_times_A=min_dta, times=times,
          library="none: no one PyTorch call computes a selective scan",
          attention_cases=attn_checked, attention_tolerances=LM_TOL,
-         attention=attn)
+         flash_bf16_rel_limit=FLASH_BF16_REL, attention=attn)
     return worst, times, attn
 
 
@@ -1629,7 +1819,7 @@ def main():
     smi = nvidia_smi()
 
     t0 = time.perf_counter()
-    build.build_all()
+    built = build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {n: [ln for ln in info["log"].splitlines()
                  if "registers" in ln or "Compiling entry" in ln
@@ -1641,8 +1831,9 @@ def main():
                                   for n, i in build.BUILD_INFO.items()},
          ptxas=ptxas)
 
+    flash_build_phase(build, built["flash_attention"])
     max_abs, times = kernel_phase(dev)
-    lm_worst, lm_times = lm_kernel_phase()
+    lm_worst, lm_times, lm_rel = lm_kernel_phase()
 
     # ---- main path of slice 1: counts from 0 before it, read after it
     K.LAUNCHES = 0
@@ -1680,6 +1871,8 @@ def main():
               for k in ("flash_attention", "decode_attention"))
     errs = {k: {dt: max(lm_worst[k][dt], jamba_attn["max_abs_err"][k][dt])
                 for dt in lm_worst[k]} for k in lm_worst}
+    rels = list(lm_rel.values()) + list(jamba_attn["flash_bf16_rel_err"]
+                                        .values())
     print(json.dumps({"kernels": [{
         "name": "gbm_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbm_predict.cu",
@@ -1696,20 +1889,27 @@ def main():
         "launches": lm_launches["flash_attention"],
         "max_abs_err": max(errs["flash_attention"].values()),
         "max_abs_err_by_dtype": errs["flash_attention"],
+        "rel_err_bf16": max(r["kernel"] for r in rels),
+        "rel_err_bf16_limit": FLASH_BF16_REL,
+        "rel_err_bf16_least_control": min(
+            min(r["control_p_fp8"], r["control_scale_1.1"])
+            for r in rels if r["control_p_fp8"] > 0),
         "ms": fg["ms"], "plain_ms": fg["plain_ms"],
         "bound_ms": fg["bound_ms"], "bound_by": fg["bound_by"],
-        "library_ms": fg["library_ms"],
+        "library_ms": fg["library_ms"], "ms_from": "cuda events",
+        "tflops": fg["tflops"],
         "shape": f"global layer B={SERVE_B} S={SERVE_PROMPT} H=4 KV=1 "
                  "hd=256 causal bf16",
         "ms_local": fl["ms"], "plain_ms_local": fl["plain_ms"],
         "bound_ms_local": fl["bound_ms"],
-        "library_ms_local": fl["library_ms"],
+        "library_ms_local": fl["library_ms"], "tflops_local": fl["tflops"],
         "launches_jamba": jamba_launches["flash_attention"],
         "shape_jamba": f"attention layer B={SERVE_B} S={SERVE_PROMPT} "
                        f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} causal bf16",
         "ms_jamba": fj["ms"], "plain_ms_jamba": fj["plain_ms"],
         "bound_ms_jamba": fj["bound_ms"], "bound_by_jamba": fj["bound_by"],
-        "library_ms_jamba": fj["library_ms"]}, {
+        "library_ms_jamba": fj["library_ms"],
+        "tflops_jamba": fj["tflops"]}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:62",

@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per kernel: {"seconds": build wall time (0 when reused), "log": nvcc's
-# output, including what -Xptxas -v says of registers and shared memory}
+# output, including what -Xptxas -v says of registers and shared memory;
+# kept beside the library, so a reused library still has it}
 BUILD_INFO: Dict[str, Dict] = {}
 
 
@@ -62,7 +63,9 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     t0 = time.perf_counter()
     for n, out in targets.items():
         if out.exists():
-            BUILD_INFO.setdefault(n, {"seconds": 0.0, "log": ""})
+            log = out.with_suffix(".log")
+            BUILD_INFO.setdefault(n, {"seconds": 0.0, "log": log.read_text()
+                                      if log.exists() else ""})
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         procs[n] = (subprocess.Popen(
@@ -75,6 +78,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
         else:
+            targets[n].with_suffix(".log").write_text(log)
             os.replace(tmp, targets[n])  # atomic: no half-written library
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

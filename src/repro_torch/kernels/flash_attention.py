@@ -10,15 +10,28 @@ h // (H // KV)).  Masked scores take the finite NEG_INF = -2e38.  It is the
 port of ``repro/kernels/flash_attention.py`` (the Pallas kernel), whose
 oracle is ``repro/kernels/ref.py:attention_ref``.
 
-A CUDA tensor always launches the hand-written kernel
-(``csrc/flash_attention.cu``) and raises on what it does not take; a CPU
+A CUDA tensor always launches a hand-written kernel of
+``csrc/flash_attention.cu`` and raises on what it does not take; a CPU
 tensor uses ``flash_attention_plain``.  There is no fallback from one to
-the other.  ``LAUNCHES`` counts kernel launches, so that a run can show
-that its main path went through the kernel.
+the other.  The dtype picks the kernel:
+
+- bfloat16, the serving route: a Hopper kernel on the tensor cores (TMA
+  loads into a ring of swizzled shared-memory stages, one producer thread,
+  two consumer warpgroups running ``wgmma`` for Q.K^T and P.V).  Bound by
+  the tensor cores' bf16 rate at the serving shapes.  It rounds P to bf16
+  before P.V, a rounding the float32-inside Pallas kernel does not make.
+- float32, the parity route: the first SIMT design, float32 FMAs out of
+  shared memory, bound by the float32 pipe.  wgmma would take float32 only
+  as TF32, which puts the float32 parity limits at risk.
+
+``LAUNCHES`` counts kernel launches, so that a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import re
+from pathlib import Path
 
 import torch
 
@@ -55,6 +68,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
+def tile_config(hd) -> dict:
+    """The bf16 kernel's tiling at head dim ``hd``, read from its source:
+    ``tc::Cfg<hd>``'s constants (BK keys per stage, NS stages, SMEM bytes
+    of dynamic shared memory a block, ...) with HD and kBQ, the query rows
+    of a block."""
+    src = (Path(__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    tc = src[src.index("namespace tc {"):]
+    env = {"HD": hd,
+           "kBQ": int(re.search(r"constexpr int kBQ = (\d+);", tc)[1])}
+    body = re.search(r"struct Cfg \{(.*?)\n\};", tc, re.S)[1]
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                                 body):
+        m = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr)
+        if m:                          # C's a ? b : c
+            expr = f"({m[2]}) if ({m[1]}) else ({m[3]})"
+        env[name] = int(eval(expr.replace("/", "//"), {}, env))
+    return env
+
+
 def _check(q, k, v, window):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -78,7 +110,8 @@ def _check(q, k, v, window):
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
-    if B > 65535 or H > 65535 or S >= 2 ** 31 - 64:
+    if B > 65535 or H > 65535 or S >= 2 ** 31 - 128 \
+            or -(-S // 128) * B * H >= 2 ** 31:
         raise ValueError(f"grid too large: B {B}, H {H}, S {S}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
