@@ -11,6 +11,8 @@ Phases:
   flash_build  per instantiation of the flash-attention kernels: ptxas's
                registers and spills, dynamic shared memory, and the HGMMA
                and UTMALDG instructions in the library's SASS
+  kernel_build per instantiation of the decode and WKV6 kernels: ptxas's
+               registers, spills and shared memory
   kernel   GBM-ensemble kernel vs its plain version at the serving shape,
            edge cases and n = 2**20; CUDA-event times and the bound
   fit      all five Table I jobs published on a hub, 15 predictors fitted
@@ -23,11 +25,13 @@ Phases:
   profile  device busy time and launches of one fit and one choose
            (torch.profiler, profiler on: wall times are inflated)
   lm_kernel   flash-attention and flash-decode kernels vs their plain
-              versions in bfloat16 (flash: the wgmma/TMA kernel) and
-              float32 (the SIMT kernel) (gemma3-1b's serving shapes,
-              softcap, non-causal, ragged S, S = 1 and 129, a window
-              across a kv tile, hd 64/128, ring slot maps, pos = 0,
-              G = 1/2/4/8); CUDA-event and profiler device times, achieved
+              versions in bfloat16 (tensor cores; also held to a relative
+              bound, with two controls that must exceed it) and float32
+              (SIMT) (gemma3-1b's serving shapes, softcap, non-causal,
+              ragged S, S = 1 and 129, a window across a kv tile, ring
+              slot maps, pos = 0, decode runs that end inside a tile and
+              warps whose slots are all masked, G = 1/2/4/8 at hd
+              64/128/256); CUDA-event and profiler device times, achieved
               TFLOP/s (flash), bounds and the scaled_dot_product_attention
               yardstick at the serving shapes
   lm_serve    gemma3-1b at full width through repro_torch.launch.serve.run:
@@ -42,8 +46,8 @@ Phases:
                 serving shape (B 8, S 2048, H 40, hd 64, float32), and vs
                 both plain versions on edge cases (given s0, two chunks,
                 B 1 H 1, hd 32, log w down to -12, u = 0, s0 = None, a
-                sequence split across two calls); device times
-                (torch.profiler) and the bound
+                sequence split across two calls); CUDA-event times (the
+                profiler's device time beside them) and the bound
   rwkv_profile  device busy time and top kernels of one full-width rwkv6-3b
                 prefill and 8 decode steps (torch.profiler)
   rwkv_serve    rwkv6-3b at full width and depth through
@@ -488,6 +492,12 @@ LM_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # 1.7e-2 and 8e-2 or more, and each case's controls must exceed the limit.
 # PERF.md gives the card's readings this limit was set from.
 FLASH_BF16_REL = 5e-3
+# The same check of bf16 decode: the kernel rounds P and the output to bf16;
+# the CPU replay of its arithmetic gives 1.9e-3 to 2.2e-3 at the serving
+# shapes, P rounded to fp8 e4m3 2.1e-2 to 2.7e-2, the scale off by 10%
+# 0.13 or more; each case's controls must exceed the limit where more than
+# one slot is kept.  PERF.md gives the card's readings.
+DECODE_BF16_REL = 5e-3
 # where the LM phases run: the card (a rehearsal on the CPU may change it)
 LM_DEVICE = "cuda"
 # gemma3-1b's serving shape (launch/serve.py: batch 8, prompt 2048, 64 new)
@@ -710,17 +720,21 @@ def flash_times(seed, B, S, H, KV, hd, window):
 
 
 def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
-    """Kernel (split + combine), plain and SDPA times of one bf16
-    decode_attention call over a [B, Lc, KV, hd] cache at ``pos`` (a ring
-    cache through its slot map when ``ring``), and its bound."""
+    """Kernel, plain and SDPA times of one bf16 decode_attention call (one
+    launch) over a [B, Lc, KV, hd] cache at ``pos`` (a ring cache through
+    its slot map when ``ring``), and its bound.  The kernel's time is its
+    profiler device time (the mean recorded launch, one launch a call, so
+    a dropped event does not bias it): back-to-back calls this short are
+    bound by the host's launches, which CUDA events would time."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.modeling.attention import ring_positions
     q, kc, vc = _qkv(seed, B, 1, H, KV, hd, "bfloat16", L=Lc)
     q = q[:, 0].contiguous()
     k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
     kern = lm_time(lambda: DA.decode_attention(
-        q, kc, vc, pos, window=window, k_pos=k_pos), 200,
-        kernels_per_call=2)
+        q, kc, vc, pos, window=window, k_pos=k_pos), 200)
+    assert any("decode_kernel" in n for n in kern["kernel_names"]), \
+        kern["kernel_names"]
     plain = lm_time(lambda: DA.decode_attention_plain(
         q, kc, vc, pos, window=window, k_pos=k_pos), 50)
     ok = DA._mask(k_pos, Lc, pos, window, q.device)
@@ -729,7 +743,8 @@ def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
     n_kept = int(ok.sum())
     bnd, by = decode_bound_ms(B, H, KV, hd, n_kept, Lc if ring else 0,
                               "bfloat16")
-    return {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
+    return {"ms": kern["device_ms"], "ms_from": "profiler device time",
+            "plain_ms": plain["ms"], "bound_ms": bnd,
             "bound_by": by, "library_ms": lib_t and lib_t["ms"],
             "pos": pos, "slots_kept": n_kept,
             "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
@@ -760,18 +775,62 @@ def check_flash_bf16_rel(label, q, k, v, causal, window, cap, got, want):
     return r
 
 
+def _coarse_p_decode(q, kc, vc, ok, cap, p_type):
+    """A control for the bf16 decode check: decode attention with the
+    unnormalised P = exp(s - max) rounded to ``p_type`` before P.V, the
+    sums taken before the rounding."""
+    import torch
+    B, H, hd = q.shape
+    KV = kc.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd) * hd ** -0.5
+    s = torch.einsum("bkgh,blkh->bkgl", qg, kc.float())
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    s = torch.where(ok, s, torch.tensor(-2.0e38, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgl,blkh->bkgh", p.to(p_type).float(), vc.float())
+    return (o / p.sum(-1, keepdim=True)).reshape(B, H, hd).to(q.dtype)
+
+
+def check_decode_bf16_rel(label, q, kc, vc, pos, window, cap, k_pos, got,
+                          want):
+    """The tighter bf16 check of one decode case: the kernel's relative
+    error within DECODE_BF16_REL, and, where more than one slot is kept,
+    each control (P rounded to fp8, the scale off by 10%) beyond it."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    hd = q.shape[-1]
+    r = {"kernel": _rel_err(got, want)}
+    assert r["kernel"] <= DECODE_BF16_REL, \
+        f"decode_attention {label} bfloat16: relative error {r['kernel']} " \
+        f"beyond {DECODE_BF16_REL}"
+    ok = DA._mask(k_pos, kc.shape[1], pos, window, q.device)
+    r["control_p_fp8"] = _rel_err(_coarse_p_decode(
+        q, kc, vc, ok, cap, torch.float8_e4m3fn), want)
+    r["control_scale_1.1"] = _rel_err(DA.decode_attention_plain(
+        q, kc, vc, pos, window=window, softcap=cap, scale=1.1 * hd ** -0.5,
+        k_pos=k_pos), want)
+    if int(ok.sum()) > 1:
+        for name in ("control_p_fp8", "control_scale_1.1"):
+            assert r[name] > DECODE_BF16_REL, \
+                f"decode_attention {label}: the bf16 check passes its " \
+                f"{name} ({r[name]})"
+    return r
+
+
 def check_attention(flash_cases, decode_cases, seed=0):
     """Each case of both attention kernels against its plain version on
-    the card, in bfloat16 and float32, within LM_TOL, and bf16 flash within
-    FLASH_BF16_REL (``check_flash_bf16_rel``): the largest abs error by
+    the card, in bfloat16 and float32, within LM_TOL, bf16 flash within
+    FLASH_BF16_REL (``check_flash_bf16_rel``) and bf16 decode within
+    DECODE_BF16_REL (``check_decode_bf16_rel``): the largest abs error by
     kernel and type, the cases checked, and the relative errors of bf16
-    flash and its controls by case."""
+    flash and decode and their controls by kernel and case."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.modeling.attention import ring_positions
     worst = {"flash_attention": {}, "decode_attention": {}}
     checked = {"flash_attention": [], "decode_attention": []}
-    rel = {}
+    rel = {"flash_attention": {}, "decode_attention": {}}
     for i, (label, b, S, H, KV, hd, causal, window, cap) in \
             enumerate(flash_cases):
         for dt in ("bfloat16", "float32"):
@@ -785,7 +844,7 @@ def check_attention(flash_cases, decode_cases, seed=0):
             assert excess <= 0, f"flash_attention {label} {dt}: " \
                 f"{excess} beyond tolerance"
             if dt == "bfloat16":
-                rel[label] = check_flash_bf16_rel(
+                rel["flash_attention"][label] = check_flash_bf16_rel(
                     label, q, k, v, causal, window, cap, got, want)
             w = worst["flash_attention"]
             w[dt] = max(w.get(dt, 0.0), err)
@@ -804,6 +863,9 @@ def check_attention(flash_cases, decode_cases, seed=0):
             excess, err = _excess(got, want, dt)
             assert excess <= 0, f"decode_attention {label} {dt}: " \
                 f"{excess} beyond tolerance"
+            if dt == "bfloat16":
+                rel["decode_attention"][label] = check_decode_bf16_rel(
+                    label, q, kc, vc, pos, window, cap, k_pos, got, want)
             w = worst["decode_attention"]
             w[dt] = max(w.get(dt, 0.0), err)
             checked["decode_attention"].append(f"{label} {dt}")
@@ -820,22 +882,15 @@ def _flash_instance(mangled):
     return f"float32 simt hd {m.group(1)}" if m else None
 
 
-def flash_build_phase(build, so_path):
-    """What the compiler made of flash_attention.cu, per instantiation:
-    ptxas's registers, static shared memory and spills (from
-    ``build.BUILD_INFO``), the dynamic shared memory of a bf16 block
-    (``tc::Cfg``'s SMEM, through ``tile_config``), and the counts of
-    tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
-    ``cuobjdump --dump-sass`` of the built library.  Fails unless every
-    bf16 instantiation holds both and spills nothing."""
-    from repro_torch.kernels import flash_attention as FA
-    t0 = time.perf_counter()
-    per = {}
-    cur = None
-    for ln in build.BUILD_INFO["flash_attention"]["log"].splitlines():
+def ptxas_by_instance(log, label):
+    """ptxas's registers, static shared memory and spills per kernel
+    function in an nvcc ``-Xptxas -v`` log, keyed by ``label(mangled
+    name)``; functions it labels None are skipped."""
+    per, cur = {}, None
+    for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            cur = _flash_instance(m.group(1))
+            cur = label(m.group(1))
             if cur:
                 per[cur] = {}
             continue
@@ -852,6 +907,21 @@ def flash_build_phase(build, so_path):
         m = re.search(r"(\d+) bytes smem", ln)
         if m:
             per[cur]["static_smem_bytes"] = int(m.group(1))
+    return per
+
+
+def flash_build_phase(build, so_path):
+    """What the compiler made of flash_attention.cu, per instantiation:
+    ptxas's registers, static shared memory and spills (from
+    ``build.BUILD_INFO``), the dynamic shared memory of a bf16 block
+    (``tc::Cfg``'s SMEM, through ``tile_config``), and the counts of
+    tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
+    ``cuobjdump --dump-sass`` of the built library.  Fails unless every
+    bf16 instantiation holds both and spills nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    t0 = time.perf_counter()
+    per = ptxas_by_instance(build.BUILD_INFO["flash_attention"]["log"],
+                            _flash_instance)
     for name, info in per.items():
         if name.startswith("bf16"):
             cfg = FA.tile_config(int(name.split()[-1]))
@@ -876,6 +946,56 @@ def flash_build_phase(build, so_path):
     emit("flash_build", t0, instances=per,
          sass_total={"HGMMA": sass.count("HGMMA"),
                      "UTMALDG": sass.count("UTMALDG")})
+
+
+def _instance(mangled):
+    """A short label of a mangled kernel name of decode_attention.cu or
+    wkv6.cu, such as 'decode bf16 hd 128 G 8' or 'wkv6 hd 64', else
+    None."""
+    m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if m:
+        dt = "f32" if m.group(1) == "f" else "bf16"
+        return f"decode {dt} hd {m.group(2)} G {m.group(3)}"
+    m = re.search(r"wkv6_kernelILi(\d+)E", mangled)
+    return f"wkv6 hd {m.group(1)}" if m else None
+
+
+# bytes of register spill stores and of spill loads the WKV6 kernel may
+# have: it is capped at 80 registers a thread so that three blocks fit on
+# an SM, and ptxas spills a few bytes there at hd 64 (4 in the kept source,
+# 8 in an earlier one; PERF.md); more is a regression
+WKV6_SPILL_BYTES = 8
+
+
+def kernel_build_phase(build):
+    """ptxas's registers, spills and static shared memory per instantiation
+    of the decode and WKV6 kernels (from ``build.BUILD_INFO``), and the
+    warps, dynamic shared memory and resident blocks an SM of a decode
+    block, as the library reports them (``tile_config``).  Fails if a
+    decode instantiation spills, or a WKV6 one stores or loads more than
+    WKV6_SPILL_BYTES of spills."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    t0 = time.perf_counter()
+    per = {}
+    for name in ("decode_attention", "wkv6"):
+        per.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
+                                     _instance))
+    for name, info in per.items():
+        if name.startswith("decode"):
+            dt = torch.bfloat16 if " bf16 " in name else torch.float32
+            words = name.split()
+            cfg = DA.tile_config(int(words[3]), dt, int(words[5]), 0)
+            info.update(warps=cfg["W"], dynamic_smem_bytes=cfg["SMEM"],
+                        blocks_per_sm=cfg["blocks_per_sm"])
+    assert sum(n.startswith("decode") for n in per) == 24, sorted(per)
+    assert sum(n.startswith("wkv6") for n in per) == 3, sorted(per)
+    spills = {n: i for n, i in per.items()
+              if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
+              > (WKV6_SPILL_BYTES if n.startswith("wkv6") else 0)}
+    assert not spills, spills
+    emit("kernel_build", t0, instances=per)
 
 
 def lm_kernel_phase():
@@ -906,7 +1026,15 @@ def lm_kernel_phase():
          True),
         ("softcap 50 H8 KV4", 2, L, 8, 4, 256, 1500, 0, 50.0, False),
         ("G=1 hd=128", 2, L, 4, 4, 128, 700, 0, 0.0, False),
-        ("G=8 hd=64 window 256", 2, 1000, 8, 1, 64, 999, 256, 0.0, False)]
+        ("G=8 hd=64 window 256", 2, 1000, 8, 1, 64, 999, 256, 0.0, False),
+        # the kernel's tiles of 32 slots and runs of 16-slot multiples: a
+        # run that ends inside a tile, and warps whose slots are all masked
+        ("L=1000 ragged runs G=2 hd=128", 2, 1000, 8, 4, 128, 999, 0, 0.0,
+         False),
+        ("ring first turn, most warps fully masked", B, 512, 4, 1, 256, 100,
+         512, 0.0, True)] + [
+        (f"G={g} hd={hd}", 2, 777, 2 * g, 2, hd, 700, 0, 0.0, False)
+        for g in (1, 2, 4, 8) for hd in (64, 128, 256)]
     worst, checked, rel = check_attention(flash_cases, decode_cases)
 
     times = {}
@@ -917,8 +1045,9 @@ def lm_kernel_phase():
         times[f"decode_{name}"] = decode_times(
             8, B, Lc, 4, 1, 256, SERVE_PROMPT + SERVE_NEW // 2, window, ring)
     emit("lm_kernel", t0, cases=checked, max_abs_err=worst,
-         tolerances=LM_TOL, flash_bf16_rel_err=rel,
-         flash_bf16_rel_limit=FLASH_BF16_REL, times=times)
+         tolerances=LM_TOL, bf16_rel_err=rel,
+         flash_bf16_rel_limit=FLASH_BF16_REL,
+         decode_bf16_rel_limit=DECODE_BF16_REL, times=times)
     return worst, times, rel
 
 
@@ -941,7 +1070,7 @@ def lm_serve_phase():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         log = os.path.join(tmp, "runtime.jsonl")
         torch.cuda.reset_peak_memory_stats()
-        FA.LAUNCHES = DA.LAUNCHES = DA.COMBINE_LAUNCHES = 0
+        FA.LAUNCHES = DA.LAUNCHES = 0
         t1 = time.perf_counter()
         toks = serve.run("gemma3-1b", SERVE_B, SERVE_PROMPT, SERVE_NEW,
                          smoke=False, runtime_log=log, seed=0,
@@ -949,8 +1078,7 @@ def lm_serve_phase():
         sync()
         wall = time.perf_counter() - t1
         launches = {"flash_attention": FA.LAUNCHES,
-                    "decode_attention": DA.LAUNCHES,
-                    "decode_attention_combine": DA.COMBINE_LAUNCHES}
+                    "decode_attention": DA.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
         with open(log) as f:
             rec = json.loads(f.read().splitlines()[-1])
@@ -962,7 +1090,6 @@ def lm_serve_phase():
     assert launches["flash_attention"] == cfg.n_layers, launches
     steps = SERVE_NEW - 1
     assert launches["decode_attention"] == steps * cfg.n_layers, launches
-    assert launches["decode_attention_combine"] == steps * cfg.n_layers
     emit("lm_serve", t0, arch="gemma3-1b", batch=SERVE_B,
          prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
          prefill_ms=rec["prefill_s"] * 1e3,
@@ -1225,8 +1352,10 @@ def rwkv_kernel_phase():
     kern = lm_time(lambda: WK.wkv6(*serve_in), 20)
     plain = lm_time(lambda: WK.wkv6_plain(*serve_in), 3)
     bnd, by = wkv6_bound_ms(B, S, H, hd)
-    times = {"ms": kern["ms"], "plain_ms": plain["ms"], "bound_ms": bnd,
-             "bound_by": by, "library_ms": None,
+    times = {"ms": kern["events_ms"], "ms_from": "cuda events",
+             "device_ms": kern["device_ms"], "plain_ms": plain["ms"],
+             "plain_ms_from": plain["ms_from"],
+             "bound_ms": bnd, "bound_by": by, "library_ms": None,
              "timings": {"kernel": kern, "plain": plain}}
     emit("rwkv_kernel", t0, cases=checked, max_abs_err=worst,
          tolerance={"atol": WKV_ATOL, "rtol": WKV_RTOL}, times=times,
@@ -1547,7 +1676,7 @@ def jamba_kernel_phase():
         "decode_attention": decode_times(
             208, B, SERVE_L, H, KV, hd, SERVE_PROMPT + SERVE_NEW // 2, 0,
             False)}
-    attn = {"max_abs_err": attn_worst, "flash_bf16_rel_err": attn_rel,
+    attn = {"max_abs_err": attn_worst, "bf16_rel_err": attn_rel,
             "times": attn_times}
     _free_card()
     emit("jamba_kernel", t0, cases=checked, max_abs_err_by_dtype=worst,
@@ -1556,7 +1685,8 @@ def jamba_kernel_phase():
          min_dt_times_A=min_dta, times=times,
          library="none: no one PyTorch call computes a selective scan",
          attention_cases=attn_checked, attention_tolerances=LM_TOL,
-         flash_bf16_rel_limit=FLASH_BF16_REL, attention=attn)
+         flash_bf16_rel_limit=FLASH_BF16_REL,
+         decode_bf16_rel_limit=DECODE_BF16_REL, attention=attn)
     return worst, times, attn
 
 
@@ -1572,8 +1702,7 @@ def jamba_profile_phase():
     It runs before jamba_serve and leaves the card warm for it."""
     t0 = time.perf_counter()
     _free_card()
-    marks = ("mamba_scan_kernel", "flash_fwd", "decode_split",
-             "decode_combine")
+    marks = ("mamba_scan_kernel", "flash_fwd", "decode_kernel")
     out = profile_serving(JAMBA_ARCH, marks)
     _free_card()
     assert out["prefill"]["launches_by_mark"]["mamba_scan_kernel"] == 3
@@ -1619,7 +1748,7 @@ def jamba_serve_phase():
             log = os.path.join(tmp, "runtime.jsonl")
             torch.cuda.reset_peak_memory_stats()
             out = io.StringIO()
-            MS.LAUNCHES = FA.LAUNCHES = DA.LAUNCHES = DA.COMBINE_LAUNCHES = 0
+            MS.LAUNCHES = FA.LAUNCHES = DA.LAUNCHES = 0
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 toks = serve.run(JAMBA_ARCH, SERVE_B, SERVE_PROMPT,
@@ -1629,8 +1758,7 @@ def jamba_serve_phase():
             wall = time.perf_counter() - t1
             launches = {"mamba_scan": MS.LAUNCHES,
                         "flash_attention": FA.LAUNCHES,
-                        "decode_attention": DA.LAUNCHES,
-                        "decode_attention_combine": DA.COMBINE_LAUNCHES}
+                        "decode_attention": DA.LAUNCHES}
             peak = torch.cuda.max_memory_allocated()
             with open(log) as f:
                 rec = json.loads(f.read().splitlines()[-1])
@@ -1661,7 +1789,6 @@ def jamba_serve_phase():
     assert n_mamba == 3 and launches["mamba_scan"] == n_mamba, launches
     assert launches["flash_attention"] == 1, launches
     assert launches["decode_attention"] == steps, launches
-    assert launches["decode_attention_combine"] == steps, launches
     emit("jamba_serve", t0, arch=JAMBA_ARCH, layers=cfg.n_layers,
          d_model=cfg.d_model, params=cfg.param_counts()["total"],
          batch=SERVE_B, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
@@ -1832,6 +1959,7 @@ def main():
          ptxas=ptxas)
 
     flash_build_phase(build, built["flash_attention"])
+    kernel_build_phase(build)
     max_abs, times = kernel_phase(dev)
     lm_worst, lm_times, lm_rel = lm_kernel_phase()
 
@@ -1871,8 +1999,8 @@ def main():
               for k in ("flash_attention", "decode_attention"))
     errs = {k: {dt: max(lm_worst[k][dt], jamba_attn["max_abs_err"][k][dt])
                 for dt in lm_worst[k]} for k in lm_worst}
-    rels = list(lm_rel.values()) + list(jamba_attn["flash_bf16_rel_err"]
-                                        .values())
+    rels = {k: list(lm_rel[k].values())
+            + list(jamba_attn["bf16_rel_err"][k].values()) for k in lm_rel}
     print(json.dumps({"kernels": [{
         "name": "gbm_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbm_predict.cu",
@@ -1889,11 +2017,11 @@ def main():
         "launches": lm_launches["flash_attention"],
         "max_abs_err": max(errs["flash_attention"].values()),
         "max_abs_err_by_dtype": errs["flash_attention"],
-        "rel_err_bf16": max(r["kernel"] for r in rels),
+        "rel_err_bf16": max(r["kernel"] for r in rels["flash_attention"]),
         "rel_err_bf16_limit": FLASH_BF16_REL,
         "rel_err_bf16_least_control": min(
             min(r["control_p_fp8"], r["control_scale_1.1"])
-            for r in rels if r["control_p_fp8"] > 0),
+            for r in rels["flash_attention"] if r["control_p_fp8"] > 0),
         "ms": fg["ms"], "plain_ms": fg["plain_ms"],
         "bound_ms": fg["bound_ms"], "bound_by": fg["bound_by"],
         "library_ms": fg["library_ms"], "ms_from": "cuda events",
@@ -1914,22 +2042,26 @@ def main():
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:62",
         "launches": lm_launches["decode_attention"],
-        "combine_launches": lm_launches["decode_attention_combine"],
         "max_abs_err": max(errs["decode_attention"].values()),
         "max_abs_err_by_dtype": errs["decode_attention"],
+        "rel_err_bf16": max(r["kernel"] for r in rels["decode_attention"]),
+        "rel_err_bf16_limit": DECODE_BF16_REL,
+        "rel_err_bf16_least_control": min(
+            min(r["control_p_fp8"], r["control_scale_1.1"])
+            for r in rels["decode_attention"] if r["control_p_fp8"] > 0),
         "ms": dg["ms"], "plain_ms": dg["plain_ms"],
         "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
         "library_ms": dg["library_ms"],
+        "ms_from": "profiler device time",
         "shape": f"global layer B={SERVE_B} L={SERVE_L} H=4 KV=1 hd=256 "
-                 f"pos={dg['pos']} bf16, split + combine",
+                 f"pos={dg['pos']} bf16, one launch",
         "ms_local": dl["ms"], "plain_ms_local": dl["plain_ms"],
         "bound_ms_local": dl["bound_ms"],
         "library_ms_local": dl["library_ms"],
         "launches_jamba": jamba_launches["decode_attention"],
-        "combine_launches_jamba": jamba_launches["decode_attention_combine"],
         "shape_jamba": f"attention layer B={SERVE_B} L={SERVE_L} "
                        f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} "
-                       f"pos={dj['pos']} bf16, split + combine",
+                       f"pos={dj['pos']} bf16, one launch",
         "ms_jamba": dj["ms"], "plain_ms_jamba": dj["plain_ms"],
         "bound_ms_jamba": dj["bound_ms"], "bound_by_jamba": dj["bound_by"],
         "library_ms_jamba": dj["library_ms"]}, {
@@ -1937,7 +2069,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:66",
         "launches": wkv_launches, "max_abs_err": wkv_err,
-        "ms": wkv_times["ms"], "plain_ms": wkv_times["plain_ms"],
+        "ms": wkv_times["ms"], "ms_from": wkv_times["ms_from"],
+        "device_ms": wkv_times["device_ms"], "plain_ms": wkv_times["plain_ms"],
         "bound_ms": wkv_times["bound_ms"],
         "bound_by": wkv_times["bound_by"], "library_ms": None,
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} H={RWKV_H} hd={RWKV_HD} "

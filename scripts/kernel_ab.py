@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Compare two trees of the PyTorch/CUDA port on one card, in turns.
+
+    python3 scripts/kernel_ab.py A_SRC B_SRC
+
+A_SRC and B_SRC are directories that hold a ``repro_torch`` package (for
+example ``src`` of a ``git archive`` of the parent commit and ``src`` of
+this checkout).  Every step runs in a fresh process, in the order A, B,
+B, A, and prints one JSON line.  First the kernels, on seeded inputs made
+and timed with ``chip_smoke.py``'s helpers: decode_attention in bf16 at
+jamba-1.5-large's decode step (B 8, L 2,120, 64 heads over 8 of 128, pos
+2080) and at gemma3-1b's global and local ring layers (4 heads over 1 of
+256), by profiler device time (``lm_time``) beside
+scaled_dot_product_attention's; wkv6 at rwkv6-3b's heads (S 2048, H 40,
+hd 64, float32) by CUDA events (``cuda_ms``) at B 1, 2, 4 and 8.  At B 1
+and 2 each (batch, head) block has an SM to itself, so the time over S /
+16 is one block's time a chunk of 16 tokens.  Then gemma3-1b, rwkv6-3b
+and jamba-1.5-large (4 layers) are each served at full width through
+``repro_torch.launch.serve.run`` (batch 8, prompt 2048, 64 new tokens)
+after a warm-up serve of 4 tokens, giving prefill ms and the decode
+median ms/token.  Needs a CUDA card.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORDER = (0, 1, 1, 0)
+ARCHS = ("gemma3-1b", "rwkv6-3b", "jamba-1.5-large-398b")
+DECODE_SHAPES = {   # B, L, H, KV, hd, pos, window, ring
+    "decode_jamba": (8, 2120, 64, 8, 128, 2080, 0, False),
+    "decode_global": (8, 2120, 4, 1, 256, 2080, 0, False),
+    "decode_local": (8, 512, 4, 1, 256, 2080, 512, True)}
+
+
+def kernels(label):
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import wkv6 as WK
+    from repro_torch.modeling.attention import ring_positions
+    build.build_all(["decode_attention", "wkv6"])
+    out = {"label": label, "card": torch.cuda.get_device_name(0)}
+    for name, (B, L, H, KV, hd, pos, window, ring) in DECODE_SHAPES.items():
+        q, kc, vc = CS._qkv(0, B, 1, H, KV, hd, "bfloat16", L=L)
+        q = q[:, 0].contiguous()
+        kp = ring_positions(L, pos, "cuda") if ring else None
+        ok = DA._mask(kp, L, pos, window, q.device)
+        out[name] = {
+            "kernel_device_ms": CS.lm_time(lambda: DA.decode_attention(
+                q, kc, vc, pos, window=window, k_pos=kp), 200)["device_ms"],
+            "sdpa_device_ms": CS.lm_time(CS.sdpa_decode(q, kc, vc, ok),
+                                         200)["device_ms"]}
+    for B in (1, 2, 4, 8):
+        ins = CS._wkv_inputs(0, B, 2048, 40, 64)
+        out[f"wkv6_B{B}_events_ms"] = CS.cuda_ms(lambda: WK.wkv6(*ins), 20)
+    return out
+
+
+def serve(label, arch):
+    import torch
+    from repro_torch.launch import serve as S
+    S.run(arch, 8, 2048, 4, smoke=False, device="cuda")       # warm-up
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        S.run(arch, 8, 2048, 64, smoke=False, device="cuda",
+              runtime_log=log)
+        rec = json.loads(open(log).read().splitlines()[-1])
+    return {"label": label, "arch": arch, "prefill_ms": rec["prefill_s"] * 1e3,
+            "decode_ms_per_token": rec["decode_median_s"] * 1e3}
+
+
+def one(src, label, what):
+    """One step in this process, with ``src``'s repro_torch."""
+    sys.path[:0] = [os.path.abspath(src), ROOT]
+    res = kernels(label) if what == "kernels" else serve(label, what)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def main(argv):
+    if len(argv) == 4 and argv[0] == "--one":
+        return one(*argv[1:])
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    rc = 0
+    for what in ("kernels",) + ARCHS:
+        for i in ORDER:
+            label = f"{'AB'[i]}:{argv[i]}"
+            p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--one", argv[i], label, what],
+                               capture_output=True, text=True)
+            line = (p.stdout.strip().splitlines() or [""])[-1]
+            if p.returncode or not line.startswith("{"):
+                print(p.stderr[-2000:], file=sys.stderr)
+                rc = 1
+            print(line, flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

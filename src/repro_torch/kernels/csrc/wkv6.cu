@@ -15,246 +15,418 @@
 // What bounds it on this card: at rwkv6-3b's serving shape (B 8, S 2048,
 // H 40, hd 64) the call reads r, k, v, w and writes y, 839 MB of float32
 // (0.25 ms at 3.35 TB/s), against 13.4 GFLOP of products (0.20 ms at the
-// 67 TFLOP/s float32 peak): bytes bound it.  What the design does: the TPU
-// kernel's sequential chunk axis (state carried in VMEM scratch) becomes a
-// loop inside one block.  Column j of S and of y depends only on column j of
-// v, so a block owns a 16-column slice of the value dimension: the grid is
-// (hd / 16, H, B), 1,280 blocks at the serving shape where (B, H) alone would
-// give 320 on 132 SMs.  Each block recomputes the chunk's decay prefixes and
-// its 16 x 16 score matrix (cheap: 16 K FMAs).  256 threads: one per (t, s)
-// score, one per (t, j) output, and hd / 16 entries of the block's [hd, 16]
-// state slice each, kept in registers in float32 across all chunks and
-// mirrored, transposed, into shared memory for the output phase.  A chunk
-// takes three barriers: the decay prefix is a shuffle scan over the 16
-// lanes that hold one dimension's tokens, so the decayed operands are made
-// in registers straight from the loads; the products read their operands
-// as float4 from rows padded to hd + 4 floats, since shared-memory loads
-// bound them.  Registers are capped at 64 a thread so that four blocks fit
-// on an SM (1,280 blocks then run in three waves, not four).  The next
-// chunk's r, k, w, v are loaded into registers (one float4 each) while the
-// current chunk is computed.  The inputs are read in place in their
-// [B, S, H, hd] layout, with no transposes.  Masked scores (s >= t) are
-// never computed: their exponents could overflow, and they are zero.  The
-// shuffle scan adds the decay prefix in another order than a sequential
-// cumsum, which moves the output by about 1e-6 relative.  Float32 FMAs, no
-// tensor cores: a wgmma version is later work.
+// 67 TFLOP/s float32 peak outside the tensor cores): bytes bound the
+// function, with the products close behind.  This kernel is bound instead
+// by one block's chain of 128 chunks and by the rate of TF32 mma.sync on
+// an SM that holds three such chains.  What the design does:
+//   * One block of 256 threads owns one (batch, head) and all hd value
+//     columns and walks its chunks in order, so the decayed operands of a
+//     chunk (a, b, rq, kd, the decay and the u diagonal) are made once (an
+//     earlier design ran four blocks per head, one per 16 value columns,
+//     each redoing them).  Thread (dim d, tokens 4q .. 4q + 3) makes them
+//     from inputs staged in shared memory: the decay prefix is a sum over
+//     its 4 tokens, then a scan of those sums over the 4 lanes of the dim
+//     (two shuffles).  The next chunk's r, k, w, v are copied in by
+//     cp.async while this one's products run, so no register holds a load
+//     across the chunk.
+//   * The products run on the tensor cores, mma.sync.m16n8k8 in TF32 with
+//     the 3xTF32 split (x = hi + lo, a.b = a_lo b_hi + a_hi b_lo + a_hi
+//     b_hi, float32 sums): about float32 accuracy, where one TF32 product
+//     keeps about 3 digits, too few for 64-term sums at rtol 1e-3.  A
+//     fragment read from shared memory feeds 8 to 16 multiply-adds, where
+//     float32 FMAs fed from shared memory were bound by its bandwidth.
+//       - the scores sc = a . b^T, 16 x 16, split over hd across warps
+//         0-3, then summed by them with the mask: s < t kept, the u
+//         diagonal on s == t, zeros above;
+//       - the outputs, by warps 0-3, as one product y = [sc | rq] . [v ; S]
+//         of depth 16 + hd, two n-tiles of 8 columns a warp at hd 64, the
+//         two small TF32 products in one accumulator and the large one in
+//         another, ordered so that back-to-back mma.sync do not wait on one
+//         another;
+//       - the state update S' = diag(decay) S + kd^T v, by warps 4-7 at the
+//         same time as the scores and outputs (it needs only the old state,
+//         kd, v and the decay): warp 4 + m holds rows 16 m .. 16 m + 15 of
+//         S in float32 accumulator registers across all chunks and publishes
+//         them to shared memory at the start of the next chunk, where the
+//         outputs read them.
+//     Row strides are padded so that a warp's fragment reads fall in 32
+//     distinct banks.  Two block barriers and two of warps 0-3 a chunk.
+//   * 320 blocks at the serving shape, three resident on an SM (at most 80
+//     registers a thread, 64 KB of shared memory a block): one wave, with
+//     56 SMs holding three blocks and 76 two.  Splitting the sequence into
+//     segments would fill the card evenly, but each segment then needs the
+//     state of the ones before it: a correction pass re-reads r and w and
+//     rewrites y (up to 80% more bytes than the call must move), or a
+//     state pass re-reads k, v and w.
+// The inputs are read in place in their [B, S, H, hd] layout, with no
+// transposes.  Masked scores (s > t) are computed but never kept: their
+// exponents can overflow, and a select drops them.  The decay prefix is
+// added in another order than a sequential cumsum, which moves the output
+// by about 1e-6 relative; the exponentials are __expf (MUFU ex2), within
+// about 1e-5 relative for arguments up to the 72 the clamp allows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kC = 16;                 // tokens per chunk
-constexpr int kVB = 16;                // value columns per block
-constexpr int kThreads = kC * kVB;     // 256
+constexpr int kThreads = 256;
 constexpr float kLogWMin = -9.0f;
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// Rows padded to HD + 4 floats: 16-byte aligned for float4 reads, and the
-// rows that eight neighbouring threads read as float4 fall in distinct
-// bank groups.
+// x = hi + lo to about 22 bits, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operand of an m16n8k8 product from a row-major [16][ld] tile at p
+// (rows g and g + 8, columns tg and tg + 4 of the 8 at column k0), split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void load(const float* p, int ld, int k0, int g,
+                                       int tg) {
+    split(p[g * ld + k0 + tg], hi[0], lo[0]);
+    split(p[(g + 8) * ld + k0 + tg], hi[1], lo[1]);
+    split(p[g * ld + k0 + tg + 4], hi[2], lo[2]);
+    split(p[(g + 8) * ld + k0 + tg + 4], hi[3], lo[3]);
+  }
+};
+
+// The TF32 parts of a B operand (rows tg and tg + 4 of an 8 x 8 tile).
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void load(float b0, float b1) {
+    split(b0, hi[0], lo[0]);
+    split(b1, hi[1], lo[1]);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// Row strides (floats) chosen so that the fragment reads of a warp fall in
+// 32 distinct banks: a, b and rq are read as [row g][column tg] (a stride
+// of 4 or 20 mod 32), kd and Bm as [row tg][column g] (a stride of 8 or 24
+// mod 32).
 template <int HD>
 struct Smem {
-  static constexpr int P = HD + 4;
-  alignas(16) float a[kC][P];           // r exp(cum_excl - ref)
-  alignas(16) float b[kC][P];           // k exp(ref - cum)
-  alignas(16) float rq[kC][P];          // r exp(cum_excl)
-  alignas(16) float kd[kC][P];          // k exp(cum_last - cum)
-  alignas(16) float sc[kC][kC + 4];     // strictly-lower scores
-  alignas(16) float st[kVB][P];         // state slice, transposed: st[j][d]
-  alignas(16) float v[kC][kVB];
-  alignas(16) float decay[HD];          // exp(cum_last)
-  float diag_part[HD / 4][kC];          // r u k summed over 4 dims
-  float diag[kC];
+  static constexpr int PR = HD + 4;            // a, b, rq and staged rows
+  static constexpr int PK = HD + 8;            // kd and Bm rows
+  static constexpr int SW = HD / 8 < 4 ? HD / 8 : 4;   // warps of the scores
+  alignas(16) float stage[4][kC][PR];          // the next chunk's r, k, w, v
+  alignas(16) float a[kC][PR];                 // r exp(cum_excl - ref)
+  alignas(16) float b[kC][PR];                 // k exp(ref - cum)
+  alignas(16) float rq[kC][PR];                // r exp(cum_excl)
+  alignas(16) float kd[kC][PK];                // k exp(cum_last - cum)
+  alignas(16) float Bm[kC + HD][PK];           // [v ; S], S as [d][j]
+  alignas(16) float sp[SW][kC][kC + 4];        // the scores' partial sums
+  alignas(16) float sc[kC][kC + 4];            // the scores, masked
+  alignas(16) float decay[HD];                 // exp(cum_last)
+  float diag_part[HD / 8][kC];                 // r u k summed over 8 dims
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, 3)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
             float* __restrict__ y, float* __restrict__ s_end, int S, int H) {
-  static_assert(kC * HD / 4 <= kThreads, "one float4 of r, k, w per thread");
-  static_assert(HD % kVB == 0, "hd is a multiple of 16");
-  constexpr int DP = HD / kVB;          // state rows a thread owns
-  __shared__ Smem<HD> sm;
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kVB;
-  const int h = blockIdx.y;
-  const int bb = blockIdx.z;
+  static_assert(HD == 16 || HD == 32 || HD == 64, "hd in {16, 32, 64}");
+  constexpr int NT = HD / 8;                   // n-tiles of 8 value columns
+  constexpr int YW = NT < 4 ? NT : 4;          // warps of the output product
+  constexpr int YN = NT / YW;                  // n-tiles an output warp
+  constexpr int SW = Smem<HD>::SW;             // warps of the scores
+  constexpr int SK = HD / SW;                  // dims a score warp sums
+  constexpr int NH = NT < 4 ? NT : 4;          // state n-tiles loaded at once
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int h = blockIdx.x, bb = blockIdx.y;
   const size_t row = static_cast<size_t>(H) * HD;     // one token's stride
   const size_t base = static_cast<size_t>(bb) * S * row +
                       static_cast<size_t>(h) * HD;    // token 0 of (b, h)
   const size_t sbase = (static_cast<size_t>(bb) * H + h) * HD * HD;
 
-  // this thread's state entries: column sj, rows sd .. sd + DP - 1, kept in
-  // registers across chunks and mirrored into st for the output phase
-  const int sj = tid % kVB, sd = (tid / kVB) * DP;
-  float sreg[DP];
+  // phase A: dim d = 8 warp + dd of tokens 4 tq .. 4 tq + 3, lane 8 tq +
+  // dd; the 4 lanes of one dim are 8 apart.  Staging: float4 (token st,
+  // dims sj .. sj + 3) of each input
+  const bool has_in = tid < kC * HD / 4;   // whole warps
+  const int tq = lane >> 3, d = 8 * warp + (lane & 7);
+  const int st = tid / (HD / 4), sj = 4 * (tid % (HD / 4));
+  const float ud = has_in ? u[h * HD + d] : 0.f;
+  // the state: warp 4 + m holds rows 16 m .. 16 m + 15 of S as the
+  // accumulators of NT m16n8 tiles
+  const int mt = warp - 4;
+  const bool has_s = mt >= 0 && mt < HD / 16;
+  const int d0 = 16 * mt + g;               // rows d0 (c0, c1), d0 + 8 (c2, c3)
+
+  float sacc[NT][4];
+  if (has_s) {
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    sreg[i] = s0 ? s0[sbase + static_cast<size_t>(sd + i) * HD + j0 + sj]
-                 : 0.f;
-    sm.st[sj][sd + i] = sreg[i];
+    for (int n = 0; n < NT; ++n) {
+      const int j = 8 * n + 2 * tg;
+      if (s0) {
+        const float2 x0 = *reinterpret_cast<const float2*>(
+            s0 + sbase + static_cast<size_t>(d0) * HD + j);
+        const float2 x1 = *reinterpret_cast<const float2*>(
+            s0 + sbase + static_cast<size_t>(d0 + 8) * HD + j);
+        sacc[n][0] = x0.x; sacc[n][1] = x0.y;
+        sacc[n][2] = x1.x; sacc[n][3] = x1.y;
+      } else {
+        sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
+      }
+    }
   }
 
-  // this thread's float4 of r, k, w: token lt = its lane mod 16, dims ld ..
-  // ld + 3, so that a dimension's 16 tokens sit in 16 neighbouring lanes
-  // (the prefix is a shuffle scan) and lanes t and t + 16 read the two
-  // halves of one 32-byte sector
-  const bool has_rkw = tid < kC * HD / 4;   // whole warps: HD >= 16
-  const int lt = tid % kC, ld = 4 * (tid / kC);
-  const bool has_v = tid < kC * kVB / 4;
-  const int vt = tid / (kVB / 4), vj = 4 * (tid % (kVB / 4));
-  float4 pr, pk, pw, pv, uu;
-  if (has_rkw) uu = *reinterpret_cast<const float4*>(u + h * HD + ld);
+  // the next chunk's inputs go to shared memory by cp.async, so no
+  // register holds a load in flight; each thread waits for its own copies
+  // before the barrier that opens the chunk
   auto fetch = [&](int t0) {
-    if (has_rkw) {
-      const size_t o = base + static_cast<size_t>(t0 + lt) * row + ld;
-      pr = *reinterpret_cast<const float4*>(r + o);
-      pk = *reinterpret_cast<const float4*>(k + o);
-      pw = *reinterpret_cast<const float4*>(w + o);
-    }
-    if (has_v) {
-      const size_t o = base + static_cast<size_t>(t0 + vt) * row + j0 + vj;
-      pv = *reinterpret_cast<const float4*>(v + o);
+    if (has_in) {
+      const size_t o = base + static_cast<size_t>(t0 + st) * row + sj;
+      cp_async16(&sm.stage[0][st][sj], r + o);
+      cp_async16(&sm.stage[1][st][sj], k + o);
+      cp_async16(&sm.stage[2][st][sj], w + o);
+      cp_async16(&sm.stage[3][st][sj], v + o);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
   };
   fetch(0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
   const int n_chunks = S / kC;
-  const int t = tid / kVB, c = tid % kVB;   // (t, s) score or (t, j) output
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int t0 = ci * kC;
-    // A: the decayed operands of this thread's (token, 4 dims), from the
-    // prefetched registers; then start loading the next chunk
-    if (has_rkw) {
-      const float rv[4] = {pr.x, pr.y, pr.z, pr.w};
-      const float kv[4] = {pk.x, pk.y, pk.z, pk.w};
-      const float wv[4] = {pw.x, pw.y, pw.z, pw.w};
-      const float uv[4] = {uu.x, uu.y, uu.z, uu.w};
-      float a4[4], b4[4], rq4[4], kd4[4], dec4[4], dpart = 0.f;
+    __syncthreads();   // this chunk's inputs are staged; the last one is read
+    if (has_s) {       // the state entering this chunk, for the outputs
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float lw = fmaxf(logf(fmaxf(wv[q], 1e-38f)), kLogWMin);
-        float cm = lw;                    // inclusive prefix over tokens
+      for (int n = 0; n < NT; ++n) {
+        const int j = 8 * n + 2 * tg;
+        *reinterpret_cast<float2*>(&sm.Bm[kC + d0][j]) =
+            make_float2(sacc[n][0], sacc[n][1]);
+        *reinterpret_cast<float2*>(&sm.Bm[kC + d0 + 8][j]) =
+            make_float2(sacc[n][2], sacc[n][3]);
+      }
+    }
+    // A: the decayed operands of dim d at this thread's 4 tokens.  The
+    // decay prefix: a sum over the thread's tokens, then a scan of those
+    // sums over the 4 lanes of the dim (two shuffles)
+    if (has_in) {
+      *reinterpret_cast<float4*>(&sm.Bm[st][sj]) =
+          *reinterpret_cast<const float4*>(&sm.stage[3][st][sj]);
+      float lw[4], cm[4];
 #pragma unroll
-        for (int off = 1; off < kC; off <<= 1) {
-          const float o = __shfl_up_sync(0xffffffffu, cm, off, kC);
-          if (lt >= off) cm += o;
+      for (int i = 0; i < 4; ++i) {
+        lw[i] = fmaxf(logf(fmaxf(sm.stage[2][4 * tq + i][d], 1e-38f)),
+                      kLogWMin);
+        cm[i] = i ? cm[i - 1] + lw[i] : lw[i];
+      }
+      float x = cm[3];
+      float o = __shfl_up_sync(0xffffffffu, x, 8);
+      if (tq >= 1) x += o;
+      o = __shfl_up_sync(0xffffffffu, x, 16);
+      if (tq >= 2) x += o;
+      const float excl = x - cm[3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cm[i] += excl;
+      const float ref = __shfl_sync(0xffffffffu, cm[0], 16 + (lane & 7));
+      const float last = __shfl_sync(0xffffffffu, cm[3], 24 + (lane & 7));
+      float dp[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = 4 * tq + i;
+        const float rv = sm.stage[0][t][d], kv = sm.stage[1][t][d];
+        const float ce = cm[i] - lw[i];
+        sm.a[t][d] = rv * __expf(ce - ref);
+        sm.b[t][d] = kv * __expf(ref - cm[i]);
+        sm.rq[t][d] = rv * __expf(ce);
+        sm.kd[t][d] = kv * __expf(last - cm[i]);
+        dp[i] = rv * ud * kv;
+      }
+      if (tq == 0) sm.decay[d] = __expf(last);
+      // the u diagonal: this warp's 8 dims of each token
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int m = 1; m < 8; m <<= 1)
+          dp[i] += __shfl_xor_sync(0xffffffffu, dp[i], m);
+      }
+      if ((lane & 7) == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sm.diag_part[warp][4 * tq + i] = dp[i];
+      }
+    }
+    __syncthreads();
+    if (ci + 1 < n_chunks) fetch(t0 + kC);   // the staged inputs are read
+
+    if (warp < 4) {
+      // B (warps 0 .. SW - 1): partial scores a . b^T over dims [SK w,
+      // SK (w + 1)); the two small TF32 products in one accumulator, the
+      // large one in another
+      if (warp < SW) {
+        float c[2][2][4] = {};
+#pragma unroll
+        for (int k0 = SK * warp; k0 < SK * (warp + 1); k0 += 8) {
+          FragA fa;
+          fa.load(&sm.a[0][0], Smem<HD>::PR, k0, g, tg);
+          FragB fb[2];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            fb[n].load(sm.b[8 * n + g][k0 + tg], sm.b[8 * n + g][k0 + tg + 4]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            mma_tf32(c[0][n], fa.lo, fb[n].hi[0], fb[n].hi[1]);
+            mma_tf32(c[1][n], fa.hi, fb[n].hi[0], fb[n].hi[1]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(c[0][n], fa.hi, fb[n].lo[0], fb[n].lo[1]);
         }
-        const float ref = __shfl_sync(0xffffffffu, cm, kC / 2, kC);
-        const float last = __shfl_sync(0xffffffffu, cm, kC - 1, kC);
-        const float ce = cm - lw;
-        a4[q] = rv[q] * expf(ce - ref);
-        b4[q] = kv[q] * expf(ref - cm);
-        rq4[q] = rv[q] * expf(ce);
-        kd4[q] = kv[q] * expf(last - cm);
-        dec4[q] = expf(last);
-        dpart = fmaf(rv[q] * uv[q], kv[q], dpart);
-      }
-      *reinterpret_cast<float4*>(&sm.a[lt][ld]) =
-          make_float4(a4[0], a4[1], a4[2], a4[3]);
-      *reinterpret_cast<float4*>(&sm.b[lt][ld]) =
-          make_float4(b4[0], b4[1], b4[2], b4[3]);
-      *reinterpret_cast<float4*>(&sm.rq[lt][ld]) =
-          make_float4(rq4[0], rq4[1], rq4[2], rq4[3]);
-      *reinterpret_cast<float4*>(&sm.kd[lt][ld]) =
-          make_float4(kd4[0], kd4[1], kd4[2], kd4[3]);
-      if (lt == 0)
-        *reinterpret_cast<float4*>(&sm.decay[ld]) =
-            make_float4(dec4[0], dec4[1], dec4[2], dec4[3]);
-      sm.diag_part[ld / 4][lt] = dpart;
-    }
-    if (has_v) *reinterpret_cast<float4*>(&sm.v[vt][vj]) = pv;
-    if (ci + 1 < n_chunks) fetch(t0 + kC);
-    __syncthreads();
-
-    // B: strictly-lower scores (thread (t, s)), the u diagonal (s == t),
-    // and the new state in registers (written to st after the outputs)
-    {
-      float acc = 0.f;
-      if (c < t) {
 #pragma unroll
-        for (int d = 0; d < HD; d += 4)
-          acc = dot4(*reinterpret_cast<const float4*>(&sm.a[t][d]),
-                     *reinterpret_cast<const float4*>(&sm.b[c][d]), acc);
-      } else if (c == t) {
-#pragma unroll
-        for (int g = 0; g < HD / 4; ++g) acc += sm.diag_part[g][t];
-        sm.diag[t] = acc;
-        acc = 0.f;
-      }
-      sm.sc[t][c] = acc;
-    }
-    {
-      float snew[DP];
-#pragma unroll
-      for (int i = 0; i < DP; ++i) snew[i] = 0.f;
-#pragma unroll
-      for (int s = 0; s < kC; ++s) {
-        const float vs = sm.v[s][sj];
-        if constexpr (DP == 4) {
-          const float4 kq = *reinterpret_cast<const float4*>(&sm.kd[s][sd]);
-          snew[0] = fmaf(kq.x, vs, snew[0]);
-          snew[1] = fmaf(kq.y, vs, snew[1]);
-          snew[2] = fmaf(kq.z, vs, snew[2]);
-          snew[3] = fmaf(kq.w, vs, snew[3]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < DP; ++i)
-            snew[i] = fmaf(sm.kd[s][sd + i], vs, snew[i]);
+        for (int n = 0; n < 2; ++n) {
+          const int s = 8 * n + 2 * tg;
+          *reinterpret_cast<float2*>(&sm.sp[warp][g][s]) =
+              make_float2(c[0][n][0] + c[1][n][0], c[0][n][1] + c[1][n][1]);
+          *reinterpret_cast<float2*>(&sm.sp[warp][g + 8][s]) =
+              make_float2(c[0][n][2] + c[1][n][2], c[0][n][3] + c[1][n][3]);
         }
       }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      // the scores summed: s < t kept, the u diagonal on s == t, zeros
+      // above (two entries a thread)
 #pragma unroll
-      for (int i = 0; i < DP; ++i)
-        sreg[i] = fmaf(sm.decay[sd + i], sreg[i], snew[i]);
+      for (int e = tid; e < kC * kC; e += 128) {
+        const int t = e / kC, s = e % kC;
+        float x = 0.f, dg = 0.f;
+#pragma unroll
+        for (int q = 0; q < SW; ++q) x += sm.sp[q][t][s];
+#pragma unroll
+        for (int q = 0; q < HD / 8; ++q) dg += sm.diag_part[q][t];
+        sm.sc[t][s] = s < t ? x : (s == t ? dg : 0.f);
+      }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      // C (warps 0 .. YW - 1): y = [sc | rq] . [v ; S], YN n-tiles a warp
+      if (warp < YW) {
+        float acc[2][YN][4] = {};
+#pragma unroll
+        for (int k0 = 0; k0 < kC + HD; k0 += 8) {
+          FragA fa;
+          if (k0 < kC)
+            fa.load(&sm.sc[0][0], kC + 4, k0, g, tg);
+          else
+            fa.load(&sm.rq[0][0], Smem<HD>::PR, k0 - kC, g, tg);
+          FragB fb[YN];
+#pragma unroll
+          for (int n = 0; n < YN; ++n) {
+            const int j = 8 * (warp * YN + n) + g;
+            fb[n].load(sm.Bm[k0 + tg][j], sm.Bm[k0 + tg + 4][j]);
+          }
+#pragma unroll
+          for (int n = 0; n < YN; ++n) {
+            mma_tf32(acc[0][n], fa.lo, fb[n].hi[0], fb[n].hi[1]);
+            mma_tf32(acc[1][n], fa.hi, fb[n].hi[0], fb[n].hi[1]);
+          }
+#pragma unroll
+          for (int n = 0; n < YN; ++n)
+            mma_tf32(acc[0][n], fa.hi, fb[n].lo[0], fb[n].lo[1]);
+        }
+#pragma unroll
+        for (int n = 0; n < YN; ++n) {
+          const int j = 8 * (warp * YN + n) + 2 * tg;
+          float o[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[i] = acc[0][n][i] + acc[1][n][i];
+          *reinterpret_cast<float2*>(y + base + static_cast<size_t>(t0 + g) * row + j) =
+              make_float2(o[0], o[1]);
+          *reinterpret_cast<float2*>(y + base + static_cast<size_t>(t0 + g + 8) * row + j) =
+              make_float2(o[2], o[3]);
+        }
+      }
+    } else if (has_s) {
+      // the state update: S' = diag(decay) S + kd^T v, rows d0 and d0 + 8;
+      // NH n-tiles at a time, each TF32 product over them in turn, so that
+      // back-to-back mma.sync do not wait on one another
+      const float e0 = sm.decay[d0], e1 = sm.decay[d0 + 8];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        sacc[n][0] *= e0; sacc[n][1] *= e0;
+        sacc[n][2] *= e1; sacc[n][3] *= e1;
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < kC; k0 += 8) {
+        FragA fa;                         // kd^T: rows d, columns s
+        split(sm.kd[k0 + tg][d0], fa.hi[0], fa.lo[0]);
+        split(sm.kd[k0 + tg][d0 + 8], fa.hi[1], fa.lo[1]);
+        split(sm.kd[k0 + tg + 4][d0], fa.hi[2], fa.lo[2]);
+        split(sm.kd[k0 + tg + 4][d0 + 8], fa.hi[3], fa.lo[3]);
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += NH) {
+          FragB fb[NH];
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            fb[n].load(sm.Bm[k0 + tg][8 * (n0 + n) + g],
+                       sm.Bm[k0 + tg + 4][8 * (n0 + n) + g]);
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            mma_tf32(sacc[n0 + n], fa.lo, fb[n].hi[0], fb[n].hi[1]);
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            mma_tf32(sacc[n0 + n], fa.hi, fb[n].lo[0], fb[n].lo[1]);
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            mma_tf32(sacc[n0 + n], fa.hi, fb[n].hi[0], fb[n].hi[1]);
+        }
+      }
     }
-    __syncthreads();
-
-    // C: output (thread (t, j)): intra-chunk, diagonal, carried state
-    {
-      float intra = 0.f;
-#pragma unroll
-      for (int s = 0; s < kC; ++s) intra = fmaf(sm.sc[t][s], sm.v[s][c], intra);
-      intra = fmaf(sm.diag[t], sm.v[t][c], intra);
-      float cross = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4)
-        cross = dot4(*reinterpret_cast<const float4*>(&sm.rq[t][d]),
-                     *reinterpret_cast<const float4*>(&sm.st[c][d]), cross);
-      y[base + static_cast<size_t>(t0 + t) * row + j0 + c] = intra + cross;
-    }
-    __syncthreads();
-
-    // D: publish the new state for the next chunk's outputs (read after
-    // that chunk's barriers A and B)
-    if constexpr (DP == 4) {
-      *reinterpret_cast<float4*>(&sm.st[sj][sd]) =
-          make_float4(sreg[0], sreg[1], sreg[2], sreg[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < DP; ++i) sm.st[sj][sd + i] = sreg[i];
-    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
 
+  if (has_s) {
 #pragma unroll
-  for (int i = 0; i < DP; ++i)
-    s_end[sbase + static_cast<size_t>(sd + i) * HD + j0 + sj] = sreg[i];
+    for (int n = 0; n < NT; ++n) {
+      const int j = 8 * n + 2 * tg;
+      *reinterpret_cast<float2*>(s_end + sbase + static_cast<size_t>(d0) * HD + j) =
+          make_float2(sacc[n][0], sacc[n][1]);
+      *reinterpret_cast<float2*>(s_end + sbase + static_cast<size_t>(d0 + 8) * HD + j) =
+          make_float2(sacc[n][2], sacc[n][3]);
+    }
+  }
 }
 
 template <int HD>
 int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, const float* s0, float* y, float* s_end, int B,
-           int S, int H, cudaStream_t stream) {
-  const dim3 grid(HD / kVB, H, B);
-  wkv6_kernel<HD><<<grid, kThreads, 0, stream>>>(r, k, v, w, u, s0, y, s_end,
-                                                 S, H);
+           int S, int H, int device, cudaStream_t stream) {
+  static int attr_device = -1;
+  if (attr_device != device) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wkv6_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(Smem<HD>)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_device = device;
+  }
+  const dim3 grid(H, B);
+  wkv6_kernel<HD><<<grid, kThreads, sizeof(Smem<HD>), stream>>>(
+      r, k, v, w, u, s0, y, s_end, S, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,9 +455,10 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   auto* yf = static_cast<float*>(y);
   auto* ef = static_cast<float*>(s_end);
   switch (hd) {
-    case 16: return launch<16>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, st);
-    case 32: return launch<32>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, st);
-    case 64: return launch<64>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, st);
+    case 16: return launch<16>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
+    case 32: return launch<32>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
+    case 64: return launch<64>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+

@@ -15,15 +15,16 @@ slot.  With ``k_pos=None`` this is the Pallas kernel
 
 ``pos`` is a host int, one for the whole batch, so that no decode step
 waits on the device.  A CUDA tensor always launches the hand-written
-kernels (``csrc/decode_attention.cu``: a split pass over parts of the
-cache, then a combine pass) and raises on what they do not take; a CPU
-tensor uses ``decode_attention_plain``.  There is no fallback from one to
-the other.  ``LAUNCHES`` counts split-pass launches and
-``COMBINE_LAUNCHES`` combine-pass launches.
+kernel (``csrc/decode_attention.cu``: one launch; tiles of cache slots
+scored on tensor cores in bf16, the parts of the cache merged inside the
+launch) and raises on what it does not take; a CPU tensor uses
+``decode_attention_plain``.  There is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,12 +32,10 @@ NEG_INF = -2.0e38
 HEAD_DIMS = (64, 128, 256)       # the kernel's instantiations
 GROUPS = (1, 2, 4, 8)            # query heads per kv head it takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MIN_PER_PART = 16                # fewest cache slots one warp walks
-TARGET_WARPS = 132 * 8           # parts to aim for: 8 warps on each H100 SM
-MAX_PARTS = 48 * 1024 // 4       # the combine kernel's weights in smem
+MAX_PARTS = 1024                 # parts of one (batch, kv head)
 
 LAUNCHES = 0
-COMBINE_LAUNCHES = 0
+_COUNTERS = {}                   # device -> int32 ticket counters, kept zero
 
 
 def _mask(k_pos, L, pos, window, device):
@@ -67,7 +66,7 @@ def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0,
 
 
 def slot_range(L, pos, window, k_pos):
-    """[lo, hi): the cache slots the split pass walks.  Without a slot map
+    """[lo, hi): the cache slots the kernel walks.  Without a slot map
     only positions pos - window + 1 .. pos can be kept; with one, or when
     no slot can be kept (then every score is NEG_INF and the answer is the
     plain version's uniform average), the whole cache."""
@@ -78,12 +77,35 @@ def slot_range(L, pos, window, k_pos):
     return (lo, hi) if lo < hi else (0, L)
 
 
-def split_plan(n_slots, B, KV):
-    """(slots per part, number of parts) for n_slots slots of B * KV heads:
-    enough parts to give the card about TARGET_WARPS warps, none shorter
-    than MIN_PER_PART slots."""
-    per = max(MIN_PER_PART, -(-n_slots * B * KV // TARGET_WARPS))
-    return per, -(-n_slots // per)
+@functools.lru_cache(maxsize=None)
+def tile_config(hd, dtype, G, device_index) -> dict:
+    """The kernel's tiling at head dim ``hd``, ``dtype`` and G query rows
+    a kv head on CUDA device ``device_index``, as its library reports it
+    (``decode_attention_config``): kT slots a tile, W warps a block, SMEM
+    bytes of dynamic shared memory a block and ``blocks_per_sm`` resident
+    blocks an SM; beside them ``sms``, the card's multiprocessors."""
+    cfg = (ctypes.c_int * 4)()
+    rc = _lib().decode_attention_config(DTYPES[dtype], hd, G, device_index,
+                                        cfg)
+    if rc != 0 or cfg[3] < 1:
+        raise RuntimeError(f"decode_attention has no resident block at hd "
+                           f"{hd}, {dtype}, G {G}: CUDA error {rc}")
+    props = torch.cuda.get_device_properties(device_index)
+    return {"kT": cfg[0], "W": cfg[1], "SMEM": cfg[2],
+            "blocks_per_sm": cfg[3], "sms": props.multi_processor_count}
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(n_slots, B, KV, W, blocks_per_sm, sms):
+    """(slots per warp, parts) for n_slots slots of B * KV heads and blocks
+    of W warps: as many parts as give one wave of resident blocks
+    (``blocks_per_sm`` on each of ``sms`` multiprocessors), at least 16
+    slots a warp, and every warp's run a multiple of 16 slots (one
+    tensor-core tile of slots)."""
+    n_parts = max(1, min(MAX_PARTS, sms * blocks_per_sm // (B * KV),
+                         -(-n_slots // (16 * W))))
+    per_warp = 16 * -(-n_slots // (16 * W * n_parts))
+    return per_warp, -(-n_slots // (W * per_warp))
 
 
 def _check(q, k_cache, v_cache, pos, window, k_pos):
@@ -127,27 +149,38 @@ def _check(q, k_cache, v_cache, pos, window, k_pos):
     return B, L, H, KV, hd
 
 
-def _libs():
+def _lib():
     from repro_torch.kernels.build import load
     lib = load("decode_attention")
-    split, combine = (lib.decode_attention_split_launch,
-                      lib.decode_attention_combine_launch)
-    if split.argtypes is None:
-        split.restype = combine.restype = ctypes.c_int
-        split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    if lib.decode_attention_launch.argtypes is None:
+        fn = lib.decode_attention_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
-        combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-    return split, combine
+        cfg = lib.decode_attention_config
+        cfg.restype = ctypes.c_int
+        cfg.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def _counters(device, n):
+    """n int32 ticket counters on ``device``, zero between launches (the
+    kernel's last block of each (batch, kv head) resets its own); grown,
+    never shrunk, and shared by the calls on one stream."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window=0, softcap=0.0,
                      scale=None, k_pos=None) -> torch.Tensor:
     """Attention of one token per row over the cache, [B, H, hd] in q's
-    type.  On CUDA tensors this launches the split and combine kernels on
-    the current stream; on CPU tensors it is ``decode_attention_plain``."""
-    global LAUNCHES, COMBINE_LAUNCHES
+    type.  On CUDA tensors this launches the kernel on the current stream;
+    on CPU tensors it is ``decode_attention_plain``."""
+    global LAUNCHES
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos, window=window,
                                       softcap=softcap, scale=scale,
@@ -157,36 +190,26 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=0, softcap=0.0,
     B, L, H, KV, hd = _check(q, k_cache, v_cache, pos, window, k_pos)
     pos = int(pos)
     scale = hd ** -0.5 if scale is None else scale
-    lo, hi = slot_range(L, pos, window, k_pos)
-    per, n_parts = split_plan(hi - lo, B, KV)
-    if n_parts > MAX_PARTS:
-        raise ValueError(f"{n_parts} parts exceed the combine kernel's "
-                         f"{MAX_PARTS}")
-    part_ml = torch.empty((2, B, H, n_parts), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B, H, n_parts, hd), dtype=torch.float32,
-                           device=q.device)
     out = torch.empty_like(q)
     if B == 0:
         return out
-    split, combine = _libs()
+    lo, hi = slot_range(L, pos, window, k_pos)
     dev = q.device.index or 0
+    cfg = tile_config(hd, q.dtype, H // KV, dev)
+    per_warp, n_parts = decode_plan(hi - lo, B, KV, cfg["W"],
+                                    cfg["blocks_per_sm"], cfg["sms"])
+    part = torch.empty((B * KV, n_parts, H // KV, hd + 2) if n_parts > 1
+                       else (1,), dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, B * KV)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = split(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-               None if k_pos is None else k_pos.data_ptr(),
-               part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-               part_acc.data_ptr(), B, L, H, KV, hd, DTYPES[q.dtype],
-               float(scale), pos, int(window), float(softcap), lo, hi, per,
-               n_parts, dev, stream)
+    rc = _lib().decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
+        part.data_ptr(), counters.data_ptr(), B, L, H, KV, hd,
+        DTYPES[q.dtype], float(scale), pos, int(window), float(softcap), lo,
+        hi, per_warp, n_parts, dev, stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention split kernel failed to launch: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"decode_attention kernel failed to launch: CUDA "
+                           f"error {rc}")
     LAUNCHES += 1
-    rc = combine(part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-                 part_acc.data_ptr(), out.data_ptr(), B, H, hd, n_parts,
-                 DTYPES[q.dtype], dev, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention combine kernel failed to "
-                           f"launch: CUDA error {rc}")
-    COMBINE_LAUNCHES += 1
     return out

@@ -3,8 +3,10 @@
 Pallas kernels (interpret mode, as ``tests/test_kernels.py`` runs them),
 their oracles in ``repro/kernels/ref.py`` and the model's attention paths
 (``repro/modeling/attention.py``), including the ring-buffer slot map.  The
-split-and-combine arithmetic of the CUDA decode kernel is replayed in numpy
-against the plain version.  The CUDA kernels themselves are held against
+arithmetic of the CUDA decode kernel (its plan of parts and warp runs,
+tiles of slots with one online-softmax update each, P rounded to bf16 on
+the bf16 route, and the merges of warps and parts inside the launch) is
+replayed in torch against the plain version and the Pallas kernel.  The CUDA kernels themselves are held against
 the plain versions on the card by ``tests/test_torch_gpu.py``.
 
 Inputs are made from a seed with numpy and handed to both frameworks.
@@ -172,39 +174,80 @@ def test_decode_plain_with_slot_map_matches_model_decode(buf, pos, G, cap):
     _close(got, np.asarray(want)[:, 0])
 
 
-def _split_and_combine(q, kc, vc, pos, window, cap, k_pos):
-    """The CUDA decode kernels' arithmetic in numpy: the wrapper's slot
-    range and parts, one warp's sequential online softmax per part, then
-    the combine pass."""
+# the decode kernel's tile (kT of csrc/decode_attention.cu), the warps a
+# block may have (Cfg::W), and a card's multiprocessors and resident blocks
+# for the replayed plan (an H100's 132, one block an SM)
+TILE_SLOTS = 32
+BLOCK_WARPS = (1, 2, 4)
+SMS, BLOCKS_PER_SM = 132, 1
+
+
+def _split_and_combine(q, kc, vc, pos, window, cap, k_pos,
+                       dtype=torch.float32, W=4, plan=None):
+    """The CUDA decode kernel's arithmetic in torch, on q [B, H, hd] and
+    caches [B, L, KV, hd] of ``dtype``: the wrapper's slot range and plan
+    (``decode_plan``, or ``plan``, (slots per warp, parts)), W warps a
+    part, each warp's run in tiles of TILE_SLOTS slots with one
+    online-softmax update a tile (slots past the run weigh 0, masked ones
+    score NEG_INF), then the block's warps merged, then the parts.  bf16:
+    the scale after the float32 sum of bf16 products, P rounded to bf16
+    before P.V.  float32: q * scale first.  Returns the output in
+    ``dtype`` and the number of warp runs."""
+    q, kc, vc = (torch.as_tensor(a).to(dtype) for a in (q, kc, vc))
     B, H, hd = q.shape
     L, KV = kc.shape[1], kc.shape[2]
     G = H // KV
+    scale = hd ** -0.5
+    bf16 = dtype == torch.bfloat16
+    T = TILE_SLOTS
     lo, hi = DA.slot_range(L, pos, window, k_pos)
-    per, n_parts = DA.split_plan(hi - lo, B, KV)
-    out = np.zeros_like(q)
-    kp = np.arange(L) if k_pos is None else k_pos.numpy()
-    for b in range(B):
-        for h in range(H):
-            parts = []
-            for i in range(n_parts):
-                m, den, acc = np.float32(DA.NEG_INF), np.float32(0), 0.0
-                for j in range(lo + i * per, min(hi, lo + (i + 1) * per)):
-                    s = np.float32(q[b, h] * hd ** -0.5) @ kc[b, j, h // G]
-                    if cap:
-                        s = cap * np.tanh(s / cap)
-                    ok = kp[j] <= pos and (not window or kp[j] > pos - window)
-                    s = np.float32(s if ok else DA.NEG_INF)
-                    m_new = max(m, s)
-                    corr, p = np.exp(m - m_new), np.exp(s - m_new)
-                    den, m = den * corr + p, m_new
-                    acc = acc * corr + p * vc[b, j, h // G]
-                parts.append((m, den, acc))
-            M = max(p[0] for p in parts)
-            w = [np.exp(p[0] - M) for p in parts]
-            num = sum(wi * p[2] for wi, p in zip(w, parts))
-            out[b, h] = num / max(sum(wi * p[1] for wi, p in zip(w, parts)),
-                                  1e-30)
-    return out, n_parts
+    per_warp, n_parts = plan or DA.decode_plan(hi - lo, B, KV, W,
+                                               BLOCKS_PER_SM, SMS)
+    assert per_warp % 16 == 0 and n_parts * W * per_warp >= hi - lo
+    kp = torch.arange(L) if k_pos is None else k_pos.long()
+    ok = (kp <= pos) & ((kp > pos - window) if window else True)
+    qg = q.float().reshape(B, KV, G, hd)
+    if not bf16:
+        qg = qg * scale
+    kf, vf = kc.float().transpose(1, 2), vc.float().transpose(1, 2)
+
+    def merge(ms, ls, accs):
+        M = torch.stack(ms).amax(0)
+        w = [torch.exp(m - M) for m in ms]
+        return (M, sum(wi * li for wi, li in zip(w, ls)),
+                sum(wi[..., None] * a for wi, a in zip(w, accs)))
+
+    parts = []
+    for i in range(n_parts):
+        runs = []
+        for w_ in range(W):
+            j0 = lo + (i * W + w_) * per_warp
+            j1 = min(hi, j0 + per_warp)
+            m = torch.full((B, KV, G), DA.NEG_INF)
+            lsum = torch.zeros(B, KV, G)
+            acc = torch.zeros(B, KV, G, hd)
+            for t0 in range(j0, j1, T):
+                js = torch.arange(t0, min(t0 + T, j1))
+                s = torch.einsum("bkgh,bksh->bkgs", qg, kf[:, :, js])
+                if bf16:
+                    s = s * scale
+                if cap:
+                    s = cap * torch.tanh(s / cap)
+                s = torch.where(ok[js], s, torch.tensor(DA.NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                lsum = lsum * corr + p.sum(-1)
+                if bf16:
+                    p = p.to(torch.bfloat16).float()
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bkgs,bksh->bkgh", p, vf[:, :, js])
+                m = m_new
+            runs.append((m, lsum, acc))
+        parts.append(merge(*zip(*runs)))
+    _, den, num = merge(*zip(*parts)) if n_parts > 1 else parts[0]
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, hd).to(dtype), n_parts * W
 
 
 @pytest.mark.parametrize("L,pos,window,ring,cap", [
@@ -212,15 +255,88 @@ def _split_and_combine(q, kc, vc, pos, window, cap, k_pos):
     (300, 1000, 16, False, 0.0),      # no slot can be kept: uniform average
     (64, 40, 64, True, 0.0), (64, 200, 64, True, 0.0)])
 def test_split_and_combine_replay_matches_plain(L, pos, window, ring, cap):
-    B, KV, G, hd = 2, 1, 4, 32
+    """The float32 route at the wrapper's plan (the ring's first turn gives
+    a warp whose slots are all masked), and at a plan of two parts whose
+    warps walk several tiles, against the plain version; without a slot
+    map and with a slot kept, also against the Pallas kernel (which
+    averages a fully masked row over its blocks of 64 slots, not over the
+    cache)."""
+    B, KV, G, hd = 2, 1, 4, 64
     q, kc, vc = _arrays(L + pos, (B, KV * G, hd), (B, L, KV, hd),
                         (B, L, KV, hd))
     k_pos = ring_positions(L, pos, "cpu") if ring else None
-    got, n_parts = _split_and_combine(q, kc, vc, pos, window, cap, k_pos)
-    assert n_parts > 1
     want = DA.decode_attention_plain(_t(q), _t(kc), _t(vc), pos,
                                      window=window, softcap=cap, k_pos=k_pos)
-    _close(got, want)
+    lo, hi = DA.slot_range(L, pos, window, k_pos)
+    for W in BLOCK_WARPS:
+        per_warp = 16 * -(-(hi - lo) // (16 * 2 * W))
+        for plan in (None, (per_warp, 2)):
+            got, runs = _split_and_combine(q, kc, vc, pos, window, cap,
+                                           k_pos, W=W, plan=plan)
+            assert runs > 1
+            _close(got, want)
+    if not ring and pos < L:
+        _close(got, pallas_decode(_j(q), _j(kc), _j(vc), jnp.int32(pos),
+                                  window=window, softcap=cap, block=64,
+                                  interpret=True))
+
+
+# the relative bound of bf16 decode (chip_smoke.py's DECODE_BF16_REL)
+DECODE_BF16_REL = 5e-3
+
+
+@pytest.mark.parametrize("B,L,KV,G,hd,pos,window,cap,ring", [
+    (2, 300, 1, 4, 256, 150, 0, 0.0, False),
+    (1, 700, 2, 8, 128, 650, 0, 0.0, False),     # jamba's G 8 and hd 128
+    (2, 257, 1, 2, 64, 256, 64, 50.0, False),
+    (2, 64, 1, 4, 256, 40, 64, 0.0, True),       # first turn, empty slots
+    (1, 300, 1, 1, 64, 1000, 16, 0.0, False)])   # every slot masked
+def test_bf16_decode_replay_matches_plain_and_pallas(B, L, KV, G, hd, pos,
+                                                     window, cap, ring):
+    """The bf16 route (tensor-core scores, P rounded to bf16) at the
+    wrapper's plan and at a plan of two parts with several tiles a warp:
+    within the bf16 tolerance and DECODE_BF16_REL of the plain version,
+    and, without a slot map and with a slot kept, of the Pallas kernel (on
+    the bf16 values in float32); P rounded to
+    fp8 instead is beyond DECODE_BF16_REL where more than one slot is
+    kept."""
+    dt = torch.bfloat16
+    q, kc, vc = (_t(a, "bfloat16") for a in _arrays(
+        L * 3 + pos, (B, KV * G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    k_pos = ring_positions(L, pos, "cpu") if ring else None
+    want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
+                                     softcap=cap, k_pos=k_pos)
+    lo, hi = DA.slot_range(L, pos, window, k_pos)
+    for W in BLOCK_WARPS:
+        per_warp = 16 * -(-(hi - lo) // (16 * 2 * W))
+        for plan in (None, (per_warp, 2)):
+            got, _ = _split_and_combine(q, kc, vc, pos, window, cap, k_pos,
+                                        dt, W, plan)
+            _close(got.float(), want.float(), "bfloat16")
+            rel = float((got.double() - want.double()).norm() /
+                        want.double().norm())
+            assert rel <= DECODE_BF16_REL, rel
+    if not ring and pos < L:
+        _close(got.float(), pallas_decode(
+            *(jnp.asarray(t.float().numpy()) for t in (q, kc, vc)),
+            jnp.int32(pos), window=window, softcap=cap, block=64,
+            interpret=True), "bfloat16")
+    kept = int(DA._mask(k_pos, L, pos, window, "cpu").sum())
+    if kept > 1:
+        s = torch.einsum("bkgh,blkh->bkgl",
+                         q.float().reshape(B, KV, G, hd) * hd ** -0.5,
+                         kc.float())
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(DA._mask(k_pos, L, pos, window, "cpu"), s,
+                        torch.tensor(DA.NEG_INF))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bkgl,blkh->bkgh",
+                         p.to(torch.float8_e4m3fn).float(), vc.float())
+        o = (o / p.sum(-1, keepdim=True)).reshape(B, KV * G, hd).to(dt)
+        rel = float((o.double() - want.double()).norm() /
+                    want.double().norm())
+        assert rel > DECODE_BF16_REL, rel
 
 
 def test_slot_range_and_split_plan():
@@ -229,20 +345,29 @@ def test_slot_range_and_split_plan():
     assert DA.slot_range(100, 500, 0, None) == (0, 100)
     assert DA.slot_range(100, 500, 16, None) == (0, 100)
     assert DA.slot_range(64, 10, 64, torch.zeros(64)) == (0, 64)
-    per, n = DA.split_plan(2049, 8, 1)
-    assert per == DA.MIN_PER_PART and n == -(-2049 // per)
-    per, n = DA.split_plan(100_000, 8, 1)
-    assert per * n >= 100_000 and n * 8 <= DA.TARGET_WARPS + 8
+    # jamba's decode step: 8 x 8 (batch, kv head) pairs, 2,081 slots,
+    # blocks of 4 warps, one resident an SM of 132
+    assert DA.decode_plan(2081, 8, 8, 4, 1, 132) == (272, 2)
+    for args in [(2081, 8, 1, 2, 1, 132), (512, 8, 1, 2, 1, 132),
+                 (1, 2, 1, 4, 2, 132), (100_000, 1, 1, 4, 2, 132),
+                 (2081, 8, 8, 4, 1, 132), (31, 3, 4, 4, 2, 132),
+                 (2081, 8, 8, 1, 8, 114), (5000, 1, 1, 2, 1, 8)]:
+        n_slots, B, KV, W, per_sm, sms = args
+        per, n = DA.decode_plan(*args)
+        assert per % 16 == 0 and per >= 16
+        assert n * W * per >= n_slots > (n - 1) * W * per
+        assert 1 <= n <= DA.MAX_PARTS
+        assert n * B * KV <= max(sms * per_sm, B * KV)   # one wave or fewer
 
 
 def test_wrappers_use_the_plain_versions_on_cpu_tensors():
     q, k, v = (_t(a) for a in _arrays(3, (1, 8, 2, 32), (1, 8, 1, 32),
                                       (1, 8, 1, 32)))
-    before = (FA.LAUNCHES, DA.LAUNCHES, DA.COMBINE_LAUNCHES)
+    before = (FA.LAUNCHES, DA.LAUNCHES)
     torch.testing.assert_close(FA.flash_attention(q, k, v, window=4),
                                FA.flash_attention_plain(q, k, v, window=4),
                                rtol=0, atol=0)
     torch.testing.assert_close(
         DA.decode_attention(q[:, 0], k, v, 5),
         DA.decode_attention_plain(q[:, 0], k, v, 5), rtol=0, atol=0)
-    assert (FA.LAUNCHES, DA.LAUNCHES, DA.COMBINE_LAUNCHES) == before
+    assert (FA.LAUNCHES, DA.LAUNCHES) == before

@@ -115,6 +115,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # set in PERF.md from the card's readings and from controls (P rounded to
 # fp8, the scale off by 10%) that exceed it.
 FLASH_BF16_REL = 5e-3
+# bf16 decode likewise: chip_smoke.py's DECODE_BF16_REL
+DECODE_BF16_REL = 5e-3
 
 
 def _qkv(seed, B, S, H, KV, hd, dtype, device, L=None):
@@ -183,7 +185,14 @@ DECODE_CASES = [
     (2, 64, 4, 1, 256, 40, 64, 0.0, True),     # first turn: empty slots
     (2, 2120, 4, 1, 256, 2100, 0, 0.0, False),
     (8, 2120, 64, 8, 128, 2100, 0, 0.0, False),  # jamba's decode step
-]
+    # the kernel's tiles of 32 slots and runs of 16-slot multiples: runs
+    # that end inside a tile; warps whose slots are all masked (the ring's
+    # first turn, 411 empty slots)
+    (2, 1000, 8, 4, 128, 999, 0, 0.0, False),
+    (3, 333, 2, 1, 64, 332, 100, 0.0, False),
+    (8, 512, 4, 1, 256, 100, 512, 0.0, True),
+] + [(2, 777, 2 * g, 2, hd, 700, 0, 0.0, False)    # G 1, 2, 4, 8
+     for g in (1, 2, 4, 8) for hd in (64, 128, 256)]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -193,17 +202,40 @@ def test_decode_attention_kernel_matches_plain(cuda_device, case, dtype):
     q, kc, vc = _qkv(L + pos, B, 1, H, KV, hd, dtype, cuda_device, L=L)
     q = q[:, 0].contiguous()
     k_pos = ring_positions(L, pos, cuda_device) if ring else None
-    before = (DA.LAUNCHES, DA.COMBINE_LAUNCHES)
+    before = DA.LAUNCHES
     got = DA.decode_attention(q, kc, vc, pos, window=window, softcap=cap,
                               k_pos=k_pos)
     torch.cuda.synchronize()
-    assert (DA.LAUNCHES, DA.COMBINE_LAUNCHES) == (before[0] + 1,
-                                                  before[1] + 1)
+    assert DA.LAUNCHES == before + 1
     want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
                                      softcap=cap, k_pos=k_pos)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype] * 10)
+    if dtype == torch.bfloat16:
+        g, w = got.double(), want.double()
+        assert float((g - w).norm() / w.norm()) <= DECODE_BF16_REL
+    # the kernel leaves its ticket counters zero for the next call
+    assert not bool(DA._COUNTERS[q.device].any())
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tiling_reported_by_the_library(cuda_device, hd, dtype):
+    """The tiling the wrapper plans with comes from the library: tiles of
+    32 slots, 1-4 warps a block, a block's shared memory within the
+    227 KiB a Hopper block may take, at least one block resident an SM,
+    the card's SM count, and jamba's decode step planned as one wave."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    for G in DA.GROUPS:
+        cfg = DA.tile_config(hd, dtype, G, cuda_device.index or 0)
+        assert cfg["kT"] == 32 and cfg["W"] in (1, 2, 4)
+        assert 0 < cfg["SMEM"] <= 227 * 1024
+        assert cfg["blocks_per_sm"] >= 1
+        assert cfg["sms"] == props.multi_processor_count
+        per, n = DA.decode_plan(2081, 8, 8, cfg["W"], cfg["blocks_per_sm"],
+                                cfg["sms"])
+        assert n * 8 * 8 <= max(cfg["sms"] * cfg["blocks_per_sm"], 64)
 
 
 def test_attention_kernels_raise_on_what_they_do_not_take(cuda_device):
