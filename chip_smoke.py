@@ -11,10 +11,14 @@ Phases:
   flash_build  per instantiation of the flash-attention kernels: ptxas's
                registers and spills, dynamic shared memory, and the HGMMA
                and UTMALDG instructions in the library's SASS
-  kernel_build per instantiation of the decode and WKV6 kernels: ptxas's
-               registers, spills and shared memory
-  kernel   GBM-ensemble kernel vs its plain version at the serving shape,
-           edge cases and n = 2**20; CUDA-event times and the bound
+  kernel_build per instantiation of the decode, WKV6 and GBM kernels:
+               ptxas's registers, spills, stack and shared memory; the
+               loops of the GBM instance at d 3, depth 3 in its SASS
+  kernel   GBM-ensemble kernel vs its plain version (bit for bit at
+           y_scale != 0) at the serving shape, edge cases (non-finite
+           inputs, n = 1, ragged n, T = 1, 203 and 2000, depth 1, 4 and
+           10, d = 1 and 16) and n = 2**20; CUDA-event times (queued behind
+           a sleeping kernel, and back to back) and the bound
   fit      all five Table I jobs published on a hub, 15 predictors fitted
            on the card; a 10,000-row grep store and its 3 predictors
   serve    per job, 4096 seeded contexts in one choose_cluster_batch (plus
@@ -160,9 +164,12 @@ def bound_ms(n, d, T, depth):
 
 
 def smem_bound_ms(n, T, depth):
-    """Least time for the kernel's shared-memory loads: each row loads a
-    feature id and a threshold per level and one leaf per tree, and an SM
-    serves 32 four-byte loads per clock, at the card's maximum SM clock."""
+    """Least time for the shared-memory loads of the kernel's first
+    design: each row loads a feature id and a threshold per level and one
+    leaf per tree, and an SM serves 32 four-byte loads per clock, at the
+    card's maximum SM clock.  The current design loads one node a level,
+    the last with both leaves, so this counts loads it no longer makes and
+    bounds nothing of its work."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return n * T * (2 * depth + 1) / (sms * 32 * max_sm_clock_mhz() * 1e6) \
@@ -192,69 +199,120 @@ def cuda_ms(fn, reps, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def check_gbm(label, got, want, y_scale):
+    """The kernel's output against the plain version's: bit for bit (NaN
+    where NaN) when y_scale != 0, where both compute the same float32 sum
+    in the same order and one multiply; within rtol = atol = 1e-6 when
+    y_scale == 0, where expf and torch.exp may differ by an ulp.  Returns
+    the largest absolute difference."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape, label
+    nan = np.isnan(w)
+    assert np.array_equal(np.isnan(g), nan), \
+        f"kernel vs plain: NaN outputs differ ({label})"
+    if y_scale != 0.0:
+        bad = int(np.sum(g[~nan].view(np.int32) != w[~nan].view(np.int32)))
+        assert bad == 0, f"kernel vs plain: {bad} outputs differ in bits " \
+            f"({label})"
+        return 0.0
+    inf = np.isinf(w)
+    assert np.array_equal(g[inf], w[inf]), \
+        f"kernel vs plain: infinite outputs differ ({label})"
+    fin = np.isfinite(w)
+    diff = np.abs(g[fin] - w[fin])
+    excess = float(np.max(diff - 1e-6 * np.abs(w[fin]), initial=0.0))
+    assert excess <= 1e-6, f"kernel vs plain beyond rtol/atol 1e-6 " \
+        f"({label}): {excess}"
+    return float(np.max(diff, initial=0.0))
+
+
+def queued_ms(fn, reps, warm=3):
+    """Mean device time of one call, by CUDA events over ``reps`` calls
+    queued behind a sleeping kernel: the host enqueues them all while the
+    card sleeps, so the reading is the card's time for back-to-back
+    launches even where the host takes longer to enqueue a call than the
+    card takes to run it (where ``cuda_ms`` reads the host's rate)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    sync()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    host_s = time.perf_counter() - t0        # one call's enqueue, at most
+    torch.cuda._sleep(int((reps * host_s + 2e-3) * max_sm_clock_mhz() * 2e6))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def kernel_phase(dev):
     import torch
     from repro_torch.kernels import gbm_predict as K
     t0 = time.perf_counter()
     serve_n = N_CONTEXTS * len(SCALEOUTS)
-    cases = []            # (label, n, d, T, depth, y_scale, nonfinite)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []            # (label, n, d, T, depth, nonfinite)
     for d in (2, 3, 4):
-        for ys in (0.0, 250.0):
-            cases.append((f"serve d={d} y_scale={ys}", serve_n, d, 200, 3,
-                          ys, False))
-    cases += [("thr=inf and +-inf/NaN features", 5000, 3, 200, 3, 0.0, True),
-              ("n=1", 1, 3, 200, 3, 0.0, False),
-              ("ragged n=1000", 1000, 4, 200, 3, 0.0, True),
-              ("T=1", 777, 3, 1, 3, 1.0, False),
-              ("D=1", 513, 2, 50, 1, 0.0, True),
-              ("D=4", 2049, 4, 100, 4, 0.0, True),
-              ("d=1", 300, 1, 200, 3, 0.0, True),
-              ("d=16", 4099, 16, 64, 3, 0.0, True),
-              ("n=2^20", 2 ** 20, 3, 200, 3, 0.0, False)]
-    max_abs, worst, checked = 0.0, 0.0, []
-    for i, (label, n, d, T, depth, ys, nonfinite) in enumerate(cases):
+        cases.append((f"serve d={d}", serve_n, d, 200, 3, False))
+    cases += [("thr=inf and +-inf/NaN features", 5000, 3, 200, 3, True),
+              ("n=1", 1, 3, 200, 3, False),
+              ("ragged n=1000", 1000, 4, 200, 3, True),
+              ("T=1", 777, 3, 1, 3, False),
+              ("D=1", 513, 2, 50, 1, True),
+              ("D=4", 2049, 4, 100, 4, True),
+              ("d=1", 300, 1, 200, 3, True),
+              ("d=16", 4099, 16, 64, 3, True),
+              ("T=2000: tiles over 48 KB", serve_n, 3, 2000, 3, True),
+              ("D=10", serve_n, 5, 100, 10, True),
+              ("T=203: not a multiple of slices or chains", serve_n, 3,
+               203, 3, True),
+              ("n=2^20", 2 ** 20, 3, 200, 3, False),
+              ("n=2^20 d=16", 2 ** 20, 16, 200, 3, True)]
+    max_abs, checked = 0.0, {}
+    for i, (label, n, d, T, depth, nonfinite) in enumerate(cases):
         X, feat, thr, leaf = ensemble(i, n, d, T, depth, dev,
                                       nonfinite=nonfinite)
-        if nonfinite and depth >= 1:
+        if nonfinite:
             X[0, :] = float("inf")       # R2: +inf at thr = inf goes left
-        f0 = 0.3
-        got = K.gbm_predict(X, feat, thr, leaf, f0, ys)
-        want = K.gbm_predict_plain(X, feat, thr, leaf, f0, ys)
-        sync()
-        g, w = got.cpu().numpy(), want.cpu().numpy()
-        assert g.shape == w.shape == (n,), label
-        inf = np.isinf(w)
-        assert np.array_equal(np.isnan(g), np.isnan(w)) and \
-            np.array_equal(g[inf], w[inf]), \
-            f"kernel vs plain: non-finite outputs differ ({label})"
-        fin = np.isfinite(w)
-        diff = np.abs(g[fin] - w[fin])
-        excess = float(np.max(diff - 1e-6 * np.abs(w[fin]), initial=0.0))
-        assert excess <= 1e-6, f"kernel vs plain beyond rtol/atol 1e-6 " \
-            f"({label}): {excess}"
-        max_abs = max(max_abs, float(np.max(diff, initial=0.0)))
-        worst = max(worst, excess)
-        checked.append(label)
+        for ys in (0.0, 250.0):
+            got = K.gbm_predict(X, feat, thr, leaf, 0.3, ys)
+            want = K.gbm_predict_plain(X, feat, thr, leaf, 0.3, ys)
+            sync()
+            max_abs = max(max_abs, check_gbm(f"{label} y_scale={ys}", got,
+                                             want, ys))
+        p = K.plan(n, d, T, depth, sms)
+        checked[label] = {k: p[k] for k in ("rows", "slices", "tiles",
+                                            "smem_bytes", "blocks")}
 
     def timed(n, d, reps, plain_reps):
         X, feat, thr, leaf = ensemble(99, n, d, 200, 3, dev)
         f0 = torch.tensor([0.3], device=dev)
         ys = torch.tensor([0.0], device=dev)
-        k = cuda_ms(lambda: K.gbm_predict(X, feat, thr, leaf, f0, ys), reps)
-        p = cuda_ms(lambda: K.gbm_predict_plain(X, feat, thr, leaf, f0, ys),
-                    plain_reps, warm=1)
+
+        def call():
+            K.gbm_predict(X, feat, thr, leaf, f0, ys)
         b, by = bound_ms(n, d, 200, 3)
-        return k, p, b, by, smem_bound_ms(n, 200, 3)
+        return {"ms": queued_ms(call, reps),
+                "ms_back_to_back": cuda_ms(call, reps),
+                "plain_ms": cuda_ms(
+                    lambda: K.gbm_predict_plain(X, feat, thr, leaf, f0, ys),
+                    plain_reps, warm=1),
+                "bound_ms": b, "bound_by": by,
+                "first_design_smem_load_ms": smem_bound_ms(n, 200, 3)}
 
     times = {}
     for d in (2, 3, 4):
-        times[f"serve_d{d}"] = timed(serve_n, d, 200, 20)
+        times[f"serve_d{d}"] = timed(serve_n, d, 500, 20)
     times["n2p20_d3"] = timed(2 ** 20, 3, 50, 3)
     emit("kernel", t0, kernel="gbm_predict", cases=checked,
-         max_abs_err=max_abs, worst_excess_over_tol=worst,
-         times={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
-                    "bound_by": v[3], "smem_load_bound_ms": v[4]}
-                for k, v in times.items()})
+         bit_exact_at_y_scale_nonzero=True, max_abs_err_y_scale_0=max_abs,
+         times=times)
     return max_abs, times
 
 
@@ -901,6 +959,9 @@ def ptxas_by_instance(log, label):
         if m:
             per[cur]["spill_stores"] = int(m.group(1))
             per[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m:
+            per[cur]["stack_bytes"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             per[cur]["registers"] = int(m.group(1))
@@ -949,16 +1010,54 @@ def flash_build_phase(build, so_path):
 
 
 def _instance(mangled):
-    """A short label of a mangled kernel name of decode_attention.cu or
-    wkv6.cu, such as 'decode bf16 hd 128 G 8' or 'wkv6 hd 64', else
-    None."""
+    """A short label of a mangled kernel name of decode_attention.cu,
+    wkv6.cu or gbm_predict.cu, such as 'decode bf16 hd 128 G 8', 'wkv6 hd
+    64' or 'gbm d 3 depth 3' (depth 0: the generic instance for 5-10),
+    else None."""
     m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
                   mangled)
     if m:
         dt = "f32" if m.group(1) == "f" else "bf16"
         return f"decode {dt} hd {m.group(2)} G {m.group(3)}"
+    m = re.search(r"gbm_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"gbm d {m.group(1)} depth {m.group(2)}"
     m = re.search(r"wkv6_kernelILi(\d+)E", mangled)
     return f"wkv6 hd {m.group(1)}" if m else None
+
+
+def sass_loops(so_path, function):
+    """The loops of one kernel function in ``cuobjdump --dump-sass`` of a
+    built library, the first whose mangled name matches the regex
+    ``function``: for each backward branch, the span from its target to
+    the branch, with the number of instructions in it and of those whose
+    opcode starts LDS (shared-memory loads), FADD, ISETP and FSEL (the
+    feature select's compares and selects).  With the levels and chains
+    of a walk unrolled, a span's instructions over its trees are the
+    issued instructions per (row, tree)."""
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    part = next(p for p in sass.split("Function : ")[1:]
+                if re.search(function, p.split()[0]))
+    code = [(int(a, 16), op.strip()) for a, op in
+            re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", part)]
+    loops = []
+    for addr, op in code:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < addr:
+            start = int(m.group(1), 16)
+            ops = [o.split()[1 if o.startswith("@") else 0]
+                   for a, o in code if start <= a <= addr]
+            loops.append({"from": hex(start), "to": hex(addr),
+                          "instructions": len(ops),
+                          **{k: sum(o.startswith(k) for o in ops)
+                             for k in ("LDS", "FADD", "ISETP", "FSEL")}})
+    return {"function": part.split()[0], "instructions": len(code),
+            "loops": sorted(loops, key=lambda lp: lp["instructions"])}
 
 
 # bytes of register spill stores and of spill loads the WKV6 kernel may
@@ -968,18 +1067,20 @@ def _instance(mangled):
 WKV6_SPILL_BYTES = 8
 
 
-def kernel_build_phase(build):
-    """ptxas's registers, spills and static shared memory per instantiation
-    of the decode and WKV6 kernels (from ``build.BUILD_INFO``), and the
-    warps, dynamic shared memory and resident blocks an SM of a decode
-    block, as the library reports them (``tile_config``).  Fails if a
-    decode instantiation spills, or a WKV6 one stores or loads more than
-    WKV6_SPILL_BYTES of spills."""
+def kernel_build_phase(build, built):
+    """ptxas's registers, spills, stack and static shared memory per
+    instantiation of the decode, WKV6 and GBM kernels (from
+    ``build.BUILD_INFO``), the warps, dynamic shared memory and resident
+    blocks an SM of a decode block, as the library reports them
+    (``tile_config``), and the loops of the GBM instance that serves d 3,
+    depth 3 (``sass_loops``).  Fails if a decode or GBM instantiation
+    spills or a GBM one has a stack, or a WKV6 one stores or loads more
+    than WKV6_SPILL_BYTES of spills."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     t0 = time.perf_counter()
     per = {}
-    for name in ("decode_attention", "wkv6"):
+    for name in ("decode_attention", "wkv6", "gbm_predict"):
         per.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
                                      _instance))
     for name, info in per.items():
@@ -991,11 +1092,15 @@ def kernel_build_phase(build):
                         blocks_per_sm=cfg["blocks_per_sm"])
     assert sum(n.startswith("decode") for n in per) == 24, sorted(per)
     assert sum(n.startswith("wkv6") for n in per) == 3, sorted(per)
+    assert sum(n.startswith("gbm") for n in per) == 30, sorted(per)
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
-              > (WKV6_SPILL_BYTES if n.startswith("wkv6") else 0)}
+              > (WKV6_SPILL_BYTES if n.startswith("wkv6") else 0)
+              or (n.startswith("gbm") and i.get("stack_bytes", 1) != 0)}
     assert not spills, spills
-    emit("kernel_build", t0, instances=per)
+    emit("kernel_build", t0, instances=per,
+         gbm_sass_d3_depth3=sass_loops(built["gbm_predict"],
+                                       r"gbm_kernelILi3ELi3E"))
 
 
 def lm_kernel_phase():
@@ -1959,7 +2064,7 @@ def main():
          ptxas=ptxas)
 
     flash_build_phase(build, built["flash_attention"])
-    kernel_build_phase(build)
+    kernel_build_phase(build, built)
     max_abs, times = kernel_phase(dev)
     lm_worst, lm_times, lm_rel = lm_kernel_phase()
 
@@ -2006,11 +2111,14 @@ def main():
         "source": "src/repro_torch/kernels/csrc/gbm_predict.cu",
         "replaces": "src/repro/kernels/gbm_predict.py:58",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": serve[0], "plain_ms": serve[1], "bound_ms": serve[2],
-        "bound_by": serve[3], "library_ms": None,
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "library_ms": None,
+        "ms_from": "cuda events, calls queued behind a sleeping kernel",
+        "ms_back_to_back": serve["ms_back_to_back"],
         "shape": f"n={N_CONTEXTS * len(SCALEOUTS)} d=3 T=200 D=3",
-        "ms_n2p20": big[0], "plain_ms_n2p20": big[1],
-        "bound_ms_n2p20": big[2]}, {
+        "ms_n2p20": big["ms"], "plain_ms_n2p20": big["plain_ms"],
+        "bound_ms_n2p20": big["bound_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:72",

@@ -6,12 +6,20 @@
 A_SRC and B_SRC are directories that hold a ``repro_torch`` package (for
 example ``src`` of a ``git archive`` of the parent commit and ``src`` of
 this checkout).  Every step runs in a fresh process, in the order A, B,
-B, A, and prints one JSON line.  First the kernels, on seeded inputs made
-and timed with ``chip_smoke.py``'s helpers: decode_attention in bf16 at
-jamba-1.5-large's decode step (B 8, L 2,120, 64 heads over 8 of 128, pos
-2080) and at gemma3-1b's global and local ring layers (4 heads over 1 of
-256), by profiler device time (``lm_time``) beside
-scaled_dot_product_attention's; wkv6 at rwkv6-3b's heads (S 2048, H 40,
+B, A, and prints one JSON line.  First gbm_predict on chip_smoke.py's
+seeded ensembles (T 200, depth 3) at the serving shape (n 24,576 at d 2,
+3 and 4) and at n = 2^20 (d 3), by CUDA events over calls queued behind a
+sleeping kernel (``queued_ms``, the card's time) and back to back
+(``cuda_ms``, which the host's enqueue rate can set), with the loops of the
+SASS of the kernel instance that runs d 3, depth 3 (``sass_loops``); a
+tree that plans its launch (``gbm_predict.plan``) is also timed with one
+row a thread at the plan's rows a block.  Then the other kernels, on
+seeded inputs made and timed with ``chip_smoke.py``'s helpers:
+decode_attention in bf16 at jamba-1.5-large's decode step (B 8, L 2,120,
+64 heads over 8 of 128, pos 2080) and at gemma3-1b's global and local
+ring layers (4 heads over 1 of 256), by profiler device time
+(``lm_time``) beside scaled_dot_product_attention's; wkv6 at rwkv6-3b's
+heads (S 2048, H 40,
 hd 64, float32) by CUDA events (``cuda_ms``) at B 1, 2, 4 and 8.  At B 1
 and 2 each (batch, head) block has an SM to itself, so the time over S /
 16 is one block's time a chunk of 16 tokens.  Then gemma3-1b, rwkv6-3b
@@ -29,10 +37,43 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORDER = (0, 1, 1, 0)
 ARCHS = ("gemma3-1b", "rwkv6-3b", "jamba-1.5-large-398b")
+GBM_SHAPES = ((24576, 2, 500), (24576, 3, 500), (24576, 4, 500),
+              (2 ** 20, 3, 50))                       # n, d, calls timed
 DECODE_SHAPES = {   # B, L, H, KV, hd, pos, window, ring
     "decode_jamba": (8, 2120, 64, 8, 128, 2080, 0, False),
     "decode_global": (8, 2120, 4, 1, 256, 2080, 0, False),
     "decode_local": (8, 512, 4, 1, 256, 2080, 512, True)}
+
+
+def gbm(label):
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gbm_predict as K
+    so = build.build_all(["gbm_predict"])["gbm_predict"]
+    out = {"label": label, "card": CS.nvidia_smi()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f0 = torch.tensor([0.3], device="cuda")
+    ys = torch.tensor([0.0], device="cuda")
+    for n, d, reps in GBM_SHAPES:
+        X, feat, thr, leaf = CS.ensemble(99, n, d, 200, 3, "cuda")
+
+        def call():
+            K.gbm_predict(X, feat, thr, leaf, f0, ys)
+        out[f"n{n}_d{d}"] = {"queued_ms": CS.queued_ms(call, reps),
+                             "events_ms": CS.cuda_ms(call, reps)}
+        if hasattr(K, "plan") and n < 2 ** 20:
+            # the tree's kernel with one row a thread (no slices) at the
+            # plan's rows a block: the design its slices were chosen over
+            p = K.plan(n, d, 200, 3, sms)
+            one = dict(p, slices=1, smem_bytes=200 * K.tree_bytes(3))
+            res = torch.empty(n, device="cuda")
+            out[f"n{n}_d{d}"]["one_row_a_thread_queued_ms"] = CS.queued_ms(
+                lambda: K._launch(X, feat, thr, leaf, f0, ys, res, one),
+                reps)
+    out["sass_d3_depth3"] = CS.sass_loops(
+        so, r"gbm_kernelILi3ELi3E|gbm_predict_kernelILi4EE")
+    return out
 
 
 def kernels(label):
@@ -77,7 +118,8 @@ def serve(label, arch):
 def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
-    res = kernels(label) if what == "kernels" else serve(label, what)
+    step = {"gbm": gbm, "kernels": kernels}.get(what)
+    res = step(label) if step else serve(label, what)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -89,7 +131,7 @@ def main(argv):
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    for what in ("kernels",) + ARCHS:
+    for what in ("gbm", "kernels") + ARCHS:
         for i in ORDER:
             label = f"{'AB'[i]}:{argv[i]}"
             p = subprocess.run([sys.executable, os.path.abspath(__file__),

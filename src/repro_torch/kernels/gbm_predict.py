@@ -12,20 +12,39 @@ It is the port of ``repro/kernels/gbm_predict.py`` (the Pallas kernel) plus
 the epilogue that ``repro/core/engine.py`` jits around it.
 
 A CUDA tensor always launches the hand-written kernel
-(``csrc/gbm_predict.cu``); a CPU tensor uses ``gbm_predict_plain``.  There is
-no fallback from one to the other.  ``LAUNCHES`` counts kernel launches, so
-that a run can show that its main path went through the kernel.
+(``csrc/gbm_predict.cu``) with the launch ``plan`` makes; a CPU tensor uses
+``gbm_predict_plain``.  There is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches, so that a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 MAX_FEATURES = 16          # the kernel keeps a row's features in registers
-MAX_DEPTH = 10             # one tree's tables must fit a tile in shared memory
-TILE_TREES = 128           # trees staged into shared memory at a time
-_SMEM_BYTES = 48 * 1024    # static limit of a block's dynamic shared memory
+MAX_DEPTH = 10             # one tree must fit a tile in shared memory
+
+# The kernel's constants (csrc/gbm_predict.cu): kMaxThreads threads a block
+# at most, and __launch_bounds__(kMaxThreads, 2) caps a thread at
+# 65,536 / (2 * kMaxThreads) = 64 registers.
+MAX_THREADS = 512
+REGS_PER_THREAD = 64
+# Hopper (sm_90): 2,048 threads, 65,536 registers and 228 KB of shared
+# memory an SM, of which the runtime reserves 1 KB per resident block.
+SM_THREADS = 2048
+SM_REGS = 65536
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED_SMEM = 1024
+# A block takes at most half an SM's shared memory, so that two fit.
+SMEM_BUDGET = SM_SMEM // 2 - BLOCK_RESERVED_SMEM
+# Rows an SM below which the trees of a tile are split into slices: at
+# fewer than 512 rows (16 warps) an SM, rows alone leave it short of
+# independent chains.
+SLICE_BELOW_ROWS_PER_SM = 512
+MAX_SLICES = 4
 
 LAUNCHES = 0
 
@@ -104,13 +123,82 @@ def _check(X, feat, thr, leaf):
     return n, d, T, depth
 
 
+def _rows_for(n: int, sms: int, limit: int) -> int:
+    """Rows a block (a multiple of 32, at most ``limit``) that put the
+    fewest rows on the busiest SM while every SM gets a block (as far as n
+    allows); among equals, the most rows, so that fewer blocks stage the
+    trees."""
+    want_blocks = min(sms, -(-n // 32))
+    best = (None, 32)
+    for rows in range(32, limit + 1, 32):
+        blocks = -(-n // rows)
+        if blocks < want_blocks:
+            break
+        busiest = -(-blocks // sms) * rows
+        if best[0] is None or busiest <= best[0]:
+            best = (busiest, rows)
+    return best[1]
+
+
+def chains(d: int) -> int:
+    """Trees a thread walks at once (``kChains``): 8 for up to 4 features,
+    else 4."""
+    return 8 if d <= 4 else 4
+
+
+def tree_bytes(depth: int) -> int:
+    """A staged tree's shared memory (``tree_bytes``): 8-byte nodes of
+    levels 0..depth-2 from byte 8, then 2**(depth-1) 16-byte nodes of the
+    last level, each with its two leaves."""
+    return (8 << (depth - 1) if depth > 1 else 16) + (16 << (depth - 1))
+
+
+def plan(n: int, d: int, T: int, depth: int, sms: int) -> dict:
+    """The kernel's launch for n rows of d features and T trees of
+    ``depth`` on a card of ``sms`` SMs: rows a block, slices (threads that
+    split a row's trees), chains (trees a thread walks at once), tile trees
+    (staged into shared memory at a time), tiles, dynamic shared-memory
+    bytes, threads, resident blocks an SM and blocks (the grid; blocks loop
+    over chunks of rows)."""
+    slices = 1
+    if n < SLICE_BELOW_ROWS_PER_SM * sms:
+        slices = MAX_SLICES if n < SLICE_BELOW_ROWS_PER_SM * sms // 2 else 2
+        slices = max(1, min(slices, T // chains(d)))
+    rows = _rows_for(n, sms, MAX_THREADS // slices) if slices > 1 \
+        else MAX_THREADS
+    rows = min(rows, 32 * -(-n // 32))
+    per_tree = tree_bytes(depth)
+
+    def smem_of(tile):   # the tile's heaps, and the leaves of slices 1..
+        return tile * per_tree + (tile - tile // slices) * rows * 4
+
+    tile = min(T, SMEM_BUDGET // per_tree)
+    while smem_of(tile) > SMEM_BUDGET:
+        tile -= 1
+    smem = smem_of(tile)
+    threads = rows * slices
+    per_sm = min(SM_THREADS // threads,
+                 SM_REGS // (REGS_PER_THREAD * threads),
+                 SM_SMEM // (smem + BLOCK_RESERVED_SMEM))
+    chunks = -(-n // rows)
+    return {"rows": rows, "slices": slices, "chains": chains(d),
+            "tile_trees": tile, "tiles": -(-T // tile), "smem_bytes": smem,
+            "threads": threads, "blocks_per_sm": per_sm,
+            "blocks": min(chunks, sms * per_sm)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib():
     from repro_torch.kernels.build import load
     lib = load("gbm_predict")
     fn = lib.gbm_predict_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
     return fn
 
@@ -119,26 +207,38 @@ def gbm_predict(X, feat, thr, leaf, f0, y_scale=1.0) -> torch.Tensor:
     """Ensemble prediction [n] float32.  On a CUDA tensor this launches the
     kernel on the current stream (raising on anything it does not take);
     on a CPU tensor it is ``gbm_predict_plain``."""
-    global LAUNCHES
     if X.device.type == "cpu":
         return gbm_predict_plain(X, feat, thr, leaf, f0, y_scale)
     if X.device.type != "cuda":
         raise ValueError(f"no gbm_predict for device {X.device}")
     n, d, T, depth = _check(X, feat, thr, leaf)
-    f0_t, ys_t = _scalar(f0, X), _scalar(y_scale, X)
-    n_int = (1 << depth) - 1
-    per_tree = (3 * n_int + 1) * 4
-    tile = min(T, TILE_TREES, _SMEM_BYTES // per_tree)
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(X.device).cuda_stream
+    _launch(X, feat, thr, leaf, _scalar(f0, X), _scalar(y_scale, X), out,
+            plan(n, d, T, depth, _sms(_index(X.device))))
+    return out
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _launch(X, feat, thr, leaf, f0, y_scale, out, p: dict) -> None:
+    """One launch of the kernel under plan ``p`` on the current stream,
+    on tensors ``gbm_predict`` has checked; raises if it is refused."""
+    global LAUNCHES
+    n, d = X.shape
+    T, n_int = feat.shape
+    depth = (n_int + 1).bit_length() - 1
+    index = _index(X.device)
     rc = _lib()(X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-                leaf.data_ptr(), f0_t.data_ptr(), ys_t.data_ptr(),
-                out.data_ptr(), n, d, T, depth, tile, X.device.index or 0,
-                stream)
+                leaf.data_ptr(), f0.data_ptr(), y_scale.data_ptr(),
+                out.data_ptr(), n, d, T, depth, p["rows"], p["slices"],
+                p["tile_trees"], p["smem_bytes"], p["blocks"], index,
+                torch.cuda.current_stream(X.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gbm_predict kernel failed to launch: CUDA "
                            f"error {rc}")
     LAUNCHES += 1
-    return out
