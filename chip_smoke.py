@@ -26,8 +26,29 @@ Phases:
   loop     the quickstart: choose for grep, check the emulator, contribute
   parity   sort and grep fitted on the CPU, carried to the card, predictions
            compared
-  profile  device busy time and launches of one fit and one choose
-           (torch.profiler, profiler on: wall times are inflated)
+  edge     this slice's main path: the edge's demo gateway (grep and
+           sort, fitted on the card before any timed window) served by
+           serve_edge on a localhost socket; the seeded 1024-request
+           workload played by run_loadgen at 64 connections in the
+           edge's own event loop, as the JAX package's edge bench plays
+           it, in 3 interleaved socket / in-process pairs, each timed pass
+           on a fully collected heap; requests/s of both, their ratio,
+           client p50/p95/p99 ms, each lane's mean batch, gbm_predict
+           launches (in all, and per inline choose and predict); fails
+           unless errors are 0, every HTTP body is the in-process
+           envelope's bytes, the predict-lane mean batch is > 1 and the
+           GBM kernel was launched, and (at the end of the run, after the
+           later phases) unless socket requests/s are >= 0.5x in process
+           in the median pair
+  sidecar  save_fits of the edge hub's card fits, load_fits into fresh
+           repos on cuda: no refit, predictions bit for bit
+  profile  device busy time and launches, in one torch.profiler session
+           split by record_function ranges, of one fit, one choose, the
+           edge gateway's chooses through its lanes and one edge pass
+           over the socket (profiler on: wall times are inflated)
+  transfer a cold job (grep's twin, a handful of probe rows) served
+           through its donor's predictors on the card, transfer_source
+           stamped
   lm_kernel   flash-attention and flash-decode kernels vs their plain
               versions in bfloat16 (tensor cores; also held to a relative
               bound, with two controls that must exceed it) and float32
@@ -79,7 +100,8 @@ Phases:
                 vs CPU (float32, plain) logits, greedy tokens and MoE
                 routing
 
-Four main paths: the phases fit, serve and loop (the paper's loop,
+Five main paths: the phases fit, serve and loop (the paper's loop,
+through the GBM kernel), edge (the hub's public surface over a socket,
 through the GBM kernel), lm_serve (gemma3-1b serving, through the two
 attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
 kernel) and jamba_serve (jamba-1.5-large serving, through the scan and
@@ -92,6 +114,7 @@ non-zero and prints no result.
 """
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -494,12 +517,60 @@ def parity_phase(card_rows):
          max_cv_mape_gap=cv_gap, differing=differ)
 
 
-def profile_phase(hub):
-    """Device busy time against host wall time for one predictor fit
-    (grep on c5.xlarge, 4 models x 30 folds) and one 4096-context choose,
-    from a torch.profiler trace."""
+def _device_events_by_range(prof, ranges):
+    """Device events of one torch.profiler session split by the
+    ``record_function`` ranges named in ``ranges``: an event belongs to
+    the range whose window holds its start.  A range's window is its span
+    on the device timeline (the profiler's annotation of the range there,
+    on the kernels' own clock) where the profiler records one, else its
+    host window (each range ends in a synchronisation).  Host windows
+    alone misfiled kernels near a boundary: the device clock, mapped to
+    the host's, can lag it, and one run read the fit's last kernels in
+    the choose window and another the choose's GBM kernels outside it.
+    Returns the events by range and the windows with their clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    events = list(prof.events())
+    host, device = {}, {}
+    for e in events:
+        if e.name not in ranges:
+            continue
+        spans = host if e.device_type == torch.autograd.DeviceType.CPU \
+            else device
+        a, b = e.time_range.start, e.time_range.end
+        if e.name in spans:
+            a, b = min(a, spans[e.name][0]), max(b, spans[e.name][1])
+        spans[e.name] = (a, b)
+    missing = set(ranges) - set(host)
+    assert not missing, f"profiler recorded no range {sorted(missing)}"
+    windows = {r: device.get(r, host[r]) for r in ranges}
+    out = {r: [] for r in ranges}
+    for e in events:
+        # the ranges themselves show up on the device timeline too (as
+        # annotations spanning their kernels): not device work
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name in ranges:
+            continue
+        for r, (a, b) in windows.items():
+            if a <= e.time_range.start <= b:
+                out[r].append(e)
+                break
+    return out, {r: "device" if r in device else "host" for r in ranges}
+
+
+def profile_phase(hub, gw):
+    """Device busy time against host wall time, in ONE torch.profiler
+    session split by record_function ranges: one predictor fit (grep on
+    c5.xlarge, 4 models x 30 folds), one 4096-context choose, the edge
+    demo gateway's chooses of the seeded workload through its lanes
+    (in process, 64 at once), and one whole edge pass over the socket.
+    (A second profiler session in one process saw no device work: an
+    earlier version of this phase read 0 launches in the choose window
+    that way.)"""
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.api import AsyncHubGateway, ChooseRequest
     from repro_torch.core import ConfigurationService
     from repro_torch.core.predictor import C3OPredictor
     from repro_torch.workloads import spark_emul as W
@@ -509,31 +580,357 @@ def profile_phase(hub):
     svc = ConfigurationService.from_repo(hub.get("grep"), None, prices,
                                          SCALEOUTS)
     ctx, t_max = contexts(hub.get("grep"), N_CONTEXTS, seed=1)
-    out = {}
-    for name, fn in (
-            ("fit", lambda: C3OPredictor(device="cuda").fit(v.X, v.y)),
-            ("choose", lambda: svc.choose_cluster_batch(ctx, t_max))):
+    chooses = [q for q in edge_requests() if isinstance(q, ChooseRequest)]
+
+    async def gateway_chooses():
+        sem = asyncio.Semaphore(EDGE_CONNECTIONS)
+
+        async def one(agw, q):
+            async with sem:
+                return await agw.handle_async(q)
+
+        async with AsyncHubGateway(gw, tick_s=EDGE_TICK_S) as agw:
+            out = await asyncio.gather(*[one(agw, q) for q in chooses])
+        assert all(r.ok for r in out)
+
+    work = (
+        ("fit", lambda: C3OPredictor(device="cuda").fit(v.X, v.y)),
+        ("choose", lambda: svc.choose_cluster_batch(ctx, t_max)),
+        ("edge_choose", lambda: asyncio.run(gateway_chooses())),
+        ("edge_pass", lambda: asyncio.run(edge_socket_pass(gw))))
+    for _, fn in work:
         fn()                                  # warm
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            fn()
-            sync()
-            wall = time.perf_counter() - t1
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    sync()
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in work:
+            with record_function(name):
+                t1 = time.perf_counter()
+                fn()
+                sync()
+                walls[name] = time.perf_counter() - t1
+    by_range, clocks = _device_events_by_range(prof, [n for n, _ in work])
+    out = {}
+    for name, kernels in by_range.items():
         busy_us = sum(e.time_range.elapsed_us() for e in kernels)
         by_name = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        out[name] = {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
-                     "idle_share": 1.0 - busy_us * 1e-6 / wall,
+        out[name] = {"wall_s": walls[name], "device_busy_s": busy_us * 1e-6,
+                     "idle_share": 1.0 - busy_us * 1e-6 / walls[name],
                      "kernel_launches": len(kernels),
+                     "gbm_predict_launches": sum(
+                         "gbm_kernel" in e.name for e in kernels),
+                     "window_clock": clocks[name],
                      "top_kernels_us": top}
-    assert out["fit"]["kernel_launches"] > 0, "profiler saw no device work"
-    emit("profile", t0, **out)
+    for name in ("fit", "choose", "edge_choose", "edge_pass"):
+        assert out[name]["kernel_launches"] > 0, \
+            f"profiler saw no device work in the {name} window"
+    for name in ("choose", "edge_choose"):
+        assert out[name]["gbm_predict_launches"] > 0, \
+            f"profiler saw no gbm_predict kernel in the {name} window"
+    emit("profile", t0, chooses_in_edge_choose=len(chooses), **out)
+
+
+# ------------------------------------------------- the hub's public surface
+
+EDGE_JOBS = ("grep", "sort")
+EDGE_REQUESTS = 1024
+EDGE_CONNECTIONS = 64
+EDGE_TICK_S = 0.004           # the edge bench's tick (benchmarks/run.py)
+EDGE_PAIRS = 3
+
+
+def edge_requests():
+    """The seeded edge workload (1024 requests: predicts, chooses and
+    searches over grep and sort) as request objects."""
+    from repro_torch.api import decode
+    from repro_torch.serve.loadgen import build_workload
+    return [decode(body.decode("ascii")) for _, body in
+            build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)]
+
+
+def edge_gateway():
+    """The edge's demo gateway on the card, every (job, machine)
+    predictor fitted before any timed window; (gateway, predictors,
+    seconds)."""
+    from repro_torch.serve.edge import _demo_gateway, warm
+    t0 = time.perf_counter()
+    gw = _demo_gateway(EDGE_JOBS, device="cuda")
+    n = warm(gw)
+    sync()
+    return gw, n, time.perf_counter() - t0
+
+
+async def edge_inproc_pass(gw, reqs):
+    """The workload through AsyncHubGateway in process, at the socket
+    path's concurrency (a semaphore plays the connections); (responses,
+    seconds)."""
+    import asyncio
+    from repro_torch.api import AsyncHubGateway
+    sem = asyncio.Semaphore(EDGE_CONNECTIONS)
+
+    async def one(agw, q):
+        async with sem:
+            return await agw.handle_async(q)
+
+    async with AsyncHubGateway(gw, max_batch=256, tick_s=EDGE_TICK_S) as agw:
+        t0 = time.monotonic()
+        out = await asyncio.gather(*[one(agw, q) for q in reqs])
+        dt = time.monotonic() - t0
+        sync()
+        return out, dt, dict(agw.lane_stats)
+
+
+async def edge_socket_pass(gw):
+    """The workload closed-loop over a localhost socket (64 keep-alive
+    connections) through a fresh edge on the same warm gateway, with the
+    load generator in the edge's own event loop, as the JAX package's
+    edge bench runs it; its LoadReport."""
+    from repro_torch.serve.edge import serve_edge
+    from repro_torch.serve.loadgen import build_workload, run_loadgen
+    workload = build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)
+    app, server = await serve_edge(gw, tick_s=EDGE_TICK_S)
+    try:
+        return await run_loadgen(server.host, server.port,
+                                 connections=EDGE_CONNECTIONS,
+                                 workload=workload)
+    finally:
+        await server.stop()
+
+
+async def edge_capture(gw, connections=8):
+    """Every HTTP response body of the workload, by index."""
+    import asyncio
+    from repro_torch.serve.edge import serve_edge
+    from repro_torch.serve.loadgen import _request, build_workload
+    workload = build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)
+    out = [b""] * len(workload)
+    app, server = await serve_edge(gw, tick_s=EDGE_TICK_S)
+
+    async def worker(c):
+        reader, writer = await asyncio.open_connection(server.host,
+                                                       server.port)
+        try:
+            for k in range(c, len(workload), connections):
+                path, body = workload[k]
+                _, out[k] = await _request(reader, writer, "POST", path,
+                                           body)
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError):
+                pass
+
+    try:
+        await asyncio.gather(*(worker(c) for c in range(connections)))
+    finally:
+        await server.stop()
+    return out
+
+
+def edge_launches_per_request(gw):
+    """gbm_predict launches of one choose and one single-row predict per
+    job, served inline (one dispatch each): what a lane's dispatch
+    launches, whatever its batch."""
+    from repro_torch.api import ChooseRequest, PredictRequest
+    from repro_torch.kernels import gbm_predict as K
+    out = {}
+    for job in EDGE_JOBS:
+        data = gw.hub.get(job).store.data
+        row = tuple(float(x) for x in data.X[0])
+        for op, req in (
+                ("choose", ChooseRequest(job, row[1:], t_max=math.nan)),
+                ("predict", PredictRequest(job, str(data.machine_type[0]),
+                                           (row,)))):
+            before = K.LAUNCHES
+            assert gw.handle(req).ok
+            sync()
+            out[f"{job}_{op}"] = K.LAUNCHES - before
+    return out
+
+
+async def after_full_collection(pass_fn):
+    """One timed pass started on a fully collected heap: (its result, the
+    full collections that ran inside it).  A full collection of this
+    process's heap takes about 0.1 s on the card's host, and one landing
+    inside a pass of 0.2 s halves that pass's requests/s."""
+    gc.collect()
+    full = gc.get_stats()[2]["collections"]
+    out = await pass_fn()
+    return out, gc.get_stats()[2]["collections"] - full
+
+
+def edge_phase(gw, warm_s, n_predictors):
+    """This slice's main path: the seeded workload played over a
+    localhost socket through serve_edge (HubEdgeApp, AsyncHubGateway's
+    lanes, HubGateway, ConfigurationService / C3OPredictor, the engine,
+    the GBM kernel) by run_loadgen in the edge's own event loop, as the
+    JAX package's edge bench plays it: one warm pass of each path, then
+    EDGE_PAIRS interleaved socket / in-process pairs, each timed pass on
+    a fully collected heap.  Asserts no errors, every HTTP body the
+    in-process envelope's bytes, predict-lane mean batch > 1 in every
+    pair and gbm_predict launched during the pass.  Socket requests/s >=
+    0.5x in process, in the median pair, is returned as ``ratio_ok`` for
+    main to fail the run on after the later phases.  Returns the launch
+    counts too."""
+    import asyncio
+    from repro_torch.api import encode
+    from repro_torch.kernels import gbm_predict as K
+    t0 = time.perf_counter()
+    reqs = edge_requests()
+
+    async def run():
+        await edge_inproc_pass(gw, reqs)              # warm both paths
+        await edge_socket_pass(gw)
+        pairs = []
+        for _ in range(EDGE_PAIRS):
+            before = K.LAUNCHES
+            rep, full_s = await after_full_collection(
+                lambda: edge_socket_pass(gw))
+            sync()
+            launched = K.LAUNCHES - before
+            (out, dt, lanes), full_i = await after_full_collection(
+                lambda: edge_inproc_pass(gw, reqs))
+            pairs.append({"rep": rep, "out": out, "dt": dt, "lanes": lanes,
+                          "ratio": rep.rps * dt / len(reqs),
+                          "socket_launches": launched,
+                          "full_collections": [full_s, full_i]})
+        return pairs, await edge_capture(gw)
+
+    K.LAUNCHES = 0
+    pairs, http = asyncio.run(run())
+    sync()
+    launches = K.LAUNCHES
+    per_request = edge_launches_per_request(gw)
+    ratios = [p["ratio"] for p in pairs]
+    med = sorted(pairs, key=lambda p: p["ratio"])[len(pairs) // 2]
+    rep = med["rep"]
+    expected = [encode(r).encode("ascii") for r in med["out"]]
+    identical = sum(a == b for a, b in zip(http, expected))
+    batches = [p["rep"].predict_mean_batch() for p in pairs]
+    errors = sum(p["rep"].errors for p in pairs)
+    ratio_ok = med["ratio"] >= 0.5
+    emit("edge", t0, jobs=list(EDGE_JOBS), requests=len(reqs),
+         connections=EDGE_CONNECTIONS, tick_s=EDGE_TICK_S,
+         warm_s=warm_s, predictors_warmed=n_predictors,
+         load_generator="run_loadgen in the edge's event loop",
+         pairs=[{"socket_rps": p["rep"].rps,
+                 "inproc_rps": len(reqs) / p["dt"], "ratio": p["ratio"],
+                 "socket_launches": p["socket_launches"],
+                 "full_collections_socket_inproc": p["full_collections"]}
+                for p in pairs],
+         socket_rps=rep.rps, inproc_rps=len(reqs) / med["dt"],
+         socket_vs_inproc=med["ratio"], socket_vs_inproc_pairs=ratios,
+         socket_vs_inproc_gate="pass" if ratio_ok else "FAIL (< 0.5)",
+         p50_ms=rep.p50_ms, p95_ms=rep.p95_ms, p99_ms=rep.p99_ms,
+         errors=errors, op_counts=rep.op_counts,
+         predict_mean_batch=batches,
+         identical=f"{identical}/{len(reqs)}",
+         socket_lanes={ln.lane: {"requests": ln.requests,
+                                 "batches": ln.batches,
+                                 "mean_batch": ln.mean_batch}
+                       for ln in rep.server.lanes},
+         inproc_lanes={k: {"requests": s.requests, "batches": s.batches,
+                           "mean_batch": s.requests / max(s.batches, 1)}
+                       for k, s in med["lanes"].items()},
+         gbm_predict_launches=launches,
+         gbm_predict_launches_per_inline_request=per_request)
+    assert errors == 0, f"edge: {errors} error envelopes"
+    assert identical == len(reqs), \
+        f"edge: {len(reqs) - identical} HTTP bodies differ from in process"
+    assert min(batches) > 1.0, f"edge: predict-lane mean batch {batches}"
+    assert launches > 0, "edge: the GBM kernel was not launched"
+    return {"launches": launches, "per_request": per_request,
+            "ratio": med["ratio"], "ratio_ok": ratio_ok}
+
+
+def transfer_check(gw):
+    """Cold-start transfer on the card: grep's cold twin, published with
+    its handful of probe rows, is served through its donor's predictors
+    (the GBM kernel) with transfer_source stamped."""
+    from repro_torch.api import (ChooseRequest, HubGateway, PredictRequest,
+                                 TransferPolicy, encode)
+    from repro_torch.core import JobRepo, RuntimeDataStore
+    from repro_torch.kernels import gbm_predict as K
+    from repro_torch.workloads import spark_emul as W
+    t0 = time.perf_counter()
+    probe = W.cold_probe("grep", 0)
+    hub = gw.hub                  # the last phase to use this hub
+    hub.publish(JobRepo("grep-cold", "grep (cold twin)", W.cold_schema("grep"),
+                        RuntimeDataStore(probe, seed=0, device="cuda"),
+                        predictor_kw=dict(pad_rows=True, max_cv_folds=15,
+                                          device="cuda")))
+    pol = TransferPolicy()
+    tgw = HubGateway(hub, gw.prices, gw.scaleouts, transfer=pol)
+    row = tuple(float(x) for x in probe.X[0])
+    machine = str(probe.machine_type[0])
+    before = K.LAUNCHES
+    resp = tgw.predict(PredictRequest("grep-cold", machine, (row,)))
+    choice = tgw.choose(ChooseRequest("grep-cold", row[1:], t_max=400.0))
+    sync()
+    launched = K.LAUNCHES - before
+    donor = tgw.predict(PredictRequest("grep", machine, (row,)))
+    dchoice = tgw.choose(ChooseRequest("grep", row[1:], t_max=400.0))
+    match = hub.nearest_job("grep-cold", policy=pol)
+    emit("transfer", t0, probe_rows=len(probe), source=resp.result.transfer_source,
+         similarity=match.similarity,
+         confidence=resp.result.transfer_confidence,
+         runtime_s=resp.result.runtimes_s[0],
+         donor_runtime_s=donor.result.runtimes_s[0],
+         choice=[choice.result.machine_type, choice.result.scale_out],
+         gbm_predict_launches=launched)
+    assert resp.ok and choice.ok, (encode(resp), encode(choice))
+    assert resp.result.transfer_source == "grep"
+    assert choice.result.transfer_source == "grep"
+    assert '"transfer_source":"grep"' in encode(resp)
+    assert resp.result.runtimes_s == donor.result.runtimes_s
+    assert (choice.result.machine_type, choice.result.scale_out) == \
+        (dchoice.result.machine_type, dchoice.result.scale_out)
+    assert launched > 0, "transfer: the donor's GBM kernel was not launched"
+
+
+def sidecar_phase(gw):
+    """save_fits of the edge hub's card fits, load_fits into fresh repos
+    on cuda: zero refits (engine.cache_stats) and predictions with the
+    fitted ones' bits."""
+    import tempfile
+    from repro_torch.core import JobRepo, RuntimeDataStore, engine
+    t0 = time.perf_counter()
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for job in EDGE_JOBS:
+            repo = gw.hub.get(job)
+            path = repo.fits_path(os.path.join(tmp, f"{job}.tsv"))
+            saved = repo.save_fits(path)
+            fresh = JobRepo(job, job, repo.schema,
+                            RuntimeDataStore(repo.store.data, seed=0,
+                                             device="cuda"),
+                            predictor_kw=dict(repo.predictor_kw))
+            engine.cache_clear()
+            loaded = fresh.load_fits(path)
+            stats = engine.cache_stats()
+            rows = repo.store.data.X
+            same = 0
+            for m in repo.store.data.present_machines():
+                a = fresh.predictor_for(m).predict(rows).astype(np.float32)
+                b = repo.predictor_for(m).predict(rows).astype(np.float32)
+                same += int(np.array_equal(a.view(np.int32),
+                                           b.view(np.int32)))
+            refits = engine.cache_stats()
+            out[job] = {"saved": saved, "loaded": loaded,
+                        "bytes": os.path.getsize(path),
+                        "fits": refits["fit"], "cv": refits["cv"],
+                        "bit_equal": f"{same}/{saved}",
+                        "load_stats": stats}
+            assert saved == loaded == len(repo.store.data.present_machines())
+            assert refits["fit"] == 0 and refits["cv"] == 0, refits
+            assert same == saved, f"sidecar: {job} predictions differ"
+    emit("sidecar", t0, **out)
 
 
 # --------------------------------------------------------------- LM slice
@@ -2078,7 +2475,14 @@ def main():
     assert launches > 0, "main path never launched the GBM kernel"
 
     parity_phase(fit_rows)
-    profile_phase(hub)
+
+    # ---- main path of slice 8: the hub's public surface over a socket
+    # (edge_phase sets the GBM count to 0 itself and reads it after)
+    gw, n_pred, warm_s = edge_gateway()
+    edge = edge_phase(gw, warm_s, n_pred)
+    sidecar_phase(gw)
+    profile_phase(hub, gw)
+    transfer_check(gw)
 
     # ---- main path of slice 2 (lm_serve sets its counts to 0 itself)
     lm_launches = lm_serve_phase()
@@ -2118,7 +2522,12 @@ def main():
         "ms_back_to_back": serve["ms_back_to_back"],
         "shape": f"n={N_CONTEXTS * len(SCALEOUTS)} d=3 T=200 D=3",
         "ms_n2p20": big["ms"], "plain_ms_n2p20": big["plain_ms"],
-        "bound_ms_n2p20": big["bound_ms"]}, {
+        "bound_ms_n2p20": big["bound_ms"],
+        "launches_edge": edge["launches"],
+        "launches_per_choose_edge": {
+            j: edge["per_request"][f"{j}_choose"] for j in EDGE_JOBS},
+        "launches_per_predict_edge": {
+            j: edge["per_request"][f"{j}_predict"] for j in EDGE_JOBS}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -2195,6 +2604,11 @@ def main():
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
                  "float32, given h0"}]}), flush=True)
     print(smi, flush=True)
+    if not edge["ratio_ok"]:
+        print(f"chip_smoke: edge: socket requests/s are {edge['ratio']:.4f}x "
+              "in process in the median pair; the gate is >= 0.5",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -67,6 +67,20 @@ def tree_map(fn: Callable, params):
     return fn(params)
 
 
+def row_dot(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum over j of A[..., j] * w[:, j], added in j order: A [m, k] or
+    [F, m, k], w [F, k] -> [F, m].
+
+    Elementwise products and adds, not a matrix product: BLAS picks its
+    kernel, and so its summation order, by the number of rows, and a
+    serving lane predicts a row inside batches of any size.  Here a row's
+    value is the same bits in every batch."""
+    acc = A[..., 0] * w[:, None, 0]
+    for j in range(1, A.shape[-1]):
+        acc = acc + A[..., j] * w[:, None, j]
+    return acc
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host copy of a (possibly device) tensor as float64 numpy."""
     return t.detach().cpu().numpy().astype(np.float64)

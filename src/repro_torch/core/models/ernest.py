@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.models.api import ModelSpec, register_model
+from repro_torch.core.models.api import ModelSpec, register_model, row_dot
 
 
 class ErnestParams(NamedTuple):
@@ -49,8 +49,9 @@ def ernest_fit(X, y, W, iters: int = 400) -> ErnestParams:
 
 
 def ernest_predict(p: ErnestParams, X) -> torch.Tensor:
-    """X [m, d] or [F, m, d] -> [F, m]."""
-    return (_basis(X) @ p.theta[..., None])[..., 0] * p.scale[:, None]
+    """X [m, d] or [F, m, d] -> [F, m]; a row's value does not depend on
+    the other rows (``row_dot``)."""
+    return row_dot(_basis(X), p.theta) * p.scale[:, None]
 
 
 register_model(ModelSpec(

@@ -5,7 +5,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.models.api import ModelSpec, register_model
+from repro_torch.core.models.api import ModelSpec, register_model, row_dot
 
 
 class RidgeParams(NamedTuple):
@@ -38,8 +38,9 @@ def ridge_fit(X, y, W, lam=1e-4) -> RidgeParams:
 
 
 def ridge_predict(p: RidgeParams, X) -> torch.Tensor:
-    """X [m, d] or [F, m, d] -> [F, m]."""
-    return (_design(X, p.mu, p.sd) @ p.beta[..., None])[..., 0]
+    """X [m, d] or [F, m, d] -> [F, m]; a row's value does not depend on
+    the other rows (``row_dot``)."""
+    return row_dot(_design(X, p.mu, p.sd), p.beta)
 
 
 register_model(ModelSpec(

@@ -15,12 +15,15 @@ A CUDA tensor always launches the hand-written kernel
 (``csrc/gbm_predict.cu``) with the launch ``plan`` makes; a CPU tensor uses
 ``gbm_predict_plain``.  There is no fallback from one to the other.
 ``LAUNCHES`` counts kernel launches, so that a run can show that its main
-path went through the kernel.
+path went through the kernel.  The serving lanes call the wrapper from
+executor threads, several at once: the library's setup and the counter
+are taken under ``_LOCK``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -192,15 +195,32 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_LOCK = threading.Lock()
+_FN = None                 # the launch entry point, its types set
+
+
 def _lib():
-    from repro_torch.kernels.build import load
-    lib = load("gbm_predict")
-    fn = lib.gbm_predict_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
-    return fn
+    """The library's launch function, typed once: a thread never sees it
+    before its ``argtypes`` are set."""
+    global _FN
+    if _FN is not None:             # set only once typed: no lock needed
+        return _FN
+    with _LOCK:
+        if _FN is None:
+            from repro_torch.kernels.build import load
+            f = load("gbm_predict").gbm_predict_launch
+            f.restype = ctypes.c_int
+            f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
+                + [ctypes.c_void_p]
+            _FN = f
+        return _FN
+
+
+def _count_launch() -> None:
+    """One more launch on ``LAUNCHES``, atomic across threads."""
+    global LAUNCHES
+    with _LOCK:
+        LAUNCHES += 1
 
 
 def gbm_predict(X, feat, thr, leaf, f0, y_scale=1.0) -> torch.Tensor:
@@ -228,7 +248,6 @@ def _index(device: torch.device) -> int:
 def _launch(X, feat, thr, leaf, f0, y_scale, out, p: dict) -> None:
     """One launch of the kernel under plan ``p`` on the current stream,
     on tensors ``gbm_predict`` has checked; raises if it is refused."""
-    global LAUNCHES
     n, d = X.shape
     T, n_int = feat.shape
     depth = (n_int + 1).bit_length() - 1
@@ -241,4 +260,4 @@ def _launch(X, feat, thr, leaf, f0, y_scale, out, p: dict) -> None:
     if rc != 0:
         raise RuntimeError(f"gbm_predict kernel failed to launch: CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    _count_launch()

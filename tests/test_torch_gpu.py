@@ -5,8 +5,10 @@ flash-attention and flash-decode kernels against their plain versions, and
 a small LM served through them; the WKV6 kernel against both of its plain
 versions, and a small RWKV6 model served through it; the selective-scan
 kernel against its plain version, and a small jamba (mamba, attention and
-MoE layers) served through it and the attention kernels.  They skip
-without a card.  This file imports no JAX, so it also runs where only
+MoE layers) served through it and the attention kernels; the hub's
+public surface on the card (a row predicted alone against inside batches
+for every model kind, the lanes' answers against the inline ones with
+their GBM launches counted, the fit sidecar).  They skip without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -543,3 +545,115 @@ def test_small_jamba_model_serves_through_the_kernels(cuda_device):
     for a, b in steps:
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-4)
+
+
+# ------------------------------------------------- the hub's public surface
+
+MODEL_KINDS = ("ernest", "gbm", "bom", "ogb", "linreg")
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+def test_one_row_predicts_the_bits_of_a_batch(cuda_device, kind):
+    """The predict lanes answer a row from inside a batch of any size; the
+    answer must be the row's own bits, the same as predicted alone."""
+    from repro_torch.core.models.api import FittedModel, get_model
+    d = W.generate_job_data("grep")
+    v = d.machine_view("c5.xlarge")
+    fm = FittedModel(get_model(kind), v.X, v.y, device=cuda_device)
+    rows = d.X[np.random.default_rng(0).integers(0, len(d), 256)]
+    full = fm.predict(rows).astype(np.float32).view(np.int32)
+    for n in (1, 2, 7, 33, 64, 255):
+        part = fm.predict(rows[:n]).astype(np.float32).view(np.int32)
+        np.testing.assert_array_equal(part, full[:n], err_msg=f"n={n}")
+    for i in range(0, 256, 37):
+        one = fm.predict(rows[i:i + 1]).astype(np.float32).view(np.int32)
+        np.testing.assert_array_equal(one, full[i:i + 1], err_msg=f"row {i}")
+
+
+@pytest.fixture(scope="module")
+def card_gateway():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    from repro_torch.serve.edge import _demo_gateway, warm
+    gw = _demo_gateway(("grep", "sort"), device="cuda")
+    warm(gw)
+    return gw
+
+
+def _lane_requests(n=96, seed=3):
+    from repro_torch.api import ChooseRequest, PredictRequest
+    rng = np.random.default_rng(seed)
+    out = []
+    for job in ("grep", "sort"):
+        d = W.generate_job_data(job)
+        for i in rng.integers(0, len(d), n // 2):
+            row = tuple(float(v) for v in d.X[i])
+            out.append(PredictRequest(job, str(d.machine_type[i]), (row,)))
+            out.append(ChooseRequest(job, row[1:],
+                                     t_max=float(d.y[i] * 2.0)))
+    return out
+
+
+@pytest.mark.parametrize("timeout_s", [None, 60.0])
+def test_lanes_answer_the_inline_bytes_on_the_card(card_gateway, timeout_s):
+    """Coalesced predicts and chooses on the card encode to the bytes of
+    the same request served alone; with ``timeout_s`` the lanes dispatch
+    from executor threads, several lanes at once, and every GBM dispatch
+    is counted: a grep predict launches the kernel once, a grep choose
+    once per machine type (all three select gbm), sort (ernest) never."""
+    import asyncio
+
+    from repro_torch.api import AsyncHubGateway, encode
+    gw = card_gateway
+    reqs = _lane_requests()
+    grep = gw.hub.get("grep")
+    gbm_machines = [m for m in grep.store.data.present_machines()
+                    if grep.predictor_for(m).selected == "gbm"]
+
+    async def drive():
+        async with AsyncHubGateway(gw, max_batch=64,
+                                   timeout_s=timeout_s) as agw:
+            before = K.LAUNCHES
+            got = await asyncio.gather(*[agw.handle_async(q) for q in reqs])
+            torch.cuda.synchronize()
+            return got, K.LAUNCHES - before, dict(agw.lane_stats)
+
+    got, launched, stats = asyncio.run(drive())
+    assert all(r.ok for r in got)
+    want = sum(s.batches for name, s in stats.items()
+               if name.startswith("grep@")
+               and name.split("@")[1] in gbm_machines) \
+        + stats["grep"].batches * len(gbm_machines)
+    assert launched == want
+    assert any(s.requests > s.batches for s in stats.values())
+    for q, r in zip(reqs, got):
+        assert encode(r) == encode(gw.handle(q))
+
+
+def test_fit_sidecar_round_trip_on_the_card(cuda_device, tmp_path):
+    """save_fits on the card's fitted repo, load_fits into a fresh repo on
+    cuda: no refit, and predictions with the fitted ones' bits."""
+    from repro_torch.core import JobRepo, RuntimeDataStore
+    d = W.generate_job_data("grep")
+    kw = dict(pad_rows=True, max_cv_folds=15, device="cuda")
+    repo = JobRepo("grep", "grep", d.schema,
+                   RuntimeDataStore(d, seed=0, device="cuda"),
+                   predictor_kw=kw)
+    machines = d.present_machines()
+    fitted = {m: repo.predictor_for(m) for m in machines}
+    path = str(tmp_path / "grep.fits.npz")
+    assert repo.save_fits(path) == len(machines)
+    fresh = JobRepo("grep", "grep", d.schema,
+                    RuntimeDataStore(d, seed=0, device="cuda"),
+                    predictor_kw=kw)
+    engine.cache_clear()
+    assert fresh.load_fits(path) == len(machines)
+    for m in machines:
+        got = fresh.predictor_for(m)
+        assert got.selected == fitted[m].selected
+        assert (got.mu, got.sigma) == (fitted[m].mu, fitted[m].sigma)
+        a = got.predict(d.X).astype(np.float32).view(np.int32)
+        b = fitted[m].predict(d.X).astype(np.float32).view(np.int32)
+        np.testing.assert_array_equal(a, b)
+    stats = engine.cache_stats()
+    assert stats["fit"] == 0 and stats["cv"] == 0, stats

@@ -134,3 +134,50 @@ def test_wrapper_checks_what_the_kernel_does_not_take(bad):
         leaf = torch.zeros(4, n_int + 1)
     with pytest.raises((ValueError, TypeError)):
         K._check(X, feat, thr, leaf)
+
+
+def test_wrapper_bookkeeping_is_safe_under_threads(monkeypatch):
+    """The serving lanes call the wrapper from executor threads at once:
+    the library is loaded and typed once, no thread sees it untyped, and
+    no launch is lost from ``LAUNCHES``."""
+    import sys
+    import threading
+    import time
+    import types
+
+    from repro_torch.kernels import build
+    fn = types.SimpleNamespace(argtypes=None, restype=None)
+    loads = []
+
+    def slow_load(name):
+        loads.append(name)
+        time.sleep(0.01)                  # widen the window for a race
+        return types.SimpleNamespace(gbm_predict_launch=fn)
+
+    monkeypatch.setattr(build, "load", slow_load)
+    monkeypatch.setattr(K, "_FN", None)
+    monkeypatch.setattr(K, "LAUNCHES", 0)
+    seen = []
+    start = threading.Barrier(8)
+
+    def worker():
+        start.wait()
+        f = K._lib()
+        seen.append(f is fn and f.argtypes is not None
+                    and f.restype is not None)
+        for _ in range(20000):
+            K._count_launch()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)           # switch threads as often as can be
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert loads == ["gbm_predict"]
+    assert seen == [True] * 8
+    assert K.LAUNCHES == 8 * 20000

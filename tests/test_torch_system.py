@@ -1,8 +1,9 @@
 """The port's slice as a whole against the JAX package: the paper's loop
 (publish on a hub, fit one predictor per machine type, choose clusters for
 a backlog of contexts, contribute a run back) on sort and grep, and a check
-that the port runs that loop, and the LM serving driver, without loading
-JAX or the JAX package.
+that the port runs that loop, its gateway, lanes, fit sidecars and load
+generator, and the LM serving driver, without loading JAX or the JAX
+package.
 """
 import os
 import subprocess
@@ -213,6 +214,19 @@ PURITY = textwrap.dedent("""
     rep = repo.contribute(RuntimeData(
         repo.schema, np.asarray([out[0].machine_type]),
         np.asarray([[out[0].scale_out, 18.0, 0.02]]), np.asarray([300.0])))
+    import asyncio, os, tempfile
+    from repro_torch.api import AsyncHubGateway, PredictRequest, encode
+    from repro_torch.serve import edge, loadgen
+    gw = hub.gateway(prices, (2, 4, 8))
+    req = PredictRequest("grep", "m5.xlarge", ((4.0, 18.0, 0.02),))
+    async def lanes():
+        async with AsyncHubGateway(gw) as agw:
+            return await agw.predict(req)
+    assert encode(asyncio.run(lanes())) == encode(gw.predict(req))
+    assert hub.nearest_job("grep") is None
+    path = os.path.join(tempfile.mkdtemp(), "grep.fits.npz")
+    assert repo.save_fits(path) == 1 and repo.load_fits(path) == 1
+    assert len(loadgen.build_workload(8, jobs=("grep",))) == 8
     from repro_torch.launch import serve
     toks = serve.run("gemma3-1b", 2, 20, 4, device="cpu")
     assert tuple(toks.shape) == (2, 4)
