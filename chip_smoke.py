@@ -26,20 +26,24 @@ Phases:
   loop     the quickstart: choose for grep, check the emulator, contribute
   parity   sort and grep fitted on the CPU, carried to the card, predictions
            compared
-  edge     this slice's main path: the edge's demo gateway (grep and
+  edge     slice 8's main path: the edge's demo gateway (grep and
            sort, fitted on the card before any timed window) served by
            serve_edge on a localhost socket; the seeded 1024-request
            workload played by run_loadgen at 64 connections in the
            edge's own event loop, as the JAX package's edge bench plays
-           it, in 3 interleaved socket / in-process pairs, each timed pass
-           on a fully collected heap; requests/s of both, their ratio,
-           client p50/p95/p99 ms, each lane's mean batch, gbm_predict
-           launches (in all, and per inline choose and predict); fails
-           unless errors are 0, every HTTP body is the in-process
-           envelope's bytes, the predict-lane mean batch is > 1 and the
-           GBM kernel was launched, and (at the end of the run, after the
-           later phases) unless socket requests/s are >= 0.5x in process
-           in the median pair
+           it, in 3 interleaved triples of a socket pass, a bare-TCP pass
+           (the same request and response bytes over the same loop and
+           connections, nothing else: the host's TCP cost) and an
+           in-process pass, each timed pass on a fully collected heap;
+           requests/s of each, the three times a request, client
+           p50/p95/p99 ms, each lane's mean batch, gbm_predict launches
+           (in all, and per inline choose and predict); fails unless
+           errors are 0, every HTTP body is the in-process envelope's
+           bytes, the predict-lane mean batch is > 1 and the GBM kernel
+           was launched, and (at the end of the run, after the later
+           phases) unless t_socket - t_tcp <= 2 t_inproc in the median
+           triple and a control (the socket pass through an edge that
+           busy-waits 2 t_inproc a request) fails that gate
   sidecar  save_fits of the edge hub's card fits, load_fits into fresh
            repos on cuda: no refit, predictions bit for bit
   profile  device busy time and launches, in one torch.profiler session
@@ -99,10 +103,19 @@ Phases:
                 prompt 256, 8 decode steps: card in float32 and in bf16
                 vs CPU (float32, plain) logits, greedy tokens and MoE
                 routing
+  eval     the evaluation plane on the card: run_replay at the golden's
+           config cut to its grep job (2 users, 3 contributions each), the
+           final MAPE per model held to tests/goldens/replay_mini.json
+           (linear models 1e-5 relative, models with trees 2e-3), run again
+           byte for byte; run_spot_market (grep, sort, 8 queries: adjusted
+           beats naive) and run_cold_start (grep, sort, 2 users: borrowed
+           beats the global mean, transfer_source stamped); wall time,
+           gbm_predict launches and engine fits per checkpoint and part
 
-Five main paths: the phases fit, serve and loop (the paper's loop,
+Six main paths: the phases fit, serve and loop (the paper's loop,
 through the GBM kernel), edge (the hub's public surface over a socket,
-through the GBM kernel), lm_serve (gemma3-1b serving, through the two
+through the GBM kernel), eval (the evaluation plane, through the GBM
+kernel), lm_serve (gemma3-1b serving, through the two
 attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
 kernel) and jamba_serve (jamba-1.5-large serving, through the scan and
 the attention kernels).  Each path's kernel launch counts are set to 0
@@ -112,6 +125,7 @@ line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
+import asyncio
 import gc
 import json
 import math
@@ -640,7 +654,12 @@ EDGE_JOBS = ("grep", "sort")
 EDGE_REQUESTS = 1024
 EDGE_CONNECTIONS = 64
 EDGE_TICK_S = 0.004           # the edge bench's tick (benchmarks/run.py)
-EDGE_PAIRS = 3
+EDGE_TRIPLES = 3
+# the HTTP layer's budget: over the socket, a request may take at most
+# this many in-process request times more than the host's bare TCP
+# exchange of the same bytes takes (the edge bench's 0.5x bound where a
+# TCP exchange costs nothing)
+EDGE_BUDGET = 2.0
 
 
 def edge_requests():
@@ -702,12 +721,12 @@ async def edge_socket_pass(gw):
 
 
 async def edge_capture(gw, connections=8):
-    """Every HTTP response body of the workload, by index."""
+    """Every HTTP response's status and body of the workload, by index."""
     import asyncio
     from repro_torch.serve.edge import serve_edge
     from repro_torch.serve.loadgen import _request, build_workload
     workload = build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)
-    out = [b""] * len(workload)
+    out = [(0, b"")] * len(workload)
     app, server = await serve_edge(gw, tick_s=EDGE_TICK_S)
 
     async def worker(c):
@@ -716,8 +735,7 @@ async def edge_capture(gw, connections=8):
         try:
             for k in range(c, len(workload), connections):
                 path, body = workload[k]
-                _, out[k] = await _request(reader, writer, "POST", path,
-                                           body)
+                out[k] = await _request(reader, writer, "POST", path, body)
         finally:
             writer.close()
             try:
@@ -730,6 +748,129 @@ async def edge_capture(gw, connections=8):
     finally:
         await server.stop()
     return out
+
+
+class _Answers(asyncio.Protocol):
+    """The bare-TCP pass's server connection: each request's bytes, once
+    all have arrived, are answered with the edge's response bytes for
+    them, looked up whole (no HTTP parsing, codec, gateway or lanes)."""
+
+    def __init__(self, table):
+        self.table = table
+        self.buf = b""
+        self.transport = None
+
+    def connection_made(self, transport):
+        self.transport = transport
+
+    def data_received(self, data):
+        self.buf = self.buf + data if self.buf else data
+        out = self.table.get(self.buf)
+        if out is not None:
+            self.buf = b""
+            self.transport.write(out)
+
+    def connection_lost(self, exc):
+        self.transport = None
+
+
+class _Replay(asyncio.BufferedProtocol):
+    """The bare-TCP pass's client connection: writes a request's bytes,
+    reads until its response's length in bytes has arrived, then writes
+    the next (closed loop, as the load generator plays it, reading into
+    one buffer shared by the connections as the load generator does)."""
+
+    def __init__(self, items, done, rbuf):
+        self.items, self.done, self.rbuf = items, done, rbuf
+        self.k = self.got = 0
+        self.transport = None
+
+    def connection_made(self, transport):
+        self.transport = transport
+        transport.write(self.items[0][0])
+
+    def get_buffer(self, sizehint):
+        return self.rbuf
+
+    def buffer_updated(self, nbytes):
+        self.got += nbytes
+        if self.got < self.items[self.k][1]:
+            return
+        self.got = 0
+        self.k += 1
+        if self.k == len(self.items):
+            self.transport.close()
+        else:
+            self.transport.write(self.items[self.k][0])
+
+    def connection_lost(self, exc):
+        if self.done.done():
+            return
+        if self.k == len(self.items):
+            self.done.set_result(None)
+        else:
+            self.done.set_exception(exc or ConnectionResetError(
+                f"bare TCP: closed after {self.k} of {len(self.items)}"))
+
+
+async def edge_tcp_pass(wire, table):
+    """The workload's bytes exchanged over the host's TCP loopback alone:
+    ``wire`` holds (request bytes as the load generator sends them,
+    response bytes as the edge answers them) by workload index, played
+    closed-loop on EDGE_CONNECTIONS keep-alive connections in this event
+    loop as the load generator shares them out; ``table`` maps request
+    to response bytes.  Returns the window in seconds."""
+    loop = asyncio.get_running_loop()
+    server = await loop.create_server(lambda: _Answers(table),
+                                      "127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    shares = [[(q, len(r)) for q, r in wire[c::EDGE_CONNECTIONS]]
+              for c in range(EDGE_CONNECTIONS)]
+    rbuf = memoryview(bytearray(1 << 16))
+
+    async def worker(items):
+        done = loop.create_future()
+        transport, _ = await loop.create_connection(
+            lambda: _Replay(items, done, rbuf), "127.0.0.1", port)
+        try:
+            await done
+        finally:
+            transport.close()
+
+    try:
+        t0 = time.monotonic()
+        await asyncio.gather(*(worker(s) for s in shares if s))
+        return time.monotonic() - t0
+    finally:
+        server.close()
+        await server.wait_closed()
+
+
+async def edge_busy_socket_pass(gw, busy_s):
+    """The gate's control: the socket pass through an edge whose app
+    busy-waits ``busy_s`` on the loop thread before answering each
+    request (an HTTP layer that costs that much more a request); its
+    LoadReport."""
+    from repro_torch.api import AsyncHubGateway
+    from repro_torch.serve.edge import EdgeServer, HubEdgeApp
+    from repro_torch.serve.loadgen import build_workload, run_loadgen
+
+    class BusyApp(HubEdgeApp):
+        async def respond(self, method, path, read_body):
+            end = time.perf_counter() + busy_s
+            while time.perf_counter() < end:
+                pass
+            return await super().respond(method, path, read_body)
+
+    workload = build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)
+    app = BusyApp(AsyncHubGateway(gw, max_batch=256, tick_s=EDGE_TICK_S))
+    server = await EdgeServer(app).start()
+    try:
+        return await run_loadgen(server.host, server.port,
+                                 connections=EDGE_CONNECTIONS,
+                                 workload=workload)
+    finally:
+        await server.stop()
 
 
 def edge_launches_per_request(gw):
@@ -769,67 +910,111 @@ def edge_phase(gw, warm_s, n_predictors):
     localhost socket through serve_edge (HubEdgeApp, AsyncHubGateway's
     lanes, HubGateway, ConfigurationService / C3OPredictor, the engine,
     the GBM kernel) by run_loadgen in the edge's own event loop, as the
-    JAX package's edge bench plays it: one warm pass of each path, then
-    EDGE_PAIRS interleaved socket / in-process pairs, each timed pass on
-    a fully collected heap.  Asserts no errors, every HTTP body the
-    in-process envelope's bytes, predict-lane mean batch > 1 in every
-    pair and gbm_predict launched during the pass.  Socket requests/s >=
-    0.5x in process, in the median pair, is returned as ``ratio_ok`` for
-    main to fail the run on after the later phases.  Returns the launch
-    counts too."""
-    import asyncio
+    JAX package's edge bench plays it: one warm pass of each path, every
+    response's bytes recorded, then EDGE_TRIPLES interleaved triples of
+    a socket pass, a bare-TCP pass (the same request and response bytes
+    exchanged on the same loop and connections, nothing else) and an
+    in-process pass, each timed pass on a fully collected heap; last a
+    control, the socket pass through an edge that busy-waits
+    EDGE_BUDGET in-process request times a request.  Asserts no errors,
+    every HTTP body the in-process envelope's bytes, predict-lane mean
+    batch > 1 in every socket pass and gbm_predict launched during the
+    passes.  Per-request times t (a pass's window over its requests):
+    the gate, t_socket - t_tcp <= EDGE_BUDGET * t_inproc in the median
+    triple, and that the control fails it, are returned as ``gate_ok``
+    and ``control_fails`` for main to fail the run on after the later
+    phases.  Returns the launch counts too."""
     from repro_torch.api import encode
     from repro_torch.kernels import gbm_predict as K
+    from repro_torch.serve.edge import http_response
+    from repro_torch.serve.loadgen import _head, build_workload
     t0 = time.perf_counter()
     reqs = edge_requests()
+    n = len(reqs)
+    workload = build_workload(EDGE_REQUESTS, jobs=EDGE_JOBS, seed=0)
 
     async def run():
         await edge_inproc_pass(gw, reqs)              # warm both paths
         await edge_socket_pass(gw)
-        pairs = []
-        for _ in range(EDGE_PAIRS):
+        http = await edge_capture(gw)
+        wire = [(_head("POST", path, len(body)) + body,
+                 http_response(status, payload, True))
+                for (path, body), (status, payload) in zip(workload, http)]
+        table = {}
+        for q, r in wire:
+            assert table.setdefault(q, r) == r, \
+                "edge: one request's bytes drew two different answers"
+        triples = []
+        for _ in range(EDGE_TRIPLES):
             before = K.LAUNCHES
             rep, full_s = await after_full_collection(
                 lambda: edge_socket_pass(gw))
             sync()
             launched = K.LAUNCHES - before
+            tcp_s, full_t = await after_full_collection(
+                lambda: edge_tcp_pass(wire, table))
             (out, dt, lanes), full_i = await after_full_collection(
                 lambda: edge_inproc_pass(gw, reqs))
-            pairs.append({"rep": rep, "out": out, "dt": dt, "lanes": lanes,
-                          "ratio": rep.rps * dt / len(reqs),
-                          "socket_launches": launched,
-                          "full_collections": [full_s, full_i]})
-        return pairs, await edge_capture(gw)
+            t_s, t_t, t_i = rep.wall_s / n, tcp_s / n, dt / n
+            triples.append({"rep": rep, "out": out, "dt": dt, "lanes": lanes,
+                            "t": (t_s, t_t, t_i),
+                            "over_budget": (t_s - t_t) / t_i,
+                            "socket_launches": launched,
+                            "full_collections": [full_s, full_t, full_i]})
+        med = sorted(triples, key=lambda p: p["over_budget"])[len(triples) // 2]
+        busy_s = EDGE_BUDGET * med["t"][2]
+        control, full_c = await after_full_collection(
+            lambda: edge_busy_socket_pass(gw, busy_s))
+        return triples, med, http, busy_s, control, full_c
 
     K.LAUNCHES = 0
-    pairs, http = asyncio.run(run())
+    triples, med, http, busy_s, control, full_c = asyncio.run(run())
     sync()
     launches = K.LAUNCHES
     per_request = edge_launches_per_request(gw)
-    ratios = [p["ratio"] for p in pairs]
-    med = sorted(pairs, key=lambda p: p["ratio"])[len(pairs) // 2]
     rep = med["rep"]
+    t_s, t_t, t_i = med["t"]
+    t_c = control.wall_s / n
+    control_reading = (t_c - t_t) / t_i
+    gate_ok = med["over_budget"] <= EDGE_BUDGET
+    control_fails = control_reading > EDGE_BUDGET
     expected = [encode(r).encode("ascii") for r in med["out"]]
-    identical = sum(a == b for a, b in zip(http, expected))
-    batches = [p["rep"].predict_mean_batch() for p in pairs]
-    errors = sum(p["rep"].errors for p in pairs)
-    ratio_ok = med["ratio"] >= 0.5
-    emit("edge", t0, jobs=list(EDGE_JOBS), requests=len(reqs),
+    identical = sum(a == b for (_, a), b in zip(http, expected))
+    batches = [p["rep"].predict_mean_batch() for p in triples]
+    errors = sum(p["rep"].errors for p in triples) + control.errors
+    us = 1e6
+    emit("edge", t0, jobs=list(EDGE_JOBS), requests=n,
          connections=EDGE_CONNECTIONS, tick_s=EDGE_TICK_S,
          warm_s=warm_s, predictors_warmed=n_predictors,
          load_generator="run_loadgen in the edge's event loop",
-         pairs=[{"socket_rps": p["rep"].rps,
-                 "inproc_rps": len(reqs) / p["dt"], "ratio": p["ratio"],
-                 "socket_launches": p["socket_launches"],
-                 "full_collections_socket_inproc": p["full_collections"]}
-                for p in pairs],
-         socket_rps=rep.rps, inproc_rps=len(reqs) / med["dt"],
-         socket_vs_inproc=med["ratio"], socket_vs_inproc_pairs=ratios,
-         socket_vs_inproc_gate="pass" if ratio_ok else "FAIL (< 0.5)",
+         triples=[{"socket_rps": p["rep"].rps, "inproc_rps": n / p["dt"],
+                   "tcp_rps": 1.0 / p["t"][1],
+                   "t_socket_us": p["t"][0] * us, "t_tcp_us": p["t"][1] * us,
+                   "t_inproc_us": p["t"][2] * us,
+                   "socket_minus_tcp_over_inproc": p["over_budget"],
+                   "socket_vs_inproc": p["t"][2] / p["t"][0],
+                   "socket_launches": p["socket_launches"],
+                   "full_collections_socket_tcp_inproc":
+                       p["full_collections"]}
+                  for p in triples],
+         t_socket_us=t_s * us, t_tcp_us=t_t * us, t_inproc_us=t_i * us,
+         gate="t_socket - t_tcp <= %g * t_inproc, median triple"
+              % EDGE_BUDGET,
+         socket_minus_tcp_over_inproc=med["over_budget"],
+         gate_result="pass" if gate_ok else "FAIL",
+         control={"busy_us_per_request": busy_s * us,
+                  "t_socket_us": t_c * us, "socket_rps": control.rps,
+                  "socket_minus_tcp_over_inproc": control_reading,
+                  "full_collections": full_c,
+                  "result": "fails the gate (as it must)" if control_fails
+                  else "PASSES the gate: the gate is void"},
+         socket_rps=rep.rps, inproc_rps=n / med["dt"],
+         socket_vs_inproc=t_i / t_s,
+         socket_vs_inproc_triples=[p["t"][2] / p["t"][0] for p in triples],
          p50_ms=rep.p50_ms, p95_ms=rep.p95_ms, p99_ms=rep.p99_ms,
          errors=errors, op_counts=rep.op_counts,
          predict_mean_batch=batches,
-         identical=f"{identical}/{len(reqs)}",
+         identical=f"{identical}/{n}",
          socket_lanes={ln.lane: {"requests": ln.requests,
                                  "batches": ln.batches,
                                  "mean_batch": ln.mean_batch}
@@ -840,12 +1025,14 @@ def edge_phase(gw, warm_s, n_predictors):
          gbm_predict_launches=launches,
          gbm_predict_launches_per_inline_request=per_request)
     assert errors == 0, f"edge: {errors} error envelopes"
-    assert identical == len(reqs), \
-        f"edge: {len(reqs) - identical} HTTP bodies differ from in process"
+    assert identical == n, \
+        f"edge: {n - identical} HTTP bodies differ from in process"
+    assert all(st == 200 for st, _ in http), "edge: a non-200 answer"
     assert min(batches) > 1.0, f"edge: predict-lane mean batch {batches}"
     assert launches > 0, "edge: the GBM kernel was not launched"
     return {"launches": launches, "per_request": per_request,
-            "ratio": med["ratio"], "ratio_ok": ratio_ok}
+            "over_budget": med["over_budget"], "gate_ok": gate_ok,
+            "control": control_reading, "control_fails": control_fails}
 
 
 def transfer_check(gw):
@@ -931,6 +1118,129 @@ def sidecar_phase(gw):
             assert refits["fit"] == 0 and refits["cv"] == 0, refits
             assert same == saved, f"sidecar: {job} predictions differ"
     emit("sidecar", t0, **out)
+
+
+# -------------------------------------------------------- the eval plane
+
+# tests/test_eval_replay.py's MINI_CFG, the config that
+# tests/goldens/replay_mini.json pins (the JAX package's final MAPE per job
+# and model, 6 significant digits), cut to its grep job: a run of both
+# jobs took 142 s on the H100 (11.8 s a checkpoint, launch-bound fits),
+# and the phase runs it twice.  A job's records depend on that job alone.
+EVAL_REPLAY = {"jobs": ("grep",), "n_users": 2, "seed": 0,
+               "chunks_per_user": 3}
+EVAL_GOLDEN = os.path.join(ROOT, "tests", "goldens", "replay_mini.json")
+# relative tolerances against the golden: the linear models to float32
+# rounding; models with trees to 2e-3 (GBM fits may part at a late near-tie
+# split between frameworks and devices: ROADMAP.md, R3)
+EVAL_EXACT_REL = 1e-5
+EVAL_TREE_REL = 2e-3
+EVAL_TREES = ("gbm", "ogb", "bom")
+EVAL_SPOT = {"jobs": ("grep", "sort"), "n_queries": 8}
+EVAL_COLD = {"jobs": ("grep", "sort"), "n_users": 2}
+
+
+def eval_tolerance(model, selected_counts):
+    """The golden's tolerance for one model's final MAPE (c3o takes the
+    trees' where a final checkpoint selected a tree model)."""
+    if model in EVAL_TREES or (model == "c3o" and any(
+            m in EVAL_TREES for m in selected_counts)):
+        return EVAL_TREE_REL
+    return EVAL_EXACT_REL
+
+
+def eval_phase():
+    """Slice 9's main path: the evaluation plane on the card through the
+    port's stores, repos, gateways and the GBM kernel.  run_replay at the
+    golden's config, each job's final MAPE per model held to the golden;
+    a second run_replay of it, byte-identical; run_spot_market (adjusted
+    must beat naive on each job) and run_cold_start on two jobs (borrowed
+    must beat the global mean on both, transfer_source stamped).  Prints
+    each part's wall time, gbm_predict launches and the engine's fit, CV,
+    predict and validation dispatches.  Returns the launches of the
+    phase."""
+    from repro_torch.core import engine
+    from repro_torch.eval import replay as R
+    from repro_torch.kernels import gbm_predict as K
+    t0 = time.perf_counter()
+    with open(EVAL_GOLDEN) as f:
+        golden = json.load(f)
+    parts = {}
+
+    def part(name, fn):
+        engine.cache_clear()
+        before = K.LAUNCHES
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        parts[name] = {"wall_s": time.perf_counter() - t,
+                       "gbm_predict_launches": K.LAUNCHES - before,
+                       "dispatches": engine.cache_stats()}
+        return res
+
+    K.LAUNCHES = 0
+    cfg = R.ReplayConfig(device="cuda", **EVAL_REPLAY)
+    first = part("replay", lambda: R.run_replay(cfg))
+    again = part("replay_rerun", lambda: R.run_replay(cfg))
+    spot = part("spot_market", lambda: R.run_spot_market(
+        R.SpotMarketConfig(device="cuda", **EVAL_SPOT)))
+    cold = part("cold_start", lambda: R.run_cold_start(
+        R.ColdStartConfig(device="cuda", **EVAL_COLD)))
+    launches = K.LAUNCHES
+    checkpoints = len({(r["job"], r["held_out"], r["step"])
+                       for r in first.records})
+    rp = parts["replay"]
+    golden_rel = {}
+    for job in EVAL_REPLAY["jobs"]:
+        expected = golden[job]
+        s = first.summary[job]
+        for model, want in expected.items():
+            got = s["final_mape"][model]
+            golden_rel[f"{job}/{model}"] = {
+                "got": got, "golden": want,
+                "rel": abs(got - want) / abs(want),
+                "tol": eval_tolerance(model, s["selected_counts"])}
+    emit("eval", t0, replay=dict(EVAL_REPLAY), checkpoints=checkpoints,
+         wall_s_per_checkpoint=rp["wall_s"] / checkpoints,
+         gbm_predict_launches_per_checkpoint=(
+             rp["gbm_predict_launches"] / checkpoints),
+         fits_per_checkpoint=rp["dispatches"]["fit"] / checkpoints,
+         cv_per_checkpoint=rp["dispatches"]["cv"] / checkpoints,
+         parts=parts, fingerprint=first.fingerprint,
+         rerun_identical=again.tsv == first.tsv
+         and again.fingerprint == first.fingerprint,
+         contributions=f"{first.accepted}/{first.contributions} accepted",
+         summary={j: {"final_mape": s["final_mape"],
+                      "selected_counts": s["selected_counts"],
+                      "ok": s["ok"]} for j, s in first.summary.items()},
+         golden=golden_rel,
+         spot_market={j: {"adjusted": s["adjusted_cost"],
+                          "naive": s["naive_cost"], "savings": s["savings"],
+                          "diverged": f"{s['diverged']}/{s['queries']}",
+                          "ok": s["ok"]} for j, s in spot.summary.items()},
+         cold_start={j: {"borrowed": s["borrowed_final"],
+                         "mean": s["mean_final"],
+                         "beats_mean": s["beats_mean"],
+                         "sources": s["sources"]}
+                     for j, s in cold.summary.items()},
+         gbm_predict_launches=launches)
+    assert set(EVAL_REPLAY["jobs"]) == set(first.summary), first.summary
+    for key, g in golden_rel.items():
+        assert g["rel"] <= g["tol"], f"eval: {key} is off the golden: {g}"
+    assert again.tsv == first.tsv and again.fingerprint == first.fingerprint, \
+        "eval: the replay's rerun is not byte-identical"
+    assert set(spot.summary) == set(EVAL_SPOT["jobs"])
+    assert spot.ok, f"eval: adjusted does not beat naive: {spot.summary}"
+    assert set(cold.summary) == set(EVAL_COLD["jobs"])
+    for job, s in cold.summary.items():
+        assert s["beats_mean"], f"eval: {job}'s borrowed MAPE: {s}"
+        assert s["sources"] == [job], f"eval: {job}'s sources {s['sources']}"
+    assert all(r["source"] == r["job"] for r in cold.records
+               if r["model"] == "borrowed"), "eval: transfer_source unstamped"
+    assert launches > 0, "eval: the GBM kernel was not launched"
+    return {"launches": launches,
+            "per_part": {k: v["gbm_predict_launches"]
+                         for k, v in parts.items()}}
 
 
 # --------------------------------------------------------------- LM slice
@@ -2501,6 +2811,10 @@ def main():
     jamba_launches = jamba_serve_phase()
     jamba_parity_phase()
 
+    # ---- main path of slice 9: the eval plane (eval_phase sets the GBM
+    # count to 0 itself and reads it after)
+    evals = eval_phase()
+
     serve, big = times["serve_d3"], times["n2p20_d3"]
     fg, fl = lm_times["flash_global"], lm_times["flash_local"]
     dg, dl = lm_times["decode_global"], lm_times["decode_local"]
@@ -2524,6 +2838,8 @@ def main():
         "ms_n2p20": big["ms"], "plain_ms_n2p20": big["plain_ms"],
         "bound_ms_n2p20": big["bound_ms"],
         "launches_edge": edge["launches"],
+        "launches_eval": evals["launches"],
+        "launches_eval_by_part": evals["per_part"],
         "launches_per_choose_edge": {
             j: edge["per_request"][f"{j}_choose"] for j in EDGE_JOBS},
         "launches_per_predict_edge": {
@@ -2604,9 +2920,14 @@ def main():
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
                  "float32, given h0"}]}), flush=True)
     print(smi, flush=True)
-    if not edge["ratio_ok"]:
-        print(f"chip_smoke: edge: socket requests/s are {edge['ratio']:.4f}x "
-              "in process in the median pair; the gate is >= 0.5",
+    if not edge["gate_ok"]:
+        print(f"chip_smoke: edge: t_socket - t_tcp is "
+              f"{edge['over_budget']:.4f}x t_inproc in the median triple; "
+              f"the gate is <= {EDGE_BUDGET:g}", file=sys.stderr)
+        return 1
+    if not edge["control_fails"]:
+        print(f"chip_smoke: edge: the busy-wait control reads "
+              f"{edge['control']:.4f}x, inside the gate: the gate is void",
               file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,13 @@
 Each turn is a fresh process that imports ``chip_smoke`` and
 ``repro_torch`` from its tree, builds that tree's GBM kernel, warms the
 edge's demo gateway on the card and runs the edge phase ``--runs`` times
-(each: 3 interleaved socket / in-process pairs of the seeded 1024-request
-workload at 64 connections, gated on the median pair's ratio).  The
-turns go A, B, B, A, so drift over the call hits both trees alike.  It
-prints one JSON line a phase run (tree, pair ratios, requests/s, mean
-batch, p50/p99) and last a summary of each tree's median-pair ratios.
+(each: 3 interleaved socket / bare-TCP / in-process triples of the
+seeded 1024-request workload at 64 connections, gated on t_socket -
+t_tcp <= 2 t_inproc in the median triple).  The turns go A, B, B, A, so
+drift over the call hits both trees alike.  It prints one JSON line a
+phase run (tree, the gate's reading (t_socket - t_tcp) / t_inproc and
+the socket / in-process ratio of each triple, requests/s, mean batch,
+p50/p99) and last a summary of each tree's median-triple readings.
 Needs a CUDA card.
 """
 import json
@@ -53,18 +55,22 @@ def main():
     medians = {a: [], b: []}
     for tree in (a, b, b, a):
         for e in turn(tree, runs):
-            medians[tree].append(e["socket_vs_inproc"])
+            medians[tree].append(e["socket_minus_tcp_over_inproc"])
             print(json.dumps({
-                "tree": tree, "median_pair_ratio": e["socket_vs_inproc"],
-                "pair_ratios": e["socket_vs_inproc_pairs"],
-                "socket_rps": [p["socket_rps"] for p in e["pairs"]],
-                "inproc_rps": [p["inproc_rps"] for p in e["pairs"]],
+                "tree": tree,
+                "median_triple_gate": e["socket_minus_tcp_over_inproc"],
+                "triple_gates": [p["socket_minus_tcp_over_inproc"]
+                                 for p in e["triples"]],
+                "triple_ratios": e["socket_vs_inproc_triples"],
+                "socket_rps": [p["socket_rps"] for p in e["triples"]],
+                "tcp_rps": [p["tcp_rps"] for p in e["triples"]],
+                "inproc_rps": [p["inproc_rps"] for p in e["triples"]],
                 "predict_mean_batch": e["predict_mean_batch"],
                 "p50_ms": e["p50_ms"], "p99_ms": e["p99_ms"],
                 "identical": e["identical"], "errors": e["errors"]}),
                 flush=True)
     print(json.dumps({"summary": {
-        t: {"median_pair_ratios": r, "median": statistics.median(r)}
+        t: {"median_triple_gates": r, "median": statistics.median(r)}
         for t, r in medians.items()}}), flush=True)
     return 0
 

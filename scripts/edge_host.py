@@ -4,13 +4,15 @@
     python3 scripts/edge_host.py
 
 Plays chip_smoke.py's edge workload (1024 seeded requests, 64 keep-alive
-connections, run_loadgen in the edge's own event loop) three ways, each
+connections, run_loadgen in the edge's own event loop) four ways, each
 pass on a fully collected heap: over the socket through the demo
 gateway (``socket``), through the same gateway in process
-(``inproc``), and over the socket through an edge whose gateway answers
+(``inproc``), over the socket through an edge whose gateway answers
 every request at once with one fixed envelope (``transport``: the socket
 path alone, that is HTTP framing, the codec, the TCP loopback and the load
-generator).  For each it prints one JSON line: the time a request of 3
+generator), and chip_smoke.py's bare-TCP pass (``tcp``: the workload's
+request and response bytes exchanged over the loopback, nothing else).
+For each it prints one JSON line: the time a request of 3
 unprofiled passes (median; the load generator's window, or the in-process
 pass's) and the time a request the event loop spent blocked in its
 selector waiting for work (the lanes' ticks, data in flight) in those
@@ -31,6 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 SYSCALLS = (("send", "'send' of '_socket.socket'"),
             ("recv", "'recv' of '_socket.socket'"),
+            ("recv_into", "'recv_into' of '_socket.socket'"),
             ("epoll", "'poll' of 'select.epoll'"))
 
 
@@ -52,8 +55,8 @@ def main():
     import torch
     import chip_smoke as CS
     from repro_torch.api import PredictRequest
-    from repro_torch.serve.edge import EdgeServer, HubEdgeApp
-    from repro_torch.serve.loadgen import build_workload, run_loadgen
+    from repro_torch.serve.edge import EdgeServer, HubEdgeApp, http_response
+    from repro_torch.serve.loadgen import _head, build_workload, run_loadgen
     if not torch.cuda.is_available():
         print("edge_host: needs a CUDA card", file=sys.stderr)
         return 2
@@ -85,12 +88,23 @@ def main():
     async def inproc():
         return (await CS.edge_inproc_pass(gw, reqs))[1]
 
+    wire = table = None
+
+    async def tcp():
+        return await CS.edge_tcp_pass(wire, table)
+
     async def run():
+        nonlocal wire, table
         blocked = _watch_selector(asyncio.get_running_loop())
         for fn in (inproc, socket, transport):
             await fn()                                  # warm
+        http = await CS.edge_capture(gw)
+        wire = [(_head("POST", path, len(body)) + body,
+                 http_response(status, payload, True))
+                for (path, body), (status, payload) in zip(workload, http)]
+        table = dict(wire)
         for name, fn in (("socket", socket), ("inproc", inproc),
-                         ("transport", transport)):
+                         ("transport", transport), ("tcp", tcp)):
             walls, idle = [], []
             for _ in range(3):
                 gc.collect()

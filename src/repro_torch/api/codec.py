@@ -111,12 +111,16 @@ def _from_jsonable(v: Any) -> Any:
             return float(v["__float__"])        # "nan" / "inf" / "-inf"
         if "__type__" in v:
             cls = _TYPES[v["__type__"]]
-            kw = {k: _from_jsonable(x) for k, x in v.items()
-                  if k != "__type__"}
+            # JSON scalars (str, int, float, bool, None) decode as
+            # themselves: only objects and arrays recurse
+            kw = {k: _from_jsonable(x) if type(x) is dict
+                  or type(x) is list else x
+                  for k, x in v.items() if k != "__type__"}
             return cls(**kw)
         return {k: _from_jsonable(x) for k, x in v.items()}
     if t is list:
-        return tuple([_from_jsonable(x) for x in v])
+        return tuple([_from_jsonable(x) if type(x) is dict
+                      or type(x) is list else x for x in v])
     return v
 
 

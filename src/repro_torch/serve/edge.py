@@ -491,12 +491,7 @@ class _Connection(asyncio.BufferedProtocol):
         if self.transport is None:
             return                         # the client went away
         keep = keep_alive and not self.app.draining
-        self.transport.write(
-            f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}\r\n"
-            "content-type: application/json\r\n"
-            f"content-length: {len(payload)}\r\n"
-            f"connection: {'keep-alive' if keep else 'close'}\r\n\r\n"
-            .encode("ascii") + payload)
+        self.transport.write(http_response(status, payload, keep))
         self.busy = False
         if not keep or length - consumed > self.server.DRAIN_MAX:
             self.close()
@@ -504,6 +499,16 @@ class _Connection(asyncio.BufferedProtocol):
         # the body of an over-cap request is still in the buffer
         self.skip = length if overflow else 0
         self._advance()
+
+
+def http_response(status: int, payload: bytes, keep_alive: bool) -> bytes:
+    """The bytes ``EdgeServer`` writes for one answer: status line,
+    headers and the encoded envelope."""
+    return (f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}\r\n"
+            "content-type: application/json\r\n"
+            f"content-length: {len(payload)}\r\n"
+            f"connection: {'keep-alive' if keep_alive else 'close'}\r\n\r\n"
+            .encode("ascii") + payload)
 
 
 def _refusals(max_head: int) -> Dict[str, bytes]:
@@ -516,10 +521,7 @@ def _refusals(max_head: int) -> Dict[str, bytes]:
                              "send content-length framed bodies"),
             ("length", 400, "unparseable content-length")):
         body = codec.encode(Response.failure(ERR_BAD_REQUEST, detail))
-        out[key] = (f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}\r\n"
-                    "content-type: application/json\r\n"
-                    f"content-length: {len(body)}\r\n"
-                    "connection: close\r\n\r\n" + body).encode("ascii")
+        out[key] = http_response(status, body.encode("ascii"), False)
     return out
 
 

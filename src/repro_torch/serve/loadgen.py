@@ -211,7 +211,8 @@ class _ClosedLoop(asyncio.BufferedProtocol):
             self.buf = buf
             return
         self.buf = buf[end:]
-        self.record(time.monotonic() - self.t0, int(buf.split(b" ", 2)[1]),
+        sp = buf.find(b" ")                 # status line: HTTP/1.1 NNN ...
+        self.record(time.monotonic() - self.t0, int(buf[sp + 1:sp + 4]),
                     self.items[self.k][0])
         self.k += 1
         self._next()
@@ -242,17 +243,16 @@ async def run_loadgen(host: str, port: int, *, connections: int = 64,
     the body) are laid out before the clock starts."""
     if workload is None:
         workload = build_workload(requests, jobs=jobs, seed=seed, mix=mix)
-    wire = [(path, _head("POST", path, len(body)) + body)
+    wire = [(path.rsplit("/", 1)[-1], _head("POST", path, len(body)) + body)
             for path, body in workload]
     shares = [wire[c::connections] for c in range(connections)]
     latencies: List[float] = []
     statuses: List[int] = []
     op_counts: Dict[str, int] = {}
 
-    def record(seconds: float, status: int, path: str) -> None:
+    def record(seconds: float, status: int, op: str) -> None:
         latencies.append(seconds)
         statuses.append(status)
-        op = path.rsplit("/", 1)[-1]
         op_counts[op] = op_counts.get(op, 0) + 1
 
     rbuf = memoryview(bytearray(1 << 16))

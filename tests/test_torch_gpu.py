@@ -8,7 +8,8 @@ kernel against its plain version, and a small jamba (mamba, attention and
 MoE layers) served through it and the attention kernels; the hub's
 public surface on the card (a row predicted alone against inside batches
 for every model kind, the lanes' answers against the inline ones with
-their GBM launches counted, the fit sidecar).  They skip without a card.  This file imports no JAX, so it also runs where only
+their GBM launches counted, the fit sidecar); a tiny collaborative
+replay on the card against the same replay on the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -657,3 +658,30 @@ def test_fit_sidecar_round_trip_on_the_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(a, b)
     stats = engine.cache_stats()
     assert stats["fit"] == 0 and stats["cv"] == 0, stats
+
+
+def test_tiny_replay_on_the_card_gives_the_cpu_ports_rows(cuda_device):
+    """The eval plane on the card: a tiny leave-one-user-out replay gives
+    the CPU port's trajectory rows and selections, MAPE and MAE within the
+    parity tolerances (linear models 1e-5 relative, rows with trees 2e-3),
+    through the GBM kernel (sgd's selections include gbm, whose c3o rows
+    predict through it)."""
+    from repro_torch.eval import replay as R
+    kw = dict(jobs=("sgd",), n_users=2, seed=0, chunks_per_user=2,
+              max_cv_folds=8)
+    cpu = R.run_replay(R.ReplayConfig(device="cpu", **kw))
+    before = K.LAUNCHES
+    card = R.run_replay(R.ReplayConfig(device="cuda", **kw))
+    assert K.LAUNCHES > before
+    keys = ("job", "held_out", "step", "store_rows", "rows_contributed",
+            "epoch", "machine", "model", "selected")
+    assert len(card.records) == len(cpu.records) > 0
+    assert (card.contributions, card.accepted) == \
+        (cpu.contributions, cpu.accepted)
+    trees = ("gbm", "ogb", "bom")
+    for a, b in zip(cpu.records, card.records):
+        assert tuple(a[k] for k in keys) == tuple(b[k] for k in keys)
+        tol = 2e-3 if a["model"] in trees or a["selected"] in trees \
+            else 1e-5
+        for col in ("mape", "mae"):
+            assert abs(b[col] - a[col]) <= tol * abs(a[col]), (a, b, col)

@@ -227,6 +227,9 @@ PURITY = textwrap.dedent("""
     path = os.path.join(tempfile.mkdtemp(), "grep.fits.npz")
     assert repo.save_fits(path) == 1 and repo.load_fits(path) == 1
     assert len(loadgen.build_workload(8, jobs=("grep",))) == 8
+    from repro_torch.eval import adversarial, replay
+    assert replay.ReplayConfig().device == "cuda"
+    assert adversarial.AdversarialConfig().device == "cuda"
     from repro_torch.launch import serve
     toks = serve.run("gemma3-1b", 2, 20, 4, device="cpu")
     assert tuple(toks.shape) == (2, 4)
@@ -263,6 +266,10 @@ def _imported_roots(path):
 def test_port_sources_and_chip_smoke_import_no_jax_or_reference():
     root = os.path.join(os.path.dirname(__file__), "..")
     paths = [os.path.join(root, "chip_smoke.py")]
+    scripts = os.path.join(root, "scripts")
+    paths += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+              if n.endswith(".py")]
+    assert os.path.join(scripts, "paper_figures.py") in paths
     for d, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(paths) > 20
