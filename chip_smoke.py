@@ -103,6 +103,31 @@ Phases:
                 prompt 256, 8 decode steps: card in float32 and in bf16
                 vs CPU (float32, plain) logits, greedy tokens and MoE
                 routing
+  train_kernel  the flash-attention backward (flash_bwd_delta, _dkdv, _dq)
+                vs flash_attention_bwd_plain on the forward kernel's o and
+                lse, and vs autograd of flash_attention_plain, in bfloat16
+                (held to a relative bound with two controls that must
+                exceed it: delta set to 0, dS rounded to fp8) and float32,
+                each repeated bit for bit; the forward's bytes with and
+                without its lse output; gemma3-1b's training microbatch
+                (B 2, S 4096, H 4 over 1, hd 256; global and window 512)
+                and edge cases (softcap, G 1/2/4/8, non-causal, ragged S,
+                S = 1, hd 64 and 128); ptxas per instantiation (no
+                spills); CUDA-event times, bounds and SDPA's backward
+  train    gemma3-1b at full width and depth through
+           repro_torch.launch.train.run: 4 steps of batch 8 x 4096 (remat
+           full, AdamW, 4 microbatches); step s, tokens/s, MFU, peak
+           memory, losses (finite, the last below the first), launches a
+           step (208 flash forwards, 104 of each backward launch), the
+           runtime-log line, read back into launch.autoconfig beside
+           simulated H100 records, and the analytic step time for the job
+  train_parity  one full-width period of gemma3-1b (6 layers), batch 2 x
+                1024, one AdamW step from the same float32 weights: card
+                float32 and bf16 vs CPU float32 (loss, grad norm, every
+                gradient leaf, parameters after the step), a control with
+                the backward's delta set to 0; crash-restart at full width
+                with 2 layers, the final loss against the uninterrupted
+                run's at rtol 1e-4
   eval     the evaluation plane on the card: run_replay at the golden's
            config cut to its grep job (2 users, 3 contributions each), the
            final MAPE per model held to tests/goldens/replay_mini.json
@@ -112,13 +137,14 @@ Phases:
            beats the global mean, transfer_source stamped); wall time,
            gbm_predict launches and engine fits per checkpoint and part
 
-Six main paths: the phases fit, serve and loop (the paper's loop,
+Seven main paths: the phases fit, serve and loop (the paper's loop,
 through the GBM kernel), edge (the hub's public surface over a socket,
 through the GBM kernel), eval (the evaluation plane, through the GBM
 kernel), lm_serve (gemma3-1b serving, through the two
 attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
-kernel) and jamba_serve (jamba-1.5-large serving, through the scan and
-the attention kernels).  Each path's kernel launch counts are set to 0
+kernel), jamba_serve (jamba-1.5-large serving, through the scan and
+the attention kernels) and train (gemma3-1b training, through the flash
+forward and the three backward launches).  Each path's kernel launch counts are set to 0
 just before it and read just after it.  Before the last line it prints the ``kernels``
 line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero.  Without a
@@ -1639,12 +1665,15 @@ def check_attention(flash_cases, decode_cases, seed=0):
 
 def _flash_instance(mangled):
     """The label of a mangled kernel name of flash_attention.cu, such as
-    'bf16 wgmma hd 128', or None for another function."""
-    m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", mangled)
+    'bf16 wgmma hd 128' (the serving instance) or 'bf16 wgmma hd 128 lse'
+    (training's, which also writes the log-sum-exp), or None for another
+    function."""
+    m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
     if m:
-        return f"bf16 wgmma hd {m.group(1)}"
-    m = re.search(r"flash_fwd_kernelIfLi(\d+)E", mangled)
-    return f"float32 simt hd {m.group(1)}" if m else None
+        return f"bf16 wgmma hd {m.group(1)}" + " lse" * (m.group(2) == "1")
+    m = re.search(r"flash_fwd_kernelIfLi(\d+)ELb([01])E", mangled)
+    return (f"float32 simt hd {m.group(1)}" + " lse" * (m.group(2) == "1")
+            if m else None)
 
 
 def ptxas_by_instance(log, label):
@@ -1692,7 +1721,7 @@ def flash_build_phase(build, so_path):
                             _flash_instance)
     for name, info in per.items():
         if name.startswith("bf16"):
-            cfg = FA.tile_config(int(name.split()[-1]))
+            cfg = FA.tile_config(int(name.split()[3]))
             info.update(BK=cfg["BK"], stages=cfg["NS"],
                         dynamic_smem_bytes=cfg["SMEM"])
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
@@ -1710,7 +1739,11 @@ def flash_build_phase(build, so_path):
         if name.startswith("bf16"):
             assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
                 (name, info)
-    assert sum(n.startswith("bf16") for n in per) == 3, per
+    # the serving instances and training's (with the lse output)
+    assert sum(n.startswith("bf16") and not n.endswith("lse")
+               for n in per) == 3, per
+    assert sum(n.startswith("bf16") and n.endswith("lse") for n in per) == 3, \
+        per
     emit("flash_build", t0, instances=per,
          sass_total={"HGMMA": sass.count("HGMMA"),
                      "UTMALDG": sass.count("UTMALDG")})
@@ -2743,6 +2776,521 @@ def jamba_parity_phase():
 
 # ------------------------------------------------------------------ main
 
+
+# --------------------------------------------------------- training slice
+
+# the flash backward against flash_attention_bwd_plain on the same inputs
+# (the forward kernel's o and lse) and against autograd of
+# flash_attention_plain: float32 sums over up to 4096 terms in another
+# order; bfloat16 (card tests: FLASH_BWD_BF16_REL in
+# tests/test_torch_gpu.py) the kernel rounds dq, dk and dv once to bf16,
+# 2**-9 relative.  PERF.md gives the readings (against the plain version
+# up to 4.6e-5, against autograd, whose O comes from its own float32
+# softmax and not the kernel's bf16-P one, up to 1.8e-3); the controls
+# (delta set to 0, dS rounded to fp8 e4m3 with a scale per row, 0.018 or
+# more) must exceed the limit
+FLASH_BWD_F32_REL = 1e-5
+FLASH_BWD_BF16_REL = 5e-3
+# gemma3-1b's training microbatch: batch 8 over grad_accum 4
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4096, 4
+TRAIN_MICRO_B = 2
+# train_parity: card against CPU after one AdamW step, one full-width
+# period of gemma3-1b (6 layers), batch 2, sequence 1024.  float32: 1e-3
+# relative on the loss, the grad norm, every gradient leaf and the
+# parameters after the step (where decided: AdamW's first step moves an
+# element by lr times its gradient's sign, so an element whose CPU
+# gradient is within twice the card's difference may flip).  bfloat16, on
+# the loss and the worst gradient leaf: the weights rounded to bf16
+# (2**-9) and every activation and gradient rounded on the way through 6
+# layers and back.  First set at 1e-1; the card read 1.3e-2 (layer 5's wq,
+# PERF.md), so the bound is 5e-2.  The control, float32 on the card with
+# the flash backward's delta set to 0, must exceed it (it read 9.4)
+TRAIN_F32_REL = 1e-3
+TRAIN_BF16_REL = 5e-2
+PARITY_TRAIN_B, PARITY_TRAIN_S = 2, 1024
+
+
+def _bwd_instance(mangled):
+    """A label of a mangled kernel name of flash_attention_bwd.cu, such as
+    'dkdv bf16 hd 256' or 'delta f32', else None."""
+    m = re.search(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m:
+        dt = "f32" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)} {dt} hd {m.group(3)}"
+    m = re.search(r"flash_bwd_delta_kernelI(f|13__nv_bfloat16)E", mangled)
+    return (f"delta {'f32' if m.group(1) == 'f' else 'bf16'}" if m
+            else None)
+
+
+def _tensors(seed, shapes, dtype):
+    import torch
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=LM_DEVICE).to(_tdtype(dtype))
+            for s in shapes]
+
+
+def _within(got, want, rel):
+    """||got - want|| <= rel ||want|| + 1e-6 sqrt(n): the absolute term
+    covers gradients that are zero up to rounding (at S = 1, P = 1 and
+    dP = delta, so dq and dk are float32 noise)."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm()) <= rel * float(w.norm()) \
+        + 1e-6 * w.numel() ** 0.5
+
+
+def _coarse_ds_bwd(q, k, v, do, lse, delta, kw, scale):
+    """A control for the bf16 check: (dq, dk) with dS rounded to fp8 e4m3
+    (4 significant bits), scaled per row to e4m3's largest value."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, hd = q.shape
+    _, ds, qg, _ = FA._probs_and_ds(q, k, v, do, lse, delta, kw["causal"],
+                                    kw["window"], kw["softcap"], scale)
+    amax = ds.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    ds = (ds / amax * 448.0).to(torch.float8_e4m3fn).float() * amax / 448.0
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg).to(k.dtype)
+    dq = (torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) * scale)
+    return dq.reshape(B, S, H, hd).to(q.dtype), dk
+
+
+def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
+                    seed):
+    """One backward case on the card: the forward's bytes with and without
+    its lse output; the lse against its plain version; the three backward
+    launches against ``flash_attention_bwd_plain`` on the same inputs and
+    against autograd of ``flash_attention_plain``, each repeated bit for
+    bit; in bf16 the controls.  Returns the readings."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v, do = _tensors(seed, ((B, S, H, hd), (B, S, KV, hd),
+                                  (B, S, KV, hd), (B, S, H, hd)), dtype)
+    plain_fwd = FA.flash_attention(q, k, v, **kw)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    sync()
+    assert torch.equal(plain_fwd, o), \
+        f"flash backward {label} {dtype}: the forward's bytes change with lse"
+    lse_err = float((lse - FA.flash_attention_lse_plain(q, k, **kw))
+                    .abs().max())
+    assert lse_err <= 1e-4, (label, dtype, lse_err)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    sync()
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(FA.flash_attention_plain(qa, ka, va, **kw),
+                               (qa, ka, va), do)
+    limit = FLASH_BWD_F32_REL if dtype == "float32" else FLASH_BWD_BF16_REL
+    r = {"lse_max_abs_err": lse_err}
+    for name, g, a, w, au in zip(("dq", "dk", "dv"), got, again, want, auto):
+        assert torch.equal(g, a), f"flash backward {label}: {name} repeats"
+        assert bool(g.float().isfinite().all()), (label, name)
+        # at S = 1 dq and dk are zero up to rounding: no relative reading
+        r[name] = {"rel": _rel_err(g, w) if S > 1 else None,
+                   "rel_autograd": _rel_err(g, au) if S > 1 else None,
+                   "max_abs_err": float((g.float() - w.float()).abs().max())}
+        for ref in (w, au):
+            assert _within(g, ref, limit), \
+                f"flash backward {label} {dtype} {name}: {r[name]} beyond " \
+                f"{limit}"
+    if dtype == "bfloat16" and S > 1:
+        scale = hd ** -0.5
+        delta = FA.flash_bwd_delta_plain(o, do)
+        zero = torch.zeros_like(delta)
+        ctl_dk, _ = FA.flash_bwd_dkdv_plain(q, k, v, do, lse, zero, **kw)
+        ctl_dq = FA.flash_bwd_dq_plain(q, k, v, do, lse, zero, **kw)
+        fp8_dq, fp8_dk = _coarse_ds_bwd(q, k, v, do, lse, delta, kw, scale)
+        r["control_delta_0"] = min(_rel_err(ctl_dq, want[0]),
+                                   _rel_err(ctl_dk, want[1]))
+        r["control_ds_fp8"] = min(_rel_err(fp8_dq, want[0]),
+                                  _rel_err(fp8_dk, want[1]))
+        for name in ("control_delta_0", "control_ds_fp8"):
+            assert r[name] > FLASH_BWD_BF16_REL, \
+                f"flash backward {label}: the bf16 check passes its " \
+                f"{name} ({r[name]})"
+    return r
+
+
+def flash_bwd_bounds(B, S, H, KV, hd, causal, window, dtype):
+    """Bounds of the three launches on this run's inputs: bytes (each
+    input read once, each output written once) at the HBM rate against the
+    products of the kept pairs (dkdv: S, dP, dV, dK, 8 hd a pair; dq: S,
+    dP, dQ, 6 hd; delta: 2 hd a row) at the peak of the inputs' type."""
+    item = 2 if dtype == "bfloat16" else 4
+    pairs = B * H * kept_pairs(S, causal, window)
+    q_b, kv_b, rows = item * B * S * H * hd, item * B * S * KV * hd, B * H * S
+    return {
+        "flash_bwd_delta": attn_bound_ms(2 * q_b + 4 * rows,
+                                         2 * B * S * H * hd, dtype),
+        "flash_bwd_dkdv": attn_bound_ms(2 * q_b + 4 * kv_b + 8 * rows,
+                                        8 * hd * pairs, dtype),
+        "flash_bwd_dq": attn_bound_ms(3 * q_b + 2 * kv_b + 8 * rows,
+                                      6 * hd * pairs, dtype)}
+
+
+def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
+    """CUDA-event times of each backward launch and of its plain version,
+    the bounds, and SDPA's backward at the same shape (forward and
+    backward less the forward, on [B, H, S, hd] copies; bf16 only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    kw = dict(window=window)
+    q, k, v, do = _tensors(seed, ((B, S, H, hd), (B, S, KV, hd),
+                                  (B, S, KV, hd), (B, S, H, hd)), dtype)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    delta = FA.flash_bwd_delta(o, do)
+    out = {}
+    for name, fn, plain in (
+            ("flash_bwd_delta", lambda: FA.flash_bwd_delta(o, do),
+             lambda: FA.flash_bwd_delta_plain(o, do)),
+            ("flash_bwd_dkdv",
+             lambda: FA.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+             lambda: FA.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)),
+            ("flash_bwd_dq",
+             lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw))):
+        out[name] = {"ms": cuda_ms(fn, 10, warm=2),
+                     "plain_ms": cuda_ms(plain, 3, warm=1)}
+    for name, (bnd, by) in flash_bwd_bounds(B, S, H, KV, hd, True, window,
+                                            dtype).items():
+        out[name].update(bound_ms=bnd, bound_by=by)
+    out["forward_ms"] = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)
+    lib = None
+    if dtype == "bfloat16" and sdpa_has_gqa():
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        mask = None
+        if window:
+            i = torch.arange(S, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+
+        def fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+        f_ms, fb_ms = cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10)
+        lib = {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
+               "backward_ms": fb_ms - f_ms}
+    out["sdpa"] = lib
+    out["backward_ms"] = sum(out[n]["ms"] for n in (
+        "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+    return out
+
+
+def train_kernel_phase(build):
+    """The flash backward on the card: ptxas's registers and spills per
+    instantiation (none may spill), every case of ``check_flash_bwd`` in
+    bfloat16 and float32 (gemma3-1b's training microbatch, global and
+    window 512, and the edge cases: softcap, G 1/2/4/8, non-causal, ragged
+    S, S = 1, hd 64 and 128, a window across tiles), then CUDA-event times
+    at the training shape with their bounds and SDPA's backward."""
+    t0 = time.perf_counter()
+    per = ptxas_by_instance(build.BUILD_INFO["flash_attention_bwd"]["log"],
+                            _bwd_instance)
+    assert len(per) == 14, sorted(per)
+    spills = {n: i for n, i in per.items()
+              if max(i.get("spill_stores", 1), i.get("spill_loads", 1)) > 0}
+    assert not spills, spills
+    B, S = TRAIN_MICRO_B, TRAIN_S
+    cases = [   # label, B, S, H, KV, hd, causal, window, cap
+        ("train global", B, S, 4, 1, 256, True, 0, 0.0),
+        ("train local window 512", B, S, 4, 1, 256, True, 512, 0.0),
+        ("softcap 50 G2", 2, 512, 8, 4, 256, True, 0, 50.0),
+        ("non-causal G1 hd 128", 1, 384, 4, 4, 128, False, 0, 0.0),
+        ("ragged S=1000 window 100 G4", 1, 1000, 4, 1, 256, True, 100, 0.0),
+        ("G8 hd 64 window 17 across tiles", 1, 300, 16, 2, 64, True, 17,
+         0.0),
+        ("S=1", 2, 1, 4, 1, 256, True, 0, 0.0),
+        ("S=129 hd 128 softcap 30", 2, 129, 4, 1, 128, True, 0, 30.0),
+        ("non-causal window 16 hd 64", 1, 77, 2, 2, 64, False, 16, 0.0)]
+    rel, worst = {}, {}
+    for i, c in enumerate(cases):
+        for dt in ("bfloat16", "float32"):
+            r = check_flash_bwd(*c, dt, 50 + i)
+            rel[f"{c[0]} {dt}"] = r
+            worst[dt] = max([worst.get(dt, 0.0)] + [
+                r[n]["max_abs_err"] for n in ("dq", "dk", "dv")])
+            _free_card()
+    times = {}
+    for name, window in (("global", 0), ("local", 512)):
+        for dt in ("bfloat16", "float32"):
+            times[f"{name} {dt}"] = flash_bwd_times(9, B, S, 4, 1, 256,
+                                                    window, dt)
+            _free_card()
+    emit("train_kernel", t0, ptxas=per, cases=rel, max_abs_err=worst,
+         tolerances={"float32": FLASH_BWD_F32_REL,
+                     "bfloat16": FLASH_BWD_BF16_REL}, times=times)
+    return worst, times
+
+
+def _train_flops(cfg, B, S):
+    """Model FLOPs of one step (3 forward passes' worth: forward and
+    backward), not counting remat's recompute: the products of the layers
+    and the head (6 N per token) and attention's scores and values over
+    the kept pairs; and with remat="full" the recompute (the layers' and
+    attention's forward once more)."""
+    counts = cfg.param_counts()
+    embed = cfg.padded_vocab_size * cfg.d_model
+    dense = 6.0 * (counts["active"] - embed) * B * S
+    head = 6.0 * cfg.d_model * cfg.padded_vocab_size * B * S
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    attn = sum(3.0 * 4 * hd * H * B * kept_pairs(
+        S, True, cfg.window_size if cfg.layer_kind(i) == "attn_local" else 0)
+        for i in range(cfg.n_layers))
+    model = dense + head + attn
+    return model, model + (dense + attn) / 3.0
+
+
+def train_phase():
+    """gemma3-1b at full width and depth through
+    ``repro_torch.launch.train.run``: 4 steps of batch 8 x 4096 (remat
+    full, AdamW, 4 microbatches), the weights drawn on the card.  The
+    counts are set to 0 just before the run and read just after it; the
+    first step is the warm-up, outside the runtime log's median.  The
+    runtime-log line goes into ``launch.autoconfig`` beside simulated H100
+    records, and the analytic model's step time for the same job stands
+    beside the measured one."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.datastore import RuntimeDataStore
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import autoconfig as AC
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    assert (cfg.remat, cfg.optimizer, cfg.grad_accum) == ("full", "adamw", 4)
+    hist = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        FA.LAUNCHES = FA.DELTA_LAUNCHES = FA.DKDV_LAUNCHES = 0
+        FA.DQ_LAUNCHES = 0
+        t1 = time.perf_counter()
+        losses = train.run("gemma3-1b", TRAIN_STEPS, TRAIN_B, TRAIN_S,
+                           smoke=False, device=LM_DEVICE, runtime_log=log,
+                           history=hist)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = {"flash_attention": FA.LAUNCHES,
+                    "flash_bwd_delta": FA.DELTA_LAUNCHES,
+                    "flash_bwd_dkdv": FA.DKDV_LAUNCHES,
+                    "flash_bwd_dq": FA.DQ_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        measured = AC.records_from_runtime_log(log)
+    step_s = rec["median_step_s"]
+    model_flops, hw_flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    h100 = AC.GPU_FAMILIES["h100-sxm"]
+    job = ShapeConfig("chip_smoke_train", TRAIN_S, TRAIN_B, "train")
+    predicted = AC.predicted_step_time(cfg, job, h100, 1)
+    assert list(measured.machine_type) == ["h100-sxm"]
+    sim = AC.simulate_runtime_records("gemma3-1b", "train_4k",
+                                      chip_counts=(1, 2, 4, 8))
+    store = RuntimeDataStore(sim.concat(measured), device=LM_DEVICE)
+    choice, pred = AC.autoconfigure("gemma3-1b", "train_4k", store=store,
+                                    chip_counts=(1, 2, 4, 8),
+                                    device=LM_DEVICE)
+    emit("train", t0, arch="gemma3-1b", layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, batch=TRAIN_B,
+         seq=TRAIN_S, grad_accum=cfg.grad_accum, remat=cfg.remat,
+         optimizer=cfg.optimizer, params=cfg.param_counts()["total"],
+         losses=losses, history=hist, run_wall_s=wall,
+         step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+         model_flops_per_step=model_flops,
+         mfu=model_flops / step_s / BF16_OPS_PER_S,
+         hfu_with_remat=hw_flops / step_s / BF16_OPS_PER_S,
+         peak_device_bytes=peak, launches=launches,
+         launches_per_step={n: c / TRAIN_STEPS for n, c in launches.items()},
+         runtime_log_line=rec,
+         autoconfig={"predicted_step_s_h100_row": predicted,
+                     "measured_step_s": step_s,
+                     "measured_over_predicted": step_s / predicted,
+                     "measured_row": {"X": measured.X[0].tolist(),
+                                      "y": float(measured.y[0])},
+                     "store_rows": len(store.data.y),
+                     "train_4k_choice": dataclasses.asdict(choice),
+                     "selected_model": pred.selected})
+    assert len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+    assert losses[-1] < losses[0], f"train: the loss did not fall: {losses}"
+    micro = TRAIN_STEPS * cfg.grad_accum * cfg.n_layers
+    assert launches == {"flash_attention": 2 * micro,
+                        "flash_bwd_delta": micro, "flash_bwd_dkdv": micro,
+                        "flash_bwd_dq": micro}, launches
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert "n_layers" not in rec and rec["final_loss"] == losses[-1]
+    return launches
+
+
+def _grad_rel(got, want):
+    """Per-leaf ||got - want|| / ||want|| and the global one."""
+    per = {n: _rel_err(got[n], want[n]) for n in want}
+    num = sum(float((got[n].double() - want[n].double()).square().sum())
+              for n in want)
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    return per, math.sqrt(num / den)
+
+
+def _step_on(model, batch):
+    """Gradients, metrics and the parameters after one AdamW step, on the
+    CPU (float32 copies)."""
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import get_optimizer
+    grads, metrics = TS.compute_grads(model, batch)
+    opt = get_optimizer("adamw")
+    params = TS.params_of(model)
+    _, _, gnorm = opt.update(grads, opt.init(params), params)
+    sync()
+    return ({n: g.float().cpu() for n, g in grads.items()},
+            {"loss": float(metrics["loss"]), "grad_norm": float(gnorm)},
+            {n: p.detach().float().cpu() for n, p in params.items()})
+
+
+def _compare_step(got, want):
+    (gg, gm, gp), (wg, wm, wp) = got, want
+    per, glob = _grad_rel(gg, wg)
+    worst = max(per, key=per.get)
+    prel = {}
+    for n in wp:
+        decided = wg[n].abs() > 2 * (gg[n] - wg[n]).abs()
+        prel[n] = _rel_err(gp[n][decided], wp[n][decided]) \
+            if bool(decided.any()) else 0.0
+        prel[n] = prel[n] if math.isfinite(prel[n]) else 0.0
+    return {"loss_rel": abs(gm["loss"] - wm["loss"]) / abs(wm["loss"]),
+            "grad_norm_rel": abs(gm["grad_norm"] - wm["grad_norm"])
+            / wm["grad_norm"],
+            "grad_rel_global": glob, "grad_rel_max": per[worst],
+            "grad_rel_max_leaf": worst,
+            "params_after_rel_max": max(prel.values()),
+            "params_undecided": int(sum(
+                int((wg[n].abs() <= 2 * (gg[n] - wg[n]).abs()).sum())
+                for n in wg)),
+            "loss": gm["loss"], "loss_cpu": wm["loss"]}
+
+
+def train_parity_phase():
+    """One full-width period of gemma3-1b (6 layers), batch 2, sequence
+    1024, one AdamW step from the same float32 weights drawn on the CPU:
+    the card in float32 (SIMT forward and backward, TF32 off) and in
+    bfloat16 (the weights rounded; the wgmma forward) against the CPU in
+    float32 (plain versions, remat none), and a control (float32 on the
+    card with the backward's delta set to 0).  Then crash-restart on the
+    card at full width with 2 layers: a crash after step 2 of 4, the
+    resumed run's final loss against the uninterrupted run's."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.modeling.model import Model, init_params
+    from repro_torch.train.data import make_batch
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b", n_layers=6, grad_accum=1)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg32, 4, "cpu")
+    batch = make_batch(cfg, PARITY_TRAIN_B, PARITY_TRAIN_S, 0, seed=4)
+    on_card = {n: t.to(LM_DEVICE) for n, t in batch.items()}
+
+    def to(tree, dtype):
+        return _map_tree(lambda t: t.to(LM_DEVICE, dtype, copy=True), tree)
+    f32 = _step_on(Model(cfg32, to(params, torch.float32)).trainable(),
+                   on_card)
+    bf16 = _step_on(Model(cfg, to(params, torch.bfloat16)).trainable(),
+                    on_card)
+    real_delta = FA.flash_bwd_delta
+    try:           # the control: the backward's delta set to 0
+        FA.flash_bwd_delta = lambda o, do: torch.zeros(
+            o.shape[0], o.shape[2], o.shape[1], dtype=torch.float32,
+            device=o.device)
+        control = _step_on(Model(cfg32, to(params, torch.float32))
+                           .trainable(), on_card)
+    finally:
+        FA.flash_bwd_delta = real_delta
+    _free_card()
+    t1 = time.perf_counter()         # last: the step updates params in place
+    cpu = _step_on(Model(dataclasses.replace(cfg32, remat="none"),
+                         params).trainable(), batch)
+    cpu_s = time.perf_counter() - t1
+    del params
+    r = {"float32": _compare_step(f32, cpu), "bfloat16": _compare_step(
+        bf16, cpu), "control_delta_0": _compare_step(control, cpu)}
+
+    # crash-restart on the card: 2 layers, batch 4 x 512, 4 steps
+    kw = dict(smoke=False, n_layers=2, device=LM_DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ref = train.run("gemma3-1b", 4, 4, 512, **kw)
+        ck = os.path.join(tmp, "ckpt")
+        crashed = False
+        try:
+            train.run("gemma3-1b", 4, 4, 512, ckpt_dir=ck, ckpt_every=2,
+                      crash_at_step=2, **kw)
+        except SystemExit as e:
+            crashed = "simulated crash" in str(e)
+        assert crashed, "train_parity: the run did not crash at step 2"
+        resumed = train.run("gemma3-1b", 4, 4, 512, ckpt_dir=ck,
+                            ckpt_every=2, **kw)
+    emit("train_parity", t0, layers=cfg.n_layers, batch=PARITY_TRAIN_B,
+         seq=PARITY_TRAIN_S, cpu_step_s=cpu_s, readings=r,
+         tolerances={"float32": TRAIN_F32_REL, "bfloat16": TRAIN_BF16_REL},
+         crash_restart={"layers": 2, "batch": 4, "seq": 512,
+                        "losses": ref, "resumed_losses": resumed,
+                        "bit_equal": resumed[-1] == ref[-1]})
+    a = r["float32"]
+    for key in ("loss_rel", "grad_norm_rel", "grad_rel_max",
+                "params_after_rel_max"):
+        assert a[key] <= TRAIN_F32_REL, f"train_parity float32 {key}: {a}"
+    b = r["bfloat16"]
+    assert b["loss_rel"] <= TRAIN_BF16_REL and \
+        b["grad_rel_max"] <= TRAIN_BF16_REL, f"train_parity bfloat16: {b}"
+    assert r["control_delta_0"]["grad_rel_max"] > TRAIN_BF16_REL, \
+        f"train_parity: the control passes: {r['control_delta_0']}"
+    assert len(resumed) == 2, resumed
+    assert abs(resumed[-1] - ref[-1]) <= 1e-4 * abs(ref[-1]), (ref, resumed)
+    return r
+
+
+def bwd_kernel_line(name, launches, err, times):
+    """The ``kernels`` line's entry of one flash backward launch: times at
+    gemma3-1b's training microbatch, global layer, bf16 (the main path's
+    type), beside the local layer's and float32's."""
+    g, loc = times["global bfloat16"], times["local bfloat16"]
+    f32 = times["global float32"]
+    sdpa = g["sdpa"] and g["sdpa"]["backward_ms"]
+    out = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:72 (its "
+                       "gradient: the JAX package has no Pallas backward)",
+           "launches": launches, "max_abs_err": max(err.values()),
+           "max_abs_err_by_dtype": err,
+           "ms": g[name]["ms"], "plain_ms": g[name]["plain_ms"],
+           "bound_ms": g[name]["bound_ms"], "bound_by": g[name]["bound_by"],
+           "library_ms": None if name == "flash_bwd_delta" else sdpa,
+           "ms_from": "cuda events",
+           "shape": f"global layer B={TRAIN_MICRO_B} S={TRAIN_S} H=4 KV=1 "
+                    "hd=256 causal bf16",
+           "ms_local": loc[name]["ms"], "plain_ms_local": loc[name]["plain_ms"],
+           "bound_ms_local": loc[name]["bound_ms"],
+           "ms_float32": f32[name]["ms"],
+           "bound_ms_float32": f32[name]["bound_ms"]}
+    if name != "flash_bwd_delta":
+        out["library_covers"] = ("SDPA's whole backward (dq, dk and dv): "
+                                 "forward and backward less the forward")
+        out["library_ms_local"] = loc["sdpa"] and loc["sdpa"]["backward_ms"]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2810,6 +3358,13 @@ def main():
     jamba_profile_phase()
     jamba_launches = jamba_serve_phase()
     jamba_parity_phase()
+
+    # ---- main path of slice 10: training (train_phase sets the flash
+    # counts to 0 itself and reads them after)
+    _free_card()
+    bwd_err, bwd_times = train_kernel_phase(build)
+    train_launches = train_phase()
+    train_parity_phase()
 
     # ---- main path of slice 9: the eval plane (eval_phase sets the GBM
     # count to 0 itself and reads it after)
@@ -2918,7 +3473,10 @@ def main():
         "bound_ms": scan_times["bound_ms"],
         "bound_by": scan_times["bound_by"], "library_ms": None,
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
-                 "float32, given h0"}]}), flush=True)
+                 "float32, given h0"}] + [
+        bwd_kernel_line(name, train_launches[name], bwd_err, bwd_times)
+        for name in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")]}),
+        flush=True)
     print(smi, flush=True)
     if not edge["gate_ok"]:
         print(f"chip_smoke: edge: t_socket - t_tcp is "

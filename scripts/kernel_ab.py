@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two trees of the PyTorch/CUDA port on one card, in turns.
 
-    python3 scripts/kernel_ab.py A_SRC B_SRC
+    python3 scripts/kernel_ab.py [--only STEP[,STEP...]] A_SRC B_SRC
 
 A_SRC and B_SRC are directories that hold a ``repro_torch`` package (for
 example ``src`` of a ``git archive`` of the parent commit and ``src`` of
@@ -26,10 +26,20 @@ and 2 each (batch, head) block has an SM to itself, so the time over S /
 and jamba-1.5-large (4 layers) are each served at full width through
 ``repro_torch.launch.serve.run`` (batch 8, prompt 2048, 64 new tokens)
 after a warm-up serve of 4 tokens, giving prefill ms and the decode
-median ms/token.  Needs a CUDA card.
+median ms/token.  The step "flash" (run only when ``--only`` names it)
+times flash_attention's bf16 forward, the serving launch, by CUDA events
+at gemma3-1b's global and local layers (B 8, S 2048, 4 heads over 1 of
+256) and jamba-1.5-large's (64 heads over 8 of 128), and hashes the
+instructions of the bf16 serving instances in ``cuobjdump --dump-sass``
+of the built library (the instance without the training lse output), so
+that two trees show whether serving runs the same code.  ``--only`` takes
+steps from gbm, kernels, flash and the archs.  Needs a CUDA card.
 """
+import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -101,6 +111,53 @@ def kernels(label):
     return out
 
 
+FLASH_SHAPES = {   # B, S, H, KV, hd, window
+    "flash_global": (8, 2048, 4, 1, 256, 0),
+    "flash_local": (8, 2048, 4, 1, 256, 512),
+    "flash_jamba": (8, 2048, 64, 8, 128, 0)}
+
+
+def serving_sass(so_path):
+    """{head dim: instructions and a hash of them} of the bf16 flash
+    forward's serving instances in the library's SASS: the kernel of a tree
+    without the lse template argument, or its LSE = false instance."""
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        # the template arguments, then the end of the nested name: a
+        # tree's kernel<HD> is ...ILi256EEEv..., its serving instance
+        # kernel<HD, false> ...ILi256ELb0EEEv...
+        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E(Lb0E)?EEv",
+                      part.split()[0])
+        if m:
+            ops = [op.strip() for op in
+                   re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
+            out[f"hd {m.group(1)}"] = {
+                "instructions": len(ops),
+                "sha256": hashlib.sha256("\n".join(ops).encode())
+                .hexdigest()[:16]}
+    return out
+
+
+def flash(label):
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    so = build.build_all(["flash_attention"])["flash_attention"]
+    out = {"label": label, "card": CS.nvidia_smi(),
+           "serving_sass": serving_sass(so)}
+    for name, (B, S, H, KV, hd, window) in FLASH_SHAPES.items():
+        q, k, v = CS._qkv(0, B, S, H, KV, hd, "bfloat16")
+        out[f"{name}_events_ms"] = CS.cuda_ms(
+            lambda: FA.flash_attention(q, k, v, window=window), 50)
+    return out
+
+
 def serve(label, arch):
     import torch
     from repro_torch.launch import serve as S
@@ -118,7 +175,7 @@ def serve(label, arch):
 def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
-    step = {"gbm": gbm, "kernels": kernels}.get(what)
+    step = {"gbm": gbm, "kernels": kernels, "flash": flash}.get(what)
     res = step(label) if step else serve(label, what)
     print(json.dumps(res), flush=True)
     return 0
@@ -127,11 +184,14 @@ def one(src, label, what):
 def main(argv):
     if len(argv) == 4 and argv[0] == "--one":
         return one(*argv[1:])
+    steps = ("gbm", "kernels") + ARCHS
+    if len(argv) == 4 and argv[0] == "--only":
+        steps, argv = tuple(argv[1].split(",")), argv[2:]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    for what in ("gbm", "kernels") + ARCHS:
+    for what in steps:
         for i in ORDER:
             label = f"{'AB'[i]}:{argv[i]}"
             p = subprocess.run([sys.executable, os.path.abspath(__file__),

@@ -40,6 +40,12 @@
 //     already wgmma's A-fragment layout, and O += P . V is wgmma with V from
 //     shared memory as an MN-major B operand (transpose bit);
 //   - the epilogue divides by max(l, 1e-30) and stores bf16 pairs.
+// Both routes take an optional float32 lse [B, H, S]: training passes it,
+// and an instance of the kernel with LSE = true also stores each row's
+// log-sum-exp m + log(l) in natural units for the backward
+// (flash_attention_bwd.cu); serving passes null and runs the LSE = false
+// instance, the kernel as it was before, and the output's bytes are the
+// same either way.
 // Rounding P to bf16 is a second rounding that the Pallas kernel, float32
 // inside, does not make; it stays inside the bf16 tolerance of the tests.
 // Tiles (BK keys a stage, NS stages; dynamic shared memory with 1 KB of
@@ -137,11 +143,12 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, float scale, int causal, int window, float softcap) {
+                 int KV, float scale, int causal, int window, float softcap,
+                 float* __restrict__ lse) {
   constexpr int NC4 = HD / 64;  // float4 column groups of the output per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [HD][64], q * scale
@@ -266,6 +273,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store4(orow + g * 64 + tc * 4,
              make_float4(acc[i][g * 4 + 0] / den, acc[i][g * 4 + 1] / den,
                          acc[i][g * 4 + 2] / den, acc[i][g * 4 + 3] / den));
+    // the row's log-sum-exp for the backward: m and l are the same in the
+    // 16 lanes of a row group
+    if constexpr (LSE) {
+      if (tc == 0)
+        lse[(static_cast<size_t>(b) * H + h) * S + qi] = m[i] + logf(l[i]);
+    }
   }
 }
 
@@ -279,6 +292,7 @@ constexpr int kBQ = 128;       // query rows per block: two warpgroups of 64
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
@@ -524,14 +538,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 // thread t (warp w = t / 32, lane l) holds rows ra = 16 w + l / 4 and
 // ra + 8 of its 64; accumulator register 4 j + e of an m64nN product holds
 // column 8 j + 2 (l % 4) + (e & 1) of row ra (e < 2) or ra + 8 (e >= 2).
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int B, int S, int H,
                        int KV, float scale, int causal, int window,
-                       float softcap) {
+                       float softcap, float* __restrict__ lse) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, NS = C::NS;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -704,6 +718,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(ob + 8 * j) =
             pack_bf16(acc[4 * j + 2] / den_b, acc[4 * j + 3] / den_b);
     }
+    // the rows' log-sum-exp for the backward, in natural units: m is in
+    // log2 units (kLog2e folded into the scale), l sums exp2 and is at
+    // least 1 (the row's maximum adds exp2(0)), so it is den
+    if constexpr (LSE) {
+      if ((lane & 3) == 0) {
+        float* lrow = lse + (static_cast<size_t>(b) * H + h) * S;
+        if (qa < S) lrow[qa] = (m_a + log2f(den_a)) * kLn2;
+        if (qb < S) lrow[qb] = (m_b + log2f(den_b)) * kLn2;
+      }
+    }
   }
 }
 
@@ -759,9 +783,9 @@ CUresult make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, float scale, int causal, int window,
-              float softcap, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, float scale,
+              int causal, int window, float softcap, cudaStream_t stream) {
   using C = tc::Cfg<HD>;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -770,44 +794,47 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, B, S, KV, HD, C::BK);
   if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, B, S, KV, HD, C::BK);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  // the serving instance (no lse) is the kernel as it was before training
+  auto kernel = lse != nullptr ? tc::flash_fwd_wgmma_kernel<HD, true>
+                               : tc::flash_fwd_wgmma_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      tc::flash_fwd_wgmma_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nq = (S + tc::kBQ - 1) / tc::kBQ;
-  tc::flash_fwd_wgmma_kernel<HD><<<nq * B * H, tc::kThreads, C::SMEM,
-                                   stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale, causal,
-      window, softcap);
+  kernel<<<nq * B * H, tc::kThreads, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale,
+      causal, window, softcap, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, float scale, int causal, int window,
-                float softcap, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, float scale,
+                int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = simt::smem_bytes<HD>();
+  auto kernel = lse != nullptr ? simt::flash_fwd_kernel<float, HD, true>
+                               : simt::flash_fwd_kernel<float, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      simt::flash_fwd_kernel<float, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + simt::kBQ - 1) / simt::kBQ, H, B);
-  simt::flash_fwd_kernel<float, HD><<<grid, simt::kThreads, smem, stream>>>(
+  kernel<<<grid, simt::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
-      causal, window, softcap);
+      causal, window, softcap, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int S, int H, int KV, float scale, int causal, int window,
-           float softcap, cudaStream_t s) {
+           float* lse, int B, int S, int H, int KV, float scale, int causal,
+           int window, float softcap, cudaStream_t s) {
   if (dtype == 0)
-    return launch_simt<HD>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                           softcap, s);
+    return launch_simt<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal,
+                           window, softcap, s);
   if (dtype == 1)
-    return launch_tc<HD>(q, k, v, o, B, S, H, KV, scale, causal, window,
+    return launch_tc<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal, window,
                          softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -817,25 +844,27 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Plain C entry point, loaded with ctypes.  q, o: [B, S, H, hd]; k, v:
 // [B, S, KV, hd]; all contiguous device pointers of one type (dtype 0:
 // float32, the SIMT route; 1: bfloat16, the wgmma/TMA route), 16-byte
-// aligned.  Launches on ``stream`` of ``device``, does not synchronise and
+// aligned.  lse: null (serving), or float32 [B, H, S] that receives each
+// row's natural log-sum-exp of its masked, softcapped scores, for the
+// backward; the output is the same either way.  Launches on ``stream`` of ``device``, does not synchronise and
 // allocates nothing.  Returns the CUDA error of the attribute call or of the
 // launch (0 on success); cudaErrorNotSupported when the driver has no
 // cuTensorMapEncodeTiled, cudaErrorInvalidValue when it refuses a map.  The caller checks shapes, H % KV == 0, hd in
 // {64, 128, 256} and the grid's size.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int KV, int hd, int dtype,
-                                      float scale, int causal, int window,
-                                      float softcap, int device,
+                                      const void* v, void* o, float* lse,
+                                      int B, int S, int H, int KV, int hd,
+                                      int dtype, float scale, int causal,
+                                      int window, float softcap, int device,
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(dtype, q, k, v, o, B, S, H, KV, scale, causal, window, softcap, s);
-    case 128: return launch<128>(dtype, q, k, v, o, B, S, H, KV, scale, causal, window, softcap, s);
-    case 256: return launch<256>(dtype, q, k, v, o, B, S, H, KV, scale, causal, window, softcap, s);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

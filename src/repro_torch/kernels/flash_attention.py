@@ -24,8 +24,22 @@ the other.  The dtype picks the kernel:
   shared memory, bound by the float32 pipe.  wgmma would take float32 only
   as TF32, which puts the float32 parity limits at risk.
 
-``LAUNCHES`` counts kernel launches, so that a run can show that its main
-path went through the kernel.
+Training needs a gradient (``kernels/csrc/flash_attention_bwd.cu``, the
+port's own: no Pallas kernel has a backward).  ``flash_attention`` on a
+CUDA tensor that requires grad goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward launches the kernel above with
+an extra float32 log-sum-exp output ``lse [B, H, S]`` and whose backward
+makes three launches: ``flash_bwd_delta`` (delta = rowsum(dO * O)),
+``flash_bwd_dkdv`` (one block per key tile and kv head, the group's query
+heads summed in registers) and ``flash_bwd_dq``.  Without a gradient the
+forward launch is the serving one, with no ``lse``.  On the CPU autograd
+differentiates ``flash_attention_plain``; ``flash_attention_bwd_plain``
+computes what the backward kernels compute, in their order, for the tests
+and the card's checks.
+
+``LAUNCHES`` counts forward launches, ``DELTA_LAUNCHES``,
+``DKDV_LAUNCHES`` and ``DQ_LAUNCHES`` the backward's, so that a run can
+show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +54,9 @@ HEAD_DIMS = (64, 128, 256)      # the kernel's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0
+DELTA_LAUNCHES = 0
+DKDV_LAUNCHES = 0
+DQ_LAUNCHES = 0
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -66,6 +83,147 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def _scores(q, k, causal, window, softcap, scale):
+    """The forward's scores of every (query, key) pair in the float32
+    route's order, [B, KV, G, S, Sk]: (s, c, dtanh, ok) with s = (q * scale)
+    . k, c = cap * tanh(s / cap) (s without a softcap), dtanh = 1 -
+    tanh(s / cap)**2 (None without one) and ``ok`` the masks."""
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, KV, H // KV, hd) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    c, dt = s, None
+    if softcap:
+        t = torch.tanh(s / softcap)
+        c, dt = softcap * t, 1.0 - t * t
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones(S, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    return s, c, dt, ok
+
+
+def flash_attention_lse_plain(q, k, *, causal=True, window=0, softcap=0.0,
+                              scale=None) -> torch.Tensor:
+    """float32 [B, H, S]: each query row's natural log-sum-exp of its
+    masked, softcapped scores, which the kernel writes beside its output
+    for the backward."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    _, c, _, ok = _scores(q, k, causal, window, softcap, scale)
+    lse = torch.logsumexp(torch.where(ok, c, torch.tensor(
+        NEG_INF, device=q.device)), dim=-1)
+    return lse.reshape(B, H, S)
+
+
+def flash_bwd_delta_plain(o, do) -> torch.Tensor:
+    """delta [B, H, S] float32 = sum over hd of dO * O (``flash_bwd_delta``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, window, softcap, scale):
+    """P recomputed from the saved LSE, and dS = P (dP - delta) dtanh, both
+    [B, KV, G, S, Sk] float32; with the scaled q groups and dO groups."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    s, c, dt, ok = _scores(q, k, causal, window, softcap, scale)
+    rows = (B, KV, G, S, 1)
+    p = torch.where(ok, torch.exp(c - lse.float().reshape(rows)),
+                    torch.zeros((), device=q.device))
+    dog = do.float().reshape(B, S, KV, G, hd)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    ds = p * (dp - delta.float().reshape(rows))
+    if dt is not None:
+        ds = ds * dt
+    qg = q.float().reshape(B, S, KV, G, hd) * scale
+    return p, ds, qg, dog
+
+
+def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
+                         softcap=0.0, scale=None):
+    """(dk, dv) in k's type (``flash_bwd_dkdv``): dV = sum_i P dO and dK =
+    sum_i dS (q * scale) over the query rows and the group's heads."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p, ds, qg, dog = _probs_and_ds(q, k, v, do, lse, delta, causal, window,
+                                   softcap, scale)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
+                       softcap=0.0, scale=None) -> torch.Tensor:
+    """dq in q's type (``flash_bwd_dq``): scale * sum_j dS k."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    _, ds, _, _ = _probs_and_ds(q, k, v, do, lse, delta, causal, window,
+                                softcap, scale)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) * scale
+    return dq.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
+                              softcap=0.0, scale=None):
+    """(dq, dk, dv) of attention, from the forward's output ``o`` and log-
+    sum-exp ``lse`` [B, H, S], as the three backward kernels compute them,
+    in their order: delta = rowsum(dO * O); P = exp(c - lse) recomputed
+    from the scores; dV; dP = dO . v; dS = P (dP - delta) times the
+    softcap's 1 - tanh**2; dK; dQ.  float32 inside, out in the inputs'
+    types."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    delta = flash_bwd_delta_plain(o, do)
+    dk, dv = flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def bwd_tile_config(hd) -> dict:
+    """The backward kernels' tiling at head dim ``hd``, read from
+    ``Tiles<HD>`` in ``csrc/flash_attention_bwd.cu``: BQ query rows a step,
+    BK keys a tile, LD and PLD (padded rows, floats), and the dynamic
+    shared memory of a dkdv and a dq block in bytes."""
+    src = (Path(__file__).parent / "csrc" /
+           "flash_attention_bwd.cu").read_text()
+    body = re.search(r"struct Tiles \{(.*?)\n\};", src, re.S)[1]
+    env = {"HD": hd}
+    for name, expr in re.findall(r"static constexpr int (\w+) =\s*([^;]+);",
+                                 body):
+        expr = " ".join(expr.split())
+        m = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr)
+        if m:                          # C's a ? b : c
+            expr = f"({m[2]}) if ({m[1]}) else ({m[3]})"
+        env[name] = int(eval(expr.replace("/", "//"), {}, env))
+    env["DKDV_SMEM"] = 4 * env["DKDV_FLOATS"]
+    env["DQ_SMEM"] = 4 * env["DQ_FLOATS"]
+    return env
+
+
+def bwd_plan(S, hd, causal, window) -> dict:
+    """The backward kernels' launch plan, as their loops compute it: for
+    each dkdv block (key tile) the first rows of the query tiles it visits,
+    and for each dq block (query tile, in launch order) the first keys of
+    the key tiles it visits."""
+    t = bwd_tile_config(hd)
+    BQ, BK = t["BQ"], t["BK"]
+    dkdv = []
+    for k0 in range(0, S, BK):
+        q_lo = k0 if causal else 0
+        q_hi = min(S, k0 + BK - 1 + window) if window else S
+        dkdv.append((k0, list(range(q_lo // BQ * BQ, q_hi, BQ))))
+    nq = -(-S // BQ)
+    dq = []
+    for x in range(nq):
+        q0 = (nq - 1 - x) * BQ
+        k_hi = min(S, q0 + BQ) if causal else S
+        k_lo = max(0, q0 - window + 1) if window else 0
+        dq.append((q0, list(range(k_lo // BK * BK, k_hi, BK))))
+    return {"BQ": BQ, "BK": BK, "dkdv": dkdv, "dq": dq}
 
 
 def tile_config(hd) -> dict:
@@ -123,34 +281,205 @@ def _lib():
     fn = load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
+def _bwd_lib(fn_name):
+    from repro_torch.kernels.build import load
+    fn = getattr(load("flash_attention_bwd"), fn_name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        if fn_name == "flash_bwd_delta_launch":
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+        else:
+            n_ptr = 8 if fn_name == "flash_bwd_dkdv_launch" else 7
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed to launch: CUDA error {rc}")
+
+
+def _cuda_only(q, what):
+    if q.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {q.device}")
+
+
+def _forward(q, k, v, causal, window, softcap, scale, with_lse):
+    """One launch of the forward kernel: (out, lse or None)."""
+    global LAUNCHES
+    B, S, H, KV, hd = _check(q, k, v, window)
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if B * S == 0:
+        return out, lse
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None, B, S, H, KV, hd,
+                DTYPES[q.dtype], float(scale), int(causal), int(window),
+                float(softcap), q.device.index or 0, stream)
+    _raise_on(rc, "flash_attention")
+    LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        scale=None):
+    """(out, lse): attention and each row's float32 log-sum-exp [B, H, S].
+    On a CUDA tensor one launch of the forward kernel with its lse output;
+    on a CPU tensor the plain versions."""
+    if q.device.type == "cpu":
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse_plain(q, k, **kw))
+    _cuda_only(q, "flash_attention")
+    return _forward(q, k, v, causal, window, softcap, scale, True)
+
+
+def _check_bwd(q, k, v, do, lse, delta, window):
+    B, S, H, KV, hd = _check(q, k, v, window)
+    if do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape) \
+            or not do.is_contiguous() or do.device != q.device:
+        raise ValueError(f"do must be a contiguous {q.dtype} "
+                         f"{tuple(q.shape)} on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, S) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{(B, H, S)} on {q.device}")
+    return B, S, H, KV, hd
+
+
+def flash_bwd_delta(o, do) -> torch.Tensor:
+    """delta [B, H, S] float32 = rowsum(dO * O): one launch of
+    ``flash_bwd_delta`` on a CUDA tensor, the plain version on the CPU."""
+    global DELTA_LAUNCHES
+    if o.device.type == "cpu":
+        return flash_bwd_delta_plain(o, do)
+    _cuda_only(o, "flash_bwd_delta")
+    if o.dtype not in DTYPES or do.dtype != o.dtype or do.shape != o.shape \
+            or not (o.is_contiguous() and do.is_contiguous()) \
+            or o.dim() != 4 or do.device != o.device:
+        raise ValueError("o and do must be contiguous [B, S, H, hd] tensors "
+                         "of one type, float32 or bfloat16")
+    B, S, H, hd = o.shape
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
+    if B * S * H == 0:
+        return delta
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    rc = _bwd_lib("flash_bwd_delta_launch")(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, S, H, hd,
+        DTYPES[o.dtype], o.device.index or 0, stream)
+    _raise_on(rc, "flash_bwd_delta")
+    DELTA_LAUNCHES += 1
+    return delta
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0,
+                   softcap=0.0, scale=None):
+    """(dk, dv): one launch of ``flash_bwd_dkdv`` on a CUDA tensor, the
+    plain version on the CPU."""
+    global DKDV_LAUNCHES
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
+    _cuda_only(q, "flash_bwd_dkdv")
+    B, S, H, KV, hd = _check_bwd(q, k, v, do, lse, delta, window)
+    scale = hd ** -0.5 if scale is None else scale
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if B * S == 0:
+        return dk, dv
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib("flash_bwd_dkdv_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, KV, hd, DTYPES[q.dtype], float(scale), int(causal),
+        int(window), float(softcap), q.device.index or 0, stream)
+    _raise_on(rc, "flash_bwd_dkdv")
+    DKDV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
+                 softcap=0.0, scale=None) -> torch.Tensor:
+    """dq: one launch of ``flash_bwd_dq`` on a CUDA tensor, the plain
+    version on the CPU."""
+    global DQ_LAUNCHES
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    _cuda_only(q, "flash_bwd_dq")
+    B, S, H, KV, hd = _check_bwd(q, k, v, do, lse, delta, window)
+    scale = hd ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q)
+    if B * S == 0:
+        return dq
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib("flash_bwd_dq_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, KV, hd,
+        DTYPES[q.dtype], float(scale), int(causal), int(window),
+        float(softcap), q.device.index or 0, stream)
+    _raise_on(rc, "flash_bwd_dq")
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                        softcap=0.0, scale=None):
+    """(dq, dk, dv) from the forward's ``o`` and ``lse``: the three backward
+    launches on a CUDA tensor, ``flash_attention_bwd_plain`` on the CPU."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    delta = flash_bwd_delta(o, do)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward kernel with its
+    lse output, then the three backward kernels.  CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        o, lse = _forward(q, k, v, causal, window, softcap, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None) -> torch.Tensor:
     """Attention [B, S, H, hd] in q's type.  On a CUDA tensor this launches
-    the kernel on the current stream; on a CPU tensor it is
-    ``flash_attention_plain``."""
-    global LAUNCHES
+    the kernel on the current stream, through ``FlashAttention`` when an
+    input requires grad; on a CPU tensor it is ``flash_attention_plain``,
+    which autograd differentiates."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
-    B, S, H, KV, hd = _check(q, k, v, window)
-    scale = hd ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
-    if B * S == 0:
-        return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, H, KV, hd, DTYPES[q.dtype], float(scale), int(causal),
-                int(window), float(softcap), q.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel failed to launch: CUDA "
-                           f"error {rc}")
-    LAUNCHES += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _forward(q, k, v, causal, window, softcap, scale, False)[0]

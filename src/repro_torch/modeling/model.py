@@ -14,14 +14,26 @@ PyTorch runs eagerly, so the blocks and the tail are one loop over
 Sharding does nothing on one card, so ``sharding.shard`` and
 ``_maybe_shard_heads`` have no counterpart.  What the slice does not cover
 raises ``NotImplementedError`` at construction.
+
+Serving builds the weights frozen.  Training (``repro_torch.train``) calls
+``Model.trainable()``, which makes every weight require grad, and
+``hidden_forward`` (the backbone and the summed MoE router loss, for the
+chunked loss) in train mode with a gradient runs each layer under
+``cfg.remat``: "full" recomputes the layer in the backward
+(``torch.utils.checkpoint``, the JAX package's ``nothing_saveable``),
+"dots" keeps the outputs of its matrix products and recomputes the rest,
+"none" keeps everything.  RWKV and Mamba layers do not train yet: their
+kernels have no backward, and no plain-version gradient stands in for one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import MAMBA, RWKV, ModelConfig
 from repro_torch.core.models.api import as_device
@@ -29,7 +41,10 @@ from repro_torch.modeling import attention, mamba, moe, rwkv
 from repro_torch.modeling.layers import (ffn_apply, init_normal, rms_norm,
                                          softcap)
 
-_WAITS = "not ported yet (ROADMAP.md §1 item 9)"
+_WAITS = "not ported yet (ROADMAP.md §1, the queue of modules)"
+_TRAIN_WAITS = ("training them needs a backward kernel of wkv6 / mamba_scan, "
+                "which waits in ROADMAP.md §1 (the RWKV and Mamba backward "
+                "kernels)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -47,6 +62,28 @@ def check_supported(cfg: ModelConfig) -> None:
                                   f"{_WAITS}")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port can train ``cfg``: the
+    dense and MoE attention families, not RWKV or Mamba layers."""
+    check_supported(cfg)
+    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)}
+                   & {RWKV, MAMBA})
+    if kinds:
+        raise NotImplementedError(f"{cfg.name} has {' and '.join(kinds)} "
+                                  f"layers: {_TRAIN_WAITS}")
+
+
+# the matrix products whose outputs remat="dots" keeps (the JAX package's
+# dots_with_no_batch_dims_saveable; einsum reaches aten through bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -59,8 +96,8 @@ class DecoderLayer(nn.Module):
     """One pre-norm attention layer, then its FFN or MoE
     (``layer_apply``).  ``p`` holds ln1, attn {wq, wk, wv, wo}, ln2, ffn
     {w_up, w_down[, w_gate]} or moe {router, w_up, w_down[, w_gate]} and,
-    with ``post_norm``, ln1_post and ln2_post.  The MoE's aux loss is for
-    training, which the port does not cover, and is dropped."""
+    with ``post_norm``, ln1_post and ln2_post.  ``forward`` returns (x,
+    aux): aux is the MoE's router loss, a float32 scalar, or None."""
 
     def __init__(self, cfg: ModelConfig, i: int, p: dict):
         super().__init__()
@@ -93,13 +130,14 @@ class DecoderLayer(nn.Module):
             h = rms_norm(h, n["ln1_post"], cfg.norm_eps)
         x = x + h
         h = rms_norm(x, n["ln2"], cfg.norm_eps)
+        aux = None
         if self.moe is not None:
-            h, _ = self.moe(h)
+            h, aux = self.moe(h)
         else:
             h = ffn_apply(self.ffn, h, cfg.act)
         if cfg.post_norm:
             h = rms_norm(h, n["ln2_post"], cfg.norm_eps)
-        return x + h
+        return x + h, aux
 
 
 class MambaLayer(DecoderLayer):
@@ -156,7 +194,7 @@ class RwkvLayer(nn.Module):
             cache["x_cm"].copy_(x_cm)
         if cfg.post_norm:
             h = rms_norm(h, n["ln2_post"], cfg.norm_eps)
-        return x + h
+        return x + h, None
 
 
 class Model(nn.Module):
@@ -191,6 +229,12 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def trainable(self) -> "Model":
+        """Make every weight require grad, for training; raises for what
+        the port cannot train (``check_trainable``)."""
+        check_trainable(self.cfg)
+        return self.requires_grad_(True)
+
     def init_cache(self, batch: int, max_seq: int) -> List[dict]:
         """Zeroed caches, one per layer, in the activation type: {"k", "v"}
         [batch, max_seq or the window, KV, hd] for an attention layer,
@@ -207,17 +251,37 @@ class Model(nn.Module):
         w = self.embed.T if self.lm_head is None else self.lm_head
         return softcap(x @ w.to(x.dtype), self.cfg.final_logit_softcap)
 
-    def forward(self, tokens: torch.Tensor, *, mode: str = "train",
-                pos0: int = 0, cache: Optional[List[dict]] = None):
-        """tokens [B, S] -> (logits [B, S, V], cache); prefill returns only
-        the last position's logits, [B, 1, V].  ``pos0`` (a host int) is
-        the position of tokens[:, 0]; a decode step takes S = 1 and writes
-        the caches in place."""
+    def _remat(self, layer):
+        """``layer`` run under ``cfg.remat`` (train mode with a gradient)."""
+        remat = self.cfg.remat
+        if remat == "none":
+            return layer
+        if remat == "full":
+            return functools.partial(ckpt.checkpoint, layer,
+                                     use_reentrant=False)
+        if remat == "dots":
+            return functools.partial(
+                ckpt.checkpoint, layer, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _dots_policy))
+        raise ValueError(f"unknown remat {remat!r}")
+
+    def hidden_forward(self, tokens: torch.Tensor, *, mode: str = "train",
+                       pos0: int = 0, cache: Optional[List[dict]] = None):
+        """tokens [B, S] -> (hidden [B, S, d] after the final norm, aux),
+        aux being the MoE layers' summed router loss (a float32 scalar, 0
+        without MoE layers).  The head is applied separately, so that
+        training can take a sequence-chunked loss (``hidden_forward`` of
+        ``repro/modeling/model.py``)."""
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode != "train" and cache is None:
             raise ValueError(f"{mode} needs a cache")
+        grad = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        if grad:
+            check_trainable(cfg)
         x = self.embed_tokens(tokens)
         ring_pos = None
         if mode == "decode" and cfg.window_size and any(
@@ -225,11 +289,23 @@ class Model(nn.Module):
                 for c in cache):
             ring_pos = attention.ring_positions(cfg.window_size, pos0,
                                                 x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x = layer(x, mode=mode, pos0=pos0,
-                      cache=cache[i] if cache is not None else None,
-                      ring_pos=ring_pos)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+            run = self._remat(layer) if grad and mode == "train" else layer
+            x, a = run(x, mode=mode, pos0=pos0,
+                       cache=cache[i] if cache is not None else None,
+                       ring_pos=ring_pos)
+            if a is not None:
+                aux = aux + a
+        return rms_norm(x, self.final_norm, cfg.norm_eps), aux
+
+    def forward(self, tokens: torch.Tensor, *, mode: str = "train",
+                pos0: int = 0, cache: Optional[List[dict]] = None):
+        """tokens [B, S] -> (logits [B, S, V], cache); prefill returns only
+        the last position's logits, [B, 1, V].  ``pos0`` (a host int) is
+        the position of tokens[:, 0]; a decode step takes S = 1 and writes
+        the caches in place."""
+        x, _ = self.hidden_forward(tokens, mode=mode, pos0=pos0, cache=cache)
         if mode == "prefill":
             x = x[:, -1:]             # only the next-token head is needed
         return self.lm_logits(x), cache

@@ -9,7 +9,10 @@ MoE layers) served through it and the attention kernels; the hub's
 public surface on the card (a row predicted alone against inside batches
 for every model kind, the lanes' answers against the inline ones with
 their GBM launches counted, the fit sidecar); a tiny collaborative
-replay on the card against the same replay on the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
+replay on the card against the same replay on the CPU; the flash-attention
+backward kernels against their plain version, the forward's bytes with and
+without its log-sum-exp output, and one train step of a 2-layer
+full-width gemma3 on the card against the same step on the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -685,3 +688,156 @@ def test_tiny_replay_on_the_card_gives_the_cpu_ports_rows(cuda_device):
             else 1e-5
         for col in ("mape", "mae"):
             assert abs(b[col] - a[col]) <= tol * abs(a[col]), (a, b, col)
+
+
+# ----------------------------------------------------------- flash backward
+
+# float32: the same float32 sums in another order, over up to 2048 terms
+FLASH_BWD_F32_REL = 1e-5
+# bfloat16: the kernel computes in float32 from the bf16 inputs and rounds
+# dq, dk and dv once to bf16 (2**-9 relative); chip_smoke.py's train_kernel
+# phase states the bound's controls
+FLASH_BWD_BF16_REL = 5e-3
+
+FLASH_BWD_CASES = [
+    # (B, S, H, KV, hd, causal, window, cap)
+    (2, 256, 4, 1, 256, True, 0, 0.0),
+    (1, 300, 4, 1, 256, True, 64, 0.0),       # ragged, window, G 4
+    (2, 200, 8, 4, 128, True, 0, 30.0),       # softcap, G 2
+    (1, 256, 4, 4, 64, False, 0, 0.0),        # non-causal, G 1
+    (1, 130, 16, 2, 128, True, 17, 50.0),     # G 8, window across tiles
+    (2, 1, 4, 1, 64, True, 0, 0.0),
+    (1, 77, 2, 2, 256, False, 16, 0.0),       # non-causal with a window
+    (2, 1024, 4, 1, 256, True, 512, 0.0),     # gemma3's local layer
+]
+
+
+def _rel(got, want):
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-300))
+
+
+def _within(got, want, rel):
+    """||got - want|| <= rel ||want|| + 1e-6 sqrt(n): the absolute term
+    covers gradients that are zero up to rounding (at S = 1, P = 1 and dP
+    = delta, so dq and dk are float32 noise of order 1e-7)."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm()) <= rel * float(w.norm()) \
+        + 1e-6 * w.numel() ** 0.5
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(cuda_device, case, dtype):
+    """The three backward launches against ``flash_attention_bwd_plain``
+    on the same inputs (the forward kernel's o and lse); the lse against
+    its plain version; a second call gives the same bits (no atomics)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, S, H, KV, hd, causal, window, cap = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v = _qkv(S + hd + 1, B, S, H, KV, hd, dtype, cuda_device)
+    do = torch.randn(q.shape, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(S)
+                     ).to(dtype)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    lse_want = FA.flash_attention_lse_plain(q, k, **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+    before = (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == \
+        tuple(n + 2 for n in before)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    limit = FLASH_BWD_F32_REL if dtype == torch.float32 \
+        else FLASH_BWD_BF16_REL
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a), name
+        assert bool(g.float().isfinite().all()), name
+        assert _within(g, w, limit), (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_bytes_do_not_depend_on_lse(cuda_device, case, dtype):
+    B, S, H, KV, hd, causal, window, cap = case
+    q, k, v = _qkv(S + hd, B, S, H, KV, hd, dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    plain = FA.flash_attention(q, k, v, **kw)
+    with_lse, lse = FA.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, with_lse)
+    assert lse.shape == (B, H, S) and bool(lse.isfinite().all())
+
+
+def test_flash_autograd_matches_autograd_of_plain(cuda_device):
+    """``flash_attention`` with inputs that require grad goes through the
+    autograd Function (one forward, three backward launches), and its
+    gradients in float32 are autograd's of the plain version."""
+    kw = dict(causal=True, window=48, softcap=20.0)
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(5, 2, 160, 8, 2, 128, torch.float32, cuda_device))
+    before = (FA.LAUNCHES, FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES,
+              FA.DQ_LAUNCHES)
+    o = FA.flash_attention(q, k, v, **kw)
+    do = torch.randn_like(o)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (FA.LAUNCHES, FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES,
+            FA.DQ_LAUNCHES) == tuple(n + 1 for n in before)
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v, **kw),
+                               (q, k, v), do)
+    for g, w in zip(grads, want):
+        assert _rel(g, w) <= FLASH_BWD_F32_REL
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One AdamW step of gemma3-1b at full width cut to 2 layers (batch 2,
+    sequence 256, float32) on the card, through the attention kernels,
+    against the same step on the CPU from the same weights: loss and grad
+    norm within 1e-5, every gradient leaf within 1e-4 relative, and the
+    parameters after the step within 1e-3 relative (chip_smoke.py's
+    TRAIN_F32_REL) wherever the CPU's gradient is larger than twice the
+    card's difference from it: AdamW's first step moves an element by lr
+    times g / (|g| + eps), the sign of its gradient, so an element whose
+    gradient is within the difference may flip, and one whose gradient is
+    near eps moves by a fraction of lr that float32 noise changes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.model import init_params
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.optimizer import get_optimizer
+    cfg = dataclasses.replace(get_config("gemma3-1b", n_layers=2),
+                              dtype="float32", param_dtype="float32",
+                              grad_accum=1)
+    params = init_params(cfg, 3, "cpu")
+    batch = make_batch(cfg, 2, 256, 0, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        def to(t):
+            return t.to(dev, copy=True) if isinstance(t, torch.Tensor) else \
+                ({k: to(x) for k, x in t.items()} if isinstance(t, dict)
+                 else [to(x) for x in t])
+        model = Model(cfg, to(params)).trainable()
+        before = FA.DKDV_LAUNCHES
+        grads, metrics = TS.compute_grads(model, to(batch))
+        opt = get_optimizer("adamw")
+        st = opt.init(TS.params_of(model))
+        _, _, gnorm = opt.update(grads, st, TS.params_of(model))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert FA.DKDV_LAUNCHES == before + cfg.n_layers
+        out[str(dev)] = ({n: g.cpu() for n, g in grads.items()},
+                         float(metrics["loss"]), float(gnorm),
+                         {n: p.detach().cpu()
+                          for n, p in TS.params_of(model).items()})
+    (gc, lc, nc, pc), (gg, lg, ng, pg) = out["cpu"], out[str(cuda_device)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(ng - nc) <= 1e-5 * nc
+    for n in gc:
+        assert _rel(gg[n], gc[n]) <= 1e-4, (n, _rel(gg[n], gc[n]))
+        decided = gc[n].abs() > 2 * (gg[n] - gc[n]).abs()
+        assert _rel(pg[n][decided], pc[n][decided]) <= 1e-3, \
+            (n, _rel(pg[n][decided], pc[n][decided]))

@@ -237,6 +237,12 @@ PURITY = textwrap.dedent("""
     assert tuple(toks.shape) == (2, 3)
     toks = serve.run("jamba-1.5-large-398b", 2, 32, 3, device="cpu")
     assert tuple(toks.shape) == (2, 3)
+    from repro_torch.launch import autoconfig, train
+    log = os.path.join(tempfile.mkdtemp(), "rt.jsonl")
+    losses = train.run("gemma3-1b", 2, 2, 16, device="cpu",
+                       runtime_log=log, compress_grads=True)
+    assert len(losses) == 2
+    assert len(autoconfig.records_from_runtime_log(log).y) == 1
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print("LOADED", bad)
