@@ -31,7 +31,7 @@ Phases:
            serve_edge on a localhost socket; the seeded 1024-request
            workload played by run_loadgen at 64 connections in the
            edge's own event loop, as the JAX package's edge bench plays
-           it, in 3 interleaved triples of a socket pass, a bare-TCP pass
+           it, in 7 interleaved triples of a socket pass, a bare-TCP pass
            (the same request and response bytes over the same loop and
            connections, nothing else: the host's TCP cost) and an
            in-process pass, each timed pass on a fully collected heap;
@@ -103,28 +103,36 @@ Phases:
                 prompt 256, 8 decode steps: card in float32 and in bf16
                 vs CPU (float32, plain) logits, greedy tokens and MoE
                 routing
-  train_kernel  the flash-attention backward (flash_bwd_delta, _dkdv, _dq)
-                vs flash_attention_bwd_plain on the forward kernel's o and
-                lse, and vs autograd of flash_attention_plain, in bfloat16
-                (held to a relative bound with two controls that must
-                exceed it: delta set to 0, dS rounded to fp8) and float32,
-                each repeated bit for bit; the forward's bytes with and
-                without its lse output; gemma3-1b's training microbatch
-                (B 2, S 4096, H 4 over 1, hd 256; global and window 512)
-                and edge cases (softcap, G 1/2/4/8, non-causal, ragged S,
-                S = 1, hd 64 and 128); ptxas per instantiation (no
-                spills); CUDA-event times, bounds and SDPA's backward
+  train_kernel  the flash-attention backward (flash_bwd_delta, _dkdv,
+                _dkdv_sum, _dq; bf16 on the wgmma/TMA kernels, float32 on
+                SIMT) vs flash_attention_bwd_plain on the forward kernel's
+                o and lse, and vs autograd of flash_attention_plain, in
+                bfloat16 (held to a relative bound with two controls that
+                must exceed it: delta set to 0, dS rounded to fp8; the
+                dkdv partials vs their plain version and their head sum
+                bit for bit) and float32, each repeated bit for bit; the
+                forward's bytes with and without its lse output;
+                gemma3-1b's training microbatch (B 2, S 4096, H 4 over 1,
+                hd 256; global and window 512) and edge cases (softcap,
+                G 1/2/4/8, non-causal, ragged S, S = 1, hd 64 and 128);
+                ptxas per instantiation (no spills), the wgmma instances'
+                shared memory and HGMMA/UTMALDG counts; CUDA-event times,
+                bounds and SDPA's backward; the kernels profiled calls
+                run, traced in a process of their own (the route's dkdv
+                and dq kernels, none of the other route's)
   train    gemma3-1b at full width and depth through
            repro_torch.launch.train.run: 4 steps of batch 8 x 4096 (remat
            full, AdamW, 4 microbatches); step s, tokens/s, MFU, peak
            memory, losses (finite, the last below the first), launches a
-           step (208 flash forwards, 104 of each backward launch), the
+           step (208 flash forwards, 104 of each backward launch: delta,
+           dkdv, dkdv sum, dq), the
            runtime-log line, read back into launch.autoconfig beside
            simulated H100 records, and the analytic step time for the job
   train_parity  one full-width period of gemma3-1b (6 layers), batch 2 x
                 1024, one AdamW step from the same float32 weights: card
                 float32 and bf16 vs CPU float32 (loss, grad norm, every
-                gradient leaf, parameters after the step), a control with
+                gradient leaf, parameters after the step, those also split
+                by the clipped |g| against AdamW's eps), a control with
                 the backward's delta set to 0; crash-restart at full width
                 with 2 layers, the final loss against the uninterrupted
                 run's at rtol 1e-4
@@ -680,7 +688,11 @@ EDGE_JOBS = ("grep", "sort")
 EDGE_REQUESTS = 1024
 EDGE_CONNECTIONS = 64
 EDGE_TICK_S = 0.004           # the edge bench's tick (benchmarks/run.py)
-EDGE_TRIPLES = 3
+# the gate reads the median of this many triples: on the card's host a
+# socket pass now and then runs far slower than its neighbours with the
+# same code and data (scripts/edge_spread.py), and with three triples two
+# such passes decided the run
+EDGE_TRIPLES = 7
 # the HTTP layer's budget: over the socket, a request may take at most
 # this many in-process request times more than the host's bare TCP
 # exchange of the same bytes takes (the edge bench's 0.5x bound where a
@@ -1707,6 +1719,25 @@ def ptxas_by_instance(log, label):
     return per
 
 
+def tensor_core_sass(build, so_path, label):
+    """{label(mangled name): {"HGMMA": n, "UTMALDG": m}}: the tensor-core
+    and TMA-load instructions of each labelled function in ``cuobjdump
+    --dump-sass`` of a built library, and the library's totals."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per = {}
+    for part in sass.split("Function : ")[1:]:
+        name = label(part.split()[0])
+        if name:
+            per[name] = {"HGMMA": part.count("HGMMA"),
+                         "UTMALDG": part.count("UTMALDG")}
+    return per, {"HGMMA": sass.count("HGMMA"),
+                 "UTMALDG": sass.count("UTMALDG")}
+
+
 def flash_build_phase(build, so_path):
     """What the compiler made of flash_attention.cu, per instantiation:
     ptxas's registers, static shared memory and spills (from
@@ -1724,17 +1755,9 @@ def flash_build_phase(build, so_path):
             cfg = FA.tile_config(int(name.split()[3]))
             info.update(BK=cfg["BK"], stages=cfg["NS"],
                         dynamic_smem_bytes=cfg["SMEM"])
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    for part in sass.split("Function : ")[1:]:
-        name = _flash_instance(part.split()[0])
-        if name in per:
-            per[name]["HGMMA"] = part.count("HGMMA")
-            per[name]["UTMALDG"] = part.count("UTMALDG")
+    counts, total = tensor_core_sass(build, so_path, _flash_instance)
     for name, info in per.items():
+        info.update(counts.get(name, {}))
         assert info.get("spill_stores", 1) == 0, (name, info)
         if name.startswith("bf16"):
             assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
@@ -1744,9 +1767,7 @@ def flash_build_phase(build, so_path):
                for n in per) == 3, per
     assert sum(n.startswith("bf16") and n.endswith("lse") for n in per) == 3, \
         per
-    emit("flash_build", t0, instances=per,
-         sass_total={"HGMMA": sass.count("HGMMA"),
-                     "UTMALDG": sass.count("UTMALDG")})
+    emit("flash_build", t0, instances=per, sass_total=total)
 
 
 def _instance(mangled):
@@ -2783,12 +2804,16 @@ def jamba_parity_phase():
 # (the forward kernel's o and lse) and against autograd of
 # flash_attention_plain: float32 sums over up to 4096 terms in another
 # order; bfloat16 (card tests: FLASH_BWD_BF16_REL in
-# tests/test_torch_gpu.py) the kernel rounds dq, dk and dv once to bf16,
-# 2**-9 relative.  PERF.md gives the readings (against the plain version
-# up to 4.6e-5, against autograd, whose O comes from its own float32
-# softmax and not the kernel's bf16-P one, up to 1.8e-3); the controls
-# (delta set to 0, dS rounded to fp8 e4m3 with a scale per row, 0.018 or
-# more) must exceed the limit
+# tests/test_torch_gpu.py) the wgmma kernels round P and dS to bf16 before
+# their products, as the forward rounds P, and dq, dk and dv once at the
+# end (2**-9 relative each), which the float32-inside plain version does
+# not.  PERF.md gives the readings (the first, SIMT design, float32
+# inside: against the plain version up to 4.6e-5, against autograd, whose
+# O comes from its own float32 softmax and not the kernel's bf16-P one, up
+# to 1.8e-3; a CPU replay of the wgmma route's roundings,
+# tests/test_torch_flash_bwd.py, reads 2.4e-3 to 2.7e-3 against the plain
+# version); the controls (delta set to 0, dS rounded to fp8 e4m3 with a
+# scale per row, 0.018 or more) must exceed the limit
 FLASH_BWD_F32_REL = 1e-5
 FLASH_BWD_BF16_REL = 5e-3
 # gemma3-1b's training microbatch: batch 8 over grad_accum 4
@@ -2807,17 +2832,35 @@ TRAIN_MICRO_B = 2
 # the flash backward's delta set to 0, must exceed it (it read 9.4)
 TRAIN_F32_REL = 1e-3
 TRAIN_BF16_REL = 5e-2
+# The float32 parameters after the step, split by the clipped gradient
+# |g| that AdamW sees against its eps: the first step moves an element by
+# lr g / (|g| + eps), whose change with g, eps / (|g| + eps)^2, is at most
+# 1 / (4 eps) at |g| = eps and under 1e-3 / |g| where |g| > 1e3 eps.  So a
+# float32 difference in g moves the parameters only where |g| is near eps,
+# and where |g| > ADAMW_FAR_EPS * eps (and decided) they are held to
+# TRAIN_F32_FAR_REL, float32 rounding of the update
+ADAMW_FAR_EPS = 1e3
+TRAIN_F32_FAR_REL = 1e-5
 PARITY_TRAIN_B, PARITY_TRAIN_S = 2, 1024
+# the flash backward's launches, in the order a call makes them
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dkdv_sum",
+               "flash_bwd_dq")
 
 
 def _bwd_instance(mangled):
     """A label of a mangled kernel name of flash_attention_bwd.cu, such as
-    'dkdv bf16 hd 256' or 'delta f32', else None."""
+    'dkdv bf16 wgmma hd 256', 'dq f32 hd 64' (the SIMT route), 'dkdv sum'
+    or 'delta f32', else None."""
+    m = re.search(r"flash_bwd_(dkdv|dq)_wgmma_kernelILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)} bf16 wgmma hd {m.group(2)}"
     m = re.search(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                   mangled)
     if m:
         dt = "f32" if m.group(2) == "f" else "bf16"
         return f"{m.group(1)} {dt} hd {m.group(3)}"
+    if "flash_bwd_dkdv_sum_kernel" in mangled:
+        return "dkdv sum"
     m = re.search(r"flash_bwd_delta_kernelI(f|13__nv_bfloat16)E", mangled)
     return (f"delta {'f32' if m.group(1) == 'f' else 'bf16'}" if m
             else None)
@@ -2894,6 +2937,23 @@ def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
             assert _within(g, ref, limit), \
                 f"flash backward {label} {dtype} {name}: {r[name]} beyond " \
                 f"{limit}"
+    if dtype == "bfloat16" and H > KV:
+        # the wgmma dkdv launch's per-head partials against their plain
+        # version, and their sum (heads in order, one rounding) bit for bit
+        delta = FA.flash_bwd_delta(o, do)
+        part = FA.flash_bwd_dkdv_partials(q, k, v, do, lse, delta, **kw)
+        sums = FA.flash_bwd_dkdv_sum(part, KV)
+        sync()
+        part_want = FA.flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta,
+                                                     **kw)
+        r["partials_rel"] = _rel_err(part, part_want) if S > 1 else None
+        assert _within(part, part_want, limit), (label, r["partials_rel"])
+        plain_sums = FA.flash_bwd_dkdv_sum_plain(part, KV)
+        r["sum_bit_equal"] = all(torch.equal(a, b)
+                                 for a, b in zip(sums, plain_sums))
+        r["sum_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip(sums, plain_sums))
+        assert r["sum_bit_equal"], f"flash backward {label}: dkdv sum"
     if dtype == "bfloat16" and S > 1:
         scale = hd ** -0.5
         delta = FA.flash_bwd_delta_plain(o, do)
@@ -2913,91 +2973,220 @@ def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
 
 
 def flash_bwd_bounds(B, S, H, KV, hd, causal, window, dtype):
-    """Bounds of the three launches on this run's inputs: bytes (each
+    """Bounds of the backward's launches on this run's inputs: bytes (each
     input read once, each output written once) at the HBM rate against the
     products of the kept pairs (dkdv: S, dP, dV, dK, 8 hd a pair; dq: S,
-    dP, dQ, 6 hd; delta: 2 hd a row) at the peak of the inputs' type."""
+    dP, dQ, 6 hd; delta: 2 hd a row) at the peak of the inputs' type.  In
+    bf16 with G = H / KV > 1 the dkdv launch writes float32 partials
+    [2, B, S, H, hd], and flash_bwd_dkdv_sum reads them and writes dk and
+    dv (G - 1 float32 adds an element, at the float32 peak)."""
     item = 2 if dtype == "bfloat16" else 4
     pairs = B * H * kept_pairs(S, causal, window)
     q_b, kv_b, rows = item * B * S * H * hd, item * B * S * KV * hd, B * H * S
-    return {
+    part_b = 2 * 4 * B * S * H * hd
+    split = dtype == "bfloat16" and H > KV
+    out = {
         "flash_bwd_delta": attn_bound_ms(2 * q_b + 4 * rows,
                                          2 * B * S * H * hd, dtype),
-        "flash_bwd_dkdv": attn_bound_ms(2 * q_b + 4 * kv_b + 8 * rows,
-                                        8 * hd * pairs, dtype),
+        "flash_bwd_dkdv": attn_bound_ms(
+            2 * q_b + 2 * kv_b + (part_b if split else 2 * kv_b) + 8 * rows,
+            8 * hd * pairs, dtype),
         "flash_bwd_dq": attn_bound_ms(3 * q_b + 2 * kv_b + 8 * rows,
                                       6 * hd * pairs, dtype)}
+    if split:
+        out["flash_bwd_dkdv_sum"] = attn_bound_ms(
+            part_b + 2 * kv_b, 2 * B * S * KV * hd * (H // KV - 1), "float32")
+    return out
+
+
+def sdpa_backward_times(q, k, v, do, window):
+    """SDPA's backward at the shape of [B, S, heads, hd] q, k, v and do,
+    causal (with a window, through a boolean mask), on [B, heads, S, hd]
+    copies, by CUDA events: forward, forward and backward, and the
+    backward as their difference; None where SDPA has no GQA."""
+    import torch
+    import torch.nn.functional as F
+    if not sdpa_has_gqa():
+        return None
+    S = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                             - window)
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    f_ms, fb_ms = cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10)
+    return {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
+            "backward_ms": fb_ms - f_ms}
 
 
 def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
     """CUDA-event times of each backward launch and of its plain version,
     the bounds, and SDPA's backward at the same shape (forward and
-    backward less the forward, on [B, H, S, hd] copies; bf16 only)."""
+    backward less the forward, on [B, H, S, hd] copies; bf16 only).  In
+    bf16 with G > 1 the dkdv launch (its partials) and the sum are timed
+    apart, the sum beside one ``torch.sum`` over the heads of the same
+    partials (float32 out: without the rounding).  The kernel names that
+    profiled calls of the whole backward show (``bwd_trace``) go with the
+    times, and those the traces missed."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     kw = dict(window=window)
     q, k, v, do = _tensors(seed, ((B, S, H, hd), (B, S, KV, hd),
                                   (B, S, KV, hd), (B, S, H, hd)), dtype)
     o, lse = FA.flash_attention_lse(q, k, v, **kw)
     delta = FA.flash_bwd_delta(o, do)
-    out = {}
-    for name, fn, plain in (
-            ("flash_bwd_delta", lambda: FA.flash_bwd_delta(o, do),
-             lambda: FA.flash_bwd_delta_plain(o, do)),
+    steps = [("flash_bwd_delta", lambda: FA.flash_bwd_delta(o, do),
+              lambda: FA.flash_bwd_delta_plain(o, do))]
+    split = dtype == "bfloat16" and H > KV
+    if split:
+        part = FA.flash_bwd_dkdv_partials(q, k, v, do, lse, delta, **kw)
+        steps += [
             ("flash_bwd_dkdv",
-             lambda: FA.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
-             lambda: FA.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)),
-            ("flash_bwd_dq",
-             lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-             lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw))):
+             lambda: FA.flash_bwd_dkdv_partials(q, k, v, do, lse, delta, **kw),
+             lambda: FA.flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta,
+                                                      **kw)),
+            ("flash_bwd_dkdv_sum", lambda: FA.flash_bwd_dkdv_sum(part, KV),
+             lambda: FA.flash_bwd_dkdv_sum_plain(part, KV))]
+    else:
+        steps += [("flash_bwd_dkdv",
+                   lambda: FA.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+                   lambda: FA.flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                   **kw))]
+    steps += [("flash_bwd_dq",
+               lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+               lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw))]
+    out = {}
+    for name, fn, plain in steps:
         out[name] = {"ms": cuda_ms(fn, 10, warm=2),
                      "plain_ms": cuda_ms(plain, 3, warm=1)}
     for name, (bnd, by) in flash_bwd_bounds(B, S, H, KV, hd, True, window,
                                             dtype).items():
         out[name].update(bound_ms=bnd, bound_by=by)
+    if split:
+        grouped = part.view(2, B, S, KV, H // KV, hd)
+        out["flash_bwd_dkdv_sum"]["library_ms"] = cuda_ms(
+            lambda: torch.sum(grouped, dim=4), 10, warm=2)
+        del part, grouped
+    out.update(bwd_trace(dtype, window))
     out["forward_ms"] = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)
-    lib = None
-    if dtype == "bfloat16" and sdpa_has_gqa():
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        mask = None
-        if window:
-            i = torch.arange(S, device=q.device)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                                 - window)
-
-        def fwd():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
-
-        def fwd_bwd():
-            torch.autograd.grad(fwd(), (qt, kt, vt), dot)
-        f_ms, fb_ms = cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10)
-        lib = {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
-               "backward_ms": fb_ms - f_ms}
-    out["sdpa"] = lib
-    out["backward_ms"] = sum(out[n]["ms"] for n in (
-        "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+    out["sdpa"] = sdpa_backward_times(q, k, v, do, window) \
+        if dtype == "bfloat16" else None
+    out["backward_ms"] = sum(out[n]["ms"] for n in BWD_KERNELS if n in out)
     return out
 
 
-def train_kernel_phase(build):
-    """The flash backward on the card: ptxas's registers and spills per
-    instantiation (none may spill), every case of ``check_flash_bwd`` in
-    bfloat16 and float32 (gemma3-1b's training microbatch, global and
-    window 512, and the edge cases: softcap, G 1/2/4/8, non-causal, ragged
-    S, S = 1, hd 64 and 128, a window across tiles), then CUDA-event times
-    at the training shape with their bounds and SDPA's backward."""
-    t0 = time.perf_counter()
+def bwd_route_kernels(dtype):
+    """The kernels flash_attention_bwd launches in ``dtype`` with more
+    query heads than kv heads: (all of them, the dkdv and dq kernels a
+    trace must show)."""
+    if dtype == "bfloat16":
+        need = {"flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"}
+        return need | {"flash_bwd_delta_kernel",
+                       "flash_bwd_dkdv_sum_kernel"}, need
+    need = {"flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"}
+    return need | {"flash_bwd_delta_kernel"}, need
+
+
+def bwd_trace_child(dtype, window):
+    """``chip_smoke.py --bwd-trace DTYPE WINDOW``: up to three profiled
+    traces of 5 calls of flash_attention_bwd at the training microbatch
+    (4 query heads over 1 of 256), stopping once every kernel of the
+    route is seen; prints the pooled kernel names and the traces taken."""
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
+    q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
+                               (B, S, KV, hd), (B, S, H, hd)), dtype)
+    o, lse = FA.flash_attention_lse(q, k, v, window=window)
+    want, _ = bwd_route_kernels(dtype)
+    seen, tries = set(), 0
+    while tries < 3 and not want <= seen:
+        tries += 1
+        names = lm_time(lambda: FA.flash_attention_bwd(
+            q, k, v, o, lse, do, window=window), 5)["kernel_names"]
+        seen |= {w for n in names
+                 for w in re.findall(r"flash_bwd_\w+_kernel", n)}
+    print(json.dumps({"seen": sorted(seen), "traces": tries}))
+    return 0
+
+
+def bwd_trace(dtype, window):
+    """The kernel names that traces of the whole backward show at the
+    training microbatch, from ``bwd_trace_child`` in a process of its own.
+    In this process, after the earlier phases, torch.profiler has
+    recorded no device event of a float32 backward in three traces, while
+    a fresh process records every launch.  Fails unless the route's dkdv
+    and dq kernels were seen, and on any kernel of the other route."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--bwd-trace", dtype, str(window)],
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0 and p.stdout.strip(), \
+        f"bwd trace {dtype}: rc {p.returncode}: {p.stderr[-2000:]}"
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    want, need = bwd_route_kernels(dtype)
+    seen = set(got["seen"])
+    assert need <= seen <= want, \
+        f"flash backward {dtype} window {window}: the trace shows {seen}"
+    return {"trace_kernels": sorted(seen),
+            "trace_missing": sorted(want - seen), "traces": got["traces"]}
+
+
+def bwd_build(build):
+    """What the compiler made of flash_attention_bwd.cu, per instantiation:
+    ptxas's registers, spills and stack (none may spill), for the wgmma
+    instances their dynamic shared memory and tiles (``bwd_tc_config``)
+    and the counts of tensor-core (HGMMA) and TMA-load (UTMALDG)
+    instructions in their SASS.  Exactly 15 instances: delta in both
+    types, dkdv and dq in float32 (SIMT) and bf16 (wgmma) at hd 64, 128
+    and 256, and the dkdv sum; no bf16 SIMT instance is left."""
+    from repro_torch.kernels import flash_attention as FA
     per = ptxas_by_instance(build.BUILD_INFO["flash_attention_bwd"]["log"],
                             _bwd_instance)
-    assert len(per) == 14, sorted(per)
+    assert len(per) == 15, sorted(per)
+    assert not [n for n in per if n.split()[1:3] == ["bf16", "hd"]], per
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1)) > 0}
     assert not spills, spills
+    so = build.build_all(["flash_attention_bwd"])["flash_attention_bwd"]
+    counts, _ = tensor_core_sass(build, so, _bwd_instance)
+    for name, info in per.items():
+        if "wgmma" in name:
+            info.update(counts.get(name, {}))
+            kind, hd = name.split()[0], int(name.split()[-1])
+            cfg = FA.bwd_tc_config(hd)[kind]
+            info.update(dynamic_smem_bytes=cfg["SMEM"], BQ=cfg["BQ"],
+                        BK=cfg["BK"], stages=cfg["NS"])
+            assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
+                (name, info)
+    return per
+
+
+def train_kernel_phase(build):
+    """The flash backward on the card: ``bwd_build`` (registers, shared
+    memory, spills, HGMMA and UTMALDG per instantiation), every case of
+    ``check_flash_bwd`` in bfloat16 and float32 (gemma3-1b's training
+    microbatch, global and window 512, and the edge cases: softcap, G
+    1/2/4/8, non-causal, ragged S, S = 1, hd 64 and 128, a window across
+    tiles), then CUDA-event times at the training shape with their bounds
+    and SDPA's backward, and the kernels a profiled call runs."""
+    t0 = time.perf_counter()
+    per = bwd_build(build)
     B, S = TRAIN_MICRO_B, TRAIN_S
     cases = [   # label, B, S, H, KV, hd, causal, window, cap
         ("train global", B, S, 4, 1, 256, True, 0, 0.0),
@@ -3017,6 +3206,9 @@ def train_kernel_phase(build):
             rel[f"{c[0]} {dt}"] = r
             worst[dt] = max([worst.get(dt, 0.0)] + [
                 r[n]["max_abs_err"] for n in ("dq", "dk", "dv")])
+            if "sum_max_abs_err" in r:     # the bf16 dkdv sum's cases
+                worst["sum"] = max(worst.get("sum", 0.0),
+                                   r["sum_max_abs_err"])
             _free_card()
     times = {}
     for name, window in (("global", 0), ("local", 512)):
@@ -3075,7 +3267,7 @@ def train_phase():
         _free_card()
         torch.cuda.reset_peak_memory_stats()
         FA.LAUNCHES = FA.DELTA_LAUNCHES = FA.DKDV_LAUNCHES = 0
-        FA.DQ_LAUNCHES = 0
+        FA.DKDV_SUM_LAUNCHES = FA.DQ_LAUNCHES = 0
         t1 = time.perf_counter()
         losses = train.run("gemma3-1b", TRAIN_STEPS, TRAIN_B, TRAIN_S,
                            smoke=False, device=LM_DEVICE, runtime_log=log,
@@ -3085,6 +3277,7 @@ def train_phase():
         launches = {"flash_attention": FA.LAUNCHES,
                     "flash_bwd_delta": FA.DELTA_LAUNCHES,
                     "flash_bwd_dkdv": FA.DKDV_LAUNCHES,
+                    "flash_bwd_dkdv_sum": FA.DKDV_SUM_LAUNCHES,
                     "flash_bwd_dq": FA.DQ_LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
         with open(log) as f:
@@ -3124,9 +3317,13 @@ def train_phase():
                      "selected_model": pred.selected})
     assert len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
     assert losses[-1] < losses[0], f"train: the loss did not fall: {losses}"
+    # every layer's backward: its 4 query heads over 1 kv head take the
+    # dkdv sum (G > 1)
     micro = TRAIN_STEPS * cfg.grad_accum * cfg.n_layers
+    assert cfg.n_heads > cfg.n_kv_heads
     assert launches == {"flash_attention": 2 * micro,
                         "flash_bwd_delta": micro, "flash_bwd_dkdv": micro,
+                        "flash_bwd_dkdv_sum": micro,
                         "flash_bwd_dq": micro}, launches
     assert rec["device"] == torch.cuda.get_device_name(0)
     assert "n_layers" not in rec and rec["final_loss"] == losses[-1]
@@ -3157,22 +3354,52 @@ def _step_on(model, batch):
             {n: p.detach().float().cpu() for n, p in params.items()})
 
 
+def _adamw_eps():
+    import inspect
+    from repro_torch.train import optimizer
+    return inspect.signature(optimizer.adamw).parameters["eps"].default
+
+
 def _compare_step(got, want):
+    """Card against CPU after one step: the loss, the grad norm, every
+    gradient leaf, and the parameters after the step where decided; those
+    also split by the CPU's clipped gradient |g| against AdamW's eps
+    (bins up to 10 eps, up to ADAMW_FAR_EPS eps, beyond), each bin's worst
+    leaf and its element count."""
     (gg, gm, gp), (wg, wm, wp) = got, want
     per, glob = _grad_rel(gg, wg)
     worst = max(per, key=per.get)
+    eps = _adamw_eps()
+    clip = min(1.0, 1.0 / wm["grad_norm"])   # adamw's max_grad_norm 1.0
+    bins = {"g<=10eps": (0.0, 10.0),
+            f"10eps<g<={ADAMW_FAR_EPS:g}eps": (10.0, ADAMW_FAR_EPS),
+            f"g>{ADAMW_FAR_EPS:g}eps": (ADAMW_FAR_EPS, math.inf)}
+    by_g = {b: {"rel_max": 0.0, "leaf": None, "elements": 0} for b in bins}
     prel = {}
     for n in wp:
         decided = wg[n].abs() > 2 * (gg[n] - wg[n]).abs()
         prel[n] = _rel_err(gp[n][decided], wp[n][decided]) \
             if bool(decided.any()) else 0.0
         prel[n] = prel[n] if math.isfinite(prel[n]) else 0.0
+        g_eps = (wg[n] * clip).abs() / eps
+        for b, (lo, hi) in bins.items():
+            sel = decided & (g_eps > lo) & (g_eps <= hi)
+            if not bool(sel.any()):
+                continue
+            r = _rel_err(gp[n][sel], wp[n][sel])
+            r = r if math.isfinite(r) else 0.0
+            by_g[b]["elements"] += int(sel.sum())
+            if r > by_g[b]["rel_max"]:
+                by_g[b].update(rel_max=r, leaf=n)
     return {"loss_rel": abs(gm["loss"] - wm["loss"]) / abs(wm["loss"]),
             "grad_norm_rel": abs(gm["grad_norm"] - wm["grad_norm"])
             / wm["grad_norm"],
             "grad_rel_global": glob, "grad_rel_max": per[worst],
             "grad_rel_max_leaf": worst,
             "params_after_rel_max": max(prel.values()),
+            "params_after_rel_by_g": by_g,
+            "params_after_rel_far": by_g[f"g>{ADAMW_FAR_EPS:g}eps"]
+            ["rel_max"],
             "params_undecided": int(sum(
                 int((wg[n].abs() <= 2 * (gg[n] - wg[n]).abs()).sum())
                 for n in wg)),
@@ -3243,7 +3470,9 @@ def train_parity_phase():
                             ckpt_every=2, **kw)
     emit("train_parity", t0, layers=cfg.n_layers, batch=PARITY_TRAIN_B,
          seq=PARITY_TRAIN_S, cpu_step_s=cpu_s, readings=r,
-         tolerances={"float32": TRAIN_F32_REL, "bfloat16": TRAIN_BF16_REL},
+         tolerances={"float32": TRAIN_F32_REL, "bfloat16": TRAIN_BF16_REL,
+                     "float32_params_where_g_over_eps_above":
+                     [ADAMW_FAR_EPS, TRAIN_F32_FAR_REL]},
          crash_restart={"layers": 2, "batch": 4, "seq": 512,
                         "losses": ref, "resumed_losses": resumed,
                         "bit_equal": resumed[-1] == ref[-1]})
@@ -3251,6 +3480,8 @@ def train_parity_phase():
     for key in ("loss_rel", "grad_norm_rel", "grad_rel_max",
                 "params_after_rel_max"):
         assert a[key] <= TRAIN_F32_REL, f"train_parity float32 {key}: {a}"
+    assert a["params_after_rel_far"] <= TRAIN_F32_FAR_REL, \
+        f"train_parity float32 where |g| >> eps: {a['params_after_rel_by_g']}"
     b = r["bfloat16"]
     assert b["loss_rel"] <= TRAIN_BF16_REL and \
         b["grad_rel_max"] <= TRAIN_BF16_REL, f"train_parity bfloat16: {b}"
@@ -3264,16 +3495,24 @@ def train_parity_phase():
 def bwd_kernel_line(name, launches, err, times):
     """The ``kernels`` line's entry of one flash backward launch: times at
     gemma3-1b's training microbatch, global layer, bf16 (the main path's
-    type), beside the local layer's and float32's."""
+    type), beside the local layer's and float32's (float32 has no dkdv
+    sum)."""
     g, loc = times["global bfloat16"], times["local bfloat16"]
     f32 = times["global float32"]
     sdpa = g["sdpa"] and g["sdpa"]["backward_ms"]
+    if name == "flash_bwd_dkdv_sum":
+        sdpa = g[name]["library_ms"]
     out = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:72 (its "
                        "gradient: the JAX package has no Pallas backward)",
-           "launches": launches, "max_abs_err": max(err.values()),
-           "max_abs_err_by_dtype": err,
+           "launches": launches,
+           # the sum runs in bf16 only (its cases' worst, measured)
+           "max_abs_err": err["sum"] if name == "flash_bwd_dkdv_sum"
+           else max(err[dt] for dt in ("bfloat16", "float32")),
+           "max_abs_err_by_dtype": {"bfloat16": err["sum"]}
+           if name == "flash_bwd_dkdv_sum"
+           else {dt: err[dt] for dt in ("bfloat16", "float32")},
            "ms": g[name]["ms"], "plain_ms": g[name]["plain_ms"],
            "bound_ms": g[name]["bound_ms"], "bound_by": g[name]["bound_by"],
            "library_ms": None if name == "flash_bwd_delta" else sdpa,
@@ -3282,9 +3521,13 @@ def bwd_kernel_line(name, launches, err, times):
                     "hd=256 causal bf16",
            "ms_local": loc[name]["ms"], "plain_ms_local": loc[name]["plain_ms"],
            "bound_ms_local": loc[name]["bound_ms"],
-           "ms_float32": f32[name]["ms"],
-           "bound_ms_float32": f32[name]["bound_ms"]}
-    if name != "flash_bwd_delta":
+           "ms_float32": f32.get(name, {}).get("ms"),
+           "bound_ms_float32": f32.get(name, {}).get("bound_ms")}
+    if name == "flash_bwd_dkdv_sum":
+        out["library_covers"] = ("one torch.sum over the heads of the same "
+                                 "partials, float32 out (no rounding)")
+        out["library_ms_local"] = loc[name]["library_ms"]
+    elif name != "flash_bwd_delta":
         out["library_covers"] = ("SDPA's whole backward (dq, dk and dv): "
                                  "forward and backward less the forward")
         out["library_ms_local"] = loc["sdpa"] and loc["sdpa"]["backward_ms"]
@@ -3475,7 +3718,7 @@ def main():
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
                  "float32, given h0"}] + [
         bwd_kernel_line(name, train_launches[name], bwd_err, bwd_times)
-        for name in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")]}),
+        for name in BWD_KERNELS]}),
         flush=True)
     print(smi, flush=True)
     if not edge["gate_ok"]:
@@ -3495,4 +3738,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--bwd-trace":
+        sys.exit(bwd_trace_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

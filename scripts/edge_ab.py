@@ -6,7 +6,7 @@
 Each turn is a fresh process that imports ``chip_smoke`` and
 ``repro_torch`` from its tree, builds that tree's GBM kernel, warms the
 edge's demo gateway on the card and runs the edge phase ``--runs`` times
-(each: 3 interleaved socket / bare-TCP / in-process triples of the
+(each: 7 interleaved socket / bare-TCP / in-process triples of the
 seeded 1024-request workload at 64 connections, gated on t_socket -
 t_tcp <= 2 t_inproc in the median triple).  The turns go A, B, B, A, so
 drift over the call hits both trees alike.  It prints one JSON line a

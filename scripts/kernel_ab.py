@@ -32,8 +32,19 @@ at gemma3-1b's global and local layers (B 8, S 2048, 4 heads over 1 of
 256) and jamba-1.5-large's (64 heads over 8 of 128), and hashes the
 instructions of the bf16 serving instances in ``cuobjdump --dump-sass``
 of the built library (the instance without the training lse output), so
-that two trees show whether serving runs the same code.  ``--only`` takes
-steps from gbm, kernels, flash and the archs.  Needs a CUDA card.
+that two trees show whether serving runs the same code.  The step
+"train" (also run only when ``--only`` names it) times the bf16 flash
+backward at gemma3-1b's training microbatch (B 2, S 4096, 4 query heads
+over 1 of 256, causal; the global layer and window 512) by CUDA events:
+the whole backward (``flash_attention_bwd``) and each public launch
+wrapper (delta, dkdv with its head sum where the tree has one, dq), with
+SDPA's backward beside them; then a gemma3-1b training run at full width
+and depth (10 steps of 8 x 4096, the runtime log's median step, warm-up
+excluded).  Each step of that run also records its wall and process CPU
+seconds on the host, and what ``nvidia-smi`` sampled during it every
+0.1 s or so: SM clock, power draw, utilization and the clock-event
+(throttle) reasons.  ``--only`` takes steps from gbm, kernels, flash, train and the
+archs.  Needs a CUDA card.
 """
 import hashlib
 import json
@@ -43,6 +54,8 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORDER = (0, 1, 1, 0)
@@ -158,6 +171,112 @@ def flash(label):
     return out
 
 
+TRAIN_BWD = {"bwd_global": 0, "bwd_local": 512}   # window
+TRAIN_STEPS = 10
+SMI_QUERY = "clocks.sm,power.draw,utilization.gpu,{}"
+SMI_REASONS = ("clocks_event_reasons.active",
+               "clocks_throttle_reasons.active")    # newer, older drivers
+
+
+class StepStamps(list):
+    """``history`` for ``train.run``: each step's record, stamped with the
+    host clock and the process's CPU time when the step ended."""
+
+    def append(self, rec):
+        super().append(dict(rec, end=time.perf_counter(),
+                            cpu=time.process_time()))
+
+
+def smi_sampler(stop, samples):
+    """Append (host clock, sm MHz, W, util %, reasons bitmask) samples of
+    the card until ``stop`` is set."""
+    for reasons in SMI_REASONS:
+        query = SMI_QUERY.format(reasons)
+        p = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        if p.returncode == 0:
+            break
+    else:
+        return
+    while not stop.is_set():
+        t = time.perf_counter()
+        p = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        f = [x.strip() for x in p.stdout.splitlines()[0].split(",")]
+        samples.append((t, float(f[0]), float(f[1]), float(f[2]), f[3]))
+        stop.wait(0.1)
+
+
+def step_table(t0, cpu0, history, samples):
+    """Per step: wall and CPU seconds, and the card's samples within it."""
+    out, prev, prev_cpu = [], t0, cpu0
+    for h in history:
+        inside = [x for x in samples if prev <= x[0] < h["end"]]
+        out.append({
+            "step": h["step"], "s": h["seconds"],
+            "cpu_s": h["cpu"] - prev_cpu, "samples": len(inside),
+            "sm_mhz_min": min((x[1] for x in inside), default=None),
+            "sm_mhz_max": max((x[1] for x in inside), default=None),
+            "power_w_max": max((x[2] for x in inside), default=None),
+            "util_pct_mean": (sum(x[3] for x in inside) / len(inside)
+                              if inside else None),
+            "reasons": sorted({x[4] for x in inside})})
+        prev, prev_cpu = h["end"], h["cpu"]
+    return out
+
+
+def train(label):
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as T
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    out = {"label": label, "card": CS.nvidia_smi()}
+    B, S, H, KV, hd = CS.TRAIN_MICRO_B, CS.TRAIN_S, 4, 1, 256
+    for name, window in TRAIN_BWD.items():
+        q, k, v, do = CS._tensors(9, ((B, S, H, hd), (B, S, KV, hd),
+                                      (B, S, KV, hd), (B, S, H, hd)),
+                                  "bfloat16")
+        kw = dict(window=window)
+        o, lse = FA.flash_attention_lse(q, k, v, **kw)
+        delta = FA.flash_bwd_delta(o, do)
+        out[name] = {
+            "backward_ms": CS.cuda_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, lse, do, **kw), 10, warm=2),
+            "delta_ms": CS.cuda_ms(lambda: FA.flash_bwd_delta(o, do), 10),
+            "dkdv_ms": CS.cuda_ms(lambda: FA.flash_bwd_dkdv(
+                q, k, v, do, lse, delta, **kw), 10, warm=2),
+            "dq_ms": CS.cuda_ms(lambda: FA.flash_bwd_dq(
+                q, k, v, do, lse, delta, **kw), 10, warm=2),
+            "sdpa": CS.sdpa_backward_times(q, k, v, do, window)}
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    history, samples, stop = StepStamps(), [], threading.Event()
+    sampler = threading.Thread(target=smi_sampler, args=(stop, samples))
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        sampler.start()
+        t0, cpu0 = time.perf_counter(), time.process_time()
+        try:
+            losses = T.run("gemma3-1b", TRAIN_STEPS, CS.TRAIN_B, CS.TRAIN_S,
+                           smoke=False, device="cuda", runtime_log=log,
+                           history=history)
+        finally:
+            stop.set()
+            sampler.join()
+        rec = json.loads(open(log).read().splitlines()[-1])
+    out["train"] = {"median_step_s": rec["median_step_s"], "losses": losses,
+                    "tokens_per_s": CS.TRAIN_B * CS.TRAIN_S
+                    / rec["median_step_s"],
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "steps": step_table(t0, cpu0, history, samples)}
+    return out
+
+
 def serve(label, arch):
     import torch
     from repro_torch.launch import serve as S
@@ -175,7 +294,8 @@ def serve(label, arch):
 def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
-    step = {"gbm": gbm, "kernels": kernels, "flash": flash}.get(what)
+    step = {"gbm": gbm, "kernels": kernels, "flash": flash,
+            "train": train}.get(what)
     res = step(label) if step else serve(label, what)
     print(json.dumps(res), flush=True)
     return 0

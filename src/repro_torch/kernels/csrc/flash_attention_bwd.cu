@@ -9,8 +9,8 @@
 // function, so that training on the card goes through the hand-written
 // forward and a hand-written backward, with no library call between them.
 //
-// The arithmetic, float32 inside for both input types, in this order (with
-// s = (q * scale) . k, the forward's score):
+// The arithmetic, in this order (s the forward's score of the dtype's
+// route: (q * scale) . k in float32, (q . k) * scale in bf16):
 //   delta[i] = sum_d dO[i, d] * O[i, d]                     (flash_bwd_delta)
 //   c = cap * tanh(s / cap) when a softcap is set, else s; the masked pairs
 //   (k >= S, k > q when causal, k <= q - window) have p = 0;
@@ -20,25 +20,83 @@
 //   dV[j] = sum_i p dO[i];  dK[j] = sum_i dS (q[i] * scale)  (flash_bwd_dkdv)
 //   dQ[i] = scale * sum_j dS k[j]                             (flash_bwd_dq)
 // and each result is rounded once to the input type.  There are no atomics:
-// every output element is summed by one thread in a fixed order, so a call
-// repeats bit for bit on the same card and shapes.  flash_bwd_dkdv runs one
-// block per (key tile, batch, kv head) and loops over the G query heads of
-// the group and over the query tiles the masks keep, so that dK and dV of a
-// group are summed in registers; flash_bwd_dq runs one block per (query
-// tile, batch, head), longest causal rows first, and loops over the key
-// tiles the masks keep.
+// every output element is summed in one fixed order, so a call repeats bit
+// for bit on the same card and shapes.  Tiles that every mask empties are
+// skipped (the loops' bounds); masks are applied only on a tile that crosses
+// one.  The dtype picks the route; there is no fallback.
 //
-// What bounds it on this card: at gemma3-1b's training shape (B 2, S 4096,
-// 4 heads over 1 of hd 256, causal) the three launches do about 200 GFLOP of
-// float32 arithmetic against 0.1 GB of inputs and outputs, so the bound is
-// the card's arithmetic, not the bytes.  This first design is SIMT: float32
-// FMAs out of shared memory, 256 threads a block, each thread a 4 x BK/16
-// patch of the score tile (rows tr + 16 i, keys tc + 16 j, so that a warp's
-// loads of 16 rows of a padded tile hit distinct banks) and a patch of the
-// accumulators with float4 columns.  Tiles: 64 query rows; 64 keys (hd 64,
-// 128) or 32 (hd 256), rows padded by 4 floats; shared memory 103 / 169 /
-// 217 KB (dkdv) and 86 / 152 / 208 KB (dq).  It leaves the tensor cores
-// idle; a wgmma/TMA design is later work.
+// bfloat16, the training route (namespace tc).  What bounds it on this
+// card: at gemma3-1b's training microbatch (B 2, S 4096, 4 query heads over
+// 1 kv head of hd 256, causal) the five products are 14 hd FLOP a kept
+// pair, 0.24 TFLOP against 0.1 GB of inputs and outputs (0.17 GB with the
+// partials below), so the bound is the tensor cores' 989 TFLOP/s, not the
+// bytes.  The design is the bf16 forward's:
+//   - Q, dO, K and V come in by TMA (4-D tensor maps over the [B, S, heads,
+//     hd] tensors, 128-byte swizzle, 64-column chunks, rows >= S
+//     zero-filled) into rings of stages with full and empty mbarriers; one
+//     producer warp (setmaxnreg.dec) and two consumer warpgroups
+//     (setmaxnreg.inc to 232 registers);
+//   - all five products are wgmma with bf16 operands and float32
+//     accumulators.  Scores are formed as the forward forms them (scale
+//     after the product, log2 units, exp2), so p = exp2(c - LSE log2 e)
+//     agrees with the forward's own LSE.  P and dS are rounded to bf16 in
+//     registers before their products, as the forward rounds P before P.V;
+//     the float32-inside plain version makes neither rounding.
+//   flash_bwd_dkdv_wgmma: one block per (key tile of 64, query head, batch),
+//   key tiles launched in order (the first have the longest causal
+//   columns).  K and V of the tile stay resident; Q, dO and the rows' lse
+//   and delta stream through the ring (64 query rows a stage).  Computed
+//   key-major ("swap AB"), so that P^T and dS^T come out of the score
+//   products in registers already in wgmma's A-fragment layout.  The two
+//   consumer warpgroups split the work by accumulator: warpgroup 1 owns dV
+//   (S^T = K . Q^T, both from shared memory; P; dV += P^T . dO, P^T from
+//   registers and dO as the MN-major B), warpgroup 2 owns dK (dP^T =
+//   V . dO^T; dS; dK += dS^T . Q).  Warpgroup 1 hands P dtanh to warpgroup
+//   2 through a float32 exchange in shared memory, guarded by two named
+//   barriers; dS is 0 wherever P is masked.  Each warpgroup thus holds one
+//   64 x hd accumulator (hd / 2 registers), a 64 x 64 score tile (32) and
+//   its bf16 fragments (16).  dK and dV of a kv group are split over its G
+//   query heads, so that the grid fills the card: with G > 1 each block
+//   writes its head's float32 dK and dV into a scratch tensor [2, B, S, H,
+//   hd] that the wrapper allocates, and flash_bwd_dkdv_sum, a bytes-bound
+//   launch, adds the G heads of each group in the order g = 0 .. G-1 and
+//   rounds once (with G = 1 the block rounds and stores dk and dv itself).
+//   flash_bwd_dq_wgmma: one block per (query tile of 128, head, batch),
+//   longest causal rows first; Q, dO, lse and delta resident, K and V
+//   streamed (32 keys a stage at hd 256, 64 below); each consumer
+//   warpgroup owns 64 rows: S = Q . K^T and dP = dO . V^T from shared
+//   memory, dS in registers, dQ += dS . K with K as the MN-major B.
+// Blocks and makespan at the training microbatch on 132 SMs, one block an
+// SM, in tile steps of 4096 (query, key) pairs (bwd_schedule in
+// kernels/flash_attention.py): global layer dkdv 512 blocks, 16,640 steps,
+// makespan 127 (the SIMT design: 256 blocks, longest 256 steps of 2048
+// pairs); dq 256 blocks, makespan 128.  Local layer (window 512): dkdv 512
+// blocks, makespan 36; dq 256 blocks, makespan 40.
+// Budget.  Shared memory a block (1 KB of alignment slack included), dkdv:
+// K and V resident (2 x 64 x hd x 2 bytes), NS Q/dO stages (2 x 64 x hd x
+// 2 bytes each; NS 2 at hd 256, 3 below), the 16 KB exchange, 512 bytes of
+// lse and delta a stage: 83 / 147 / 210 KB at hd 64 / 128 / 256; dq: Q and
+// dO resident (2 x 128 x hd x 2 bytes) and NS K/V stages: 81 / 161 / 193
+// KB.  Registers: 168 a thread at launch, the producer at 40 and the
+// consumers at 232 after setmaxnreg.  At hd 256 a dkdv consumer holds 128
+// accumulator registers, 32 of the score tile and 16 of its fragments; a
+// dq consumer 128 + 16 + 16 (S, dP at 32 keys) + 8.  ptxas must report no
+// spills (chip_smoke.py's train_kernel phase checks).
+//
+// float32, the parity route: the first design, kept as it was.  wgmma
+// would take float32 only as TF32, about three decimal digits, which puts
+// the float32 parity limits at risk.  SIMT: float32 FMAs out of shared
+// memory, 256 threads a block, each thread a 4 x BK/16 patch of the score
+// tile (rows tr + 16 i, keys tc + 16 j, so that a warp's loads of 16 rows
+// of a padded tile hit distinct banks) and a patch of the accumulators with
+// float4 columns.  flash_bwd_dkdv runs one block per (key tile, batch, kv
+// head) and loops over the G query heads of the group and the query tiles
+// the masks keep, so that dK and dV of a group are summed in registers;
+// flash_bwd_dq runs one block per (query tile, batch, head), longest causal
+// rows first.  Tiles: 64 query rows; 64 keys (hd 64, 128) or 32 (hd 256),
+// rows padded by 4 floats; shared memory 103 / 169 / 217 KB (dkdv) and
+// 86 / 152 / 208 KB (dq).  It leaves the tensor cores idle.
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -414,6 +472,732 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dK / dV of a group summed over its G query heads, bf16 route: part is
+// float32 [2][B, S, H, hd] (dK's per-head partials, then dV's) and dk, dv
+// bf16 [B, S, KV, hd]; each float4 of an output adds the heads of its
+// group in the order g = 0 .. G-1 and is rounded once.  Bound by the bytes:
+// the loads of four heads go out together, the adds keep their order.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_sum_kernel(const float* __restrict__ part,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, long long rows,
+                          int G, int hd) {
+  const long long n4 = rows * (hd / 4);   // float4s of one output
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < 2 * n4; i += stride) {
+    const int which = i >= n4;             // 0: dK, 1: dV
+    const long long j = i - which * n4;
+    const long long r = j / (hd / 4);      // row (b, s, kv head)
+    const int d = static_cast<int>(j % (hd / 4)) * 4;
+    const float* src = part + (which * rows + r) * G * hd + d;
+    float4 acc = ld4(src);
+    for (int g0 = 1; g0 < G; g0 += 4) {
+      float4 x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (g0 + u < G) x[u] = ld4(src + static_cast<size_t>(g0 + u) * hd);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (g0 + u < G) {
+          acc.x += x[u].x; acc.y += x[u].y; acc.z += x[u].z; acc.w += x[u].w;
+        }
+    }
+    st4((which ? dv : dk) + r * hd + d, acc);
+  }
+}
+
+// ---------------------------------------------------------------- bfloat16
+
+namespace tc {
+
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+// named barriers of the dkdv blocks' P dtanh exchange (0 is __syncthreads)
+constexpr int kXFull = 1, kXEmpty = 2;
+
+template <int HD>
+struct DkdvCfg {
+  static constexpr int BK = 64;                  // keys a block, resident
+  static constexpr int BQ = 64;                  // query rows a stage
+  static constexpr int NS = HD == 256 ? 2 : 3;   // stages of the Q/dO ring
+  static constexpr int CHUNKS = HD / 64;         // 128-byte column chunks
+  static constexpr int KV_BYTES = BK * HD * 2;   // K or V
+  static constexpr int Q_BYTES = BQ * HD * 2;    // one Q or one dO stage
+  static constexpr int X_BYTES = BK * BQ * 4;    // float32 P dtanh exchange
+  static constexpr int L_BYTES = 2 * BQ * 4;     // a stage's lse and delta
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * NS);
+  // 1024 bytes of slack: the swizzled tiles start on 1024-byte boundaries
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * NS * Q_BYTES +
+                              X_BYTES + NS * L_BYTES + BAR_BYTES;
+};
+
+template <int HD>
+struct DqCfg {
+  static constexpr int BQ = 128;                 // query rows a block
+  static constexpr int BK = HD == 256 ? 32 : 64; // keys a stage
+  static constexpr int NS = HD == 256 ? 2 : 3;   // stages of the K/V ring
+  static constexpr int CHUNKS = HD / 64;
+  static constexpr int Q_BYTES = BQ * HD * 2;    // Q or dO, resident
+  static constexpr int KV_BYTES = BK * HD * 2;   // one K or one V stage
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * NS);
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * NS * KV_BYTES +
+                              BAR_BYTES;
+};
+
+// The helpers below are copies of flash_attention.cu's (tc namespace), so
+// that the forward's source, and with it the serving instances' SASS, stays
+// as it is.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the barrier's phase differs from ``parity``.  A wait of 10 s
+// means a load that never lands: trap, so that the call fails instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// One box of a 4-D tensor map ({64 columns, 1 head, rows, 1 batch}) into
+// shared memory, completing ``bytes`` on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled tile whose
+// rows are 128 bytes: start address, leading and stride byte offsets (in
+// 16-byte units), layout type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the registers of an accumulator in program order around the
+// asynchronous wgmma, so that no read of them moves above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B in shared memory, both
+// K-major (B^T stored row by row), float32 accumulators.  (The forward has
+// no n32 form; this is its m64n64 form at half the width.)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory, both
+// K-major (B^T stored row by row), float32 accumulators.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (four bf16x2 a
+// thread), B in shared memory MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (four bf16x2 a
+// thread), B in shared memory MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (four bf16x2 a
+// thread), B in shared memory MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The forward's bf16 score of a raw product x = q . k in log2 units (the
+// scale after the product; with a softcap cap * tanh(x scale / cap)), and
+// the softcap's derivative factor dt = 1 - tanh^2 (1 without one).
+__device__ __forceinline__ float score_log2(float x, float scale,
+                                            float softcap, float& dt) {
+  if (softcap != 0.f) {
+    const float t = tanhf(x * scale / softcap);
+    dt = 1.f - t * t;
+    return softcap * t * kLog2e;
+  }
+  dt = 1.f;
+  return x * (scale * kLog2e);
+}
+
+// Block layout: warp 0 loads (lane 0 issues every TMA load, the warp
+// copies each stage's lse and delta); warpgroup 1 computes S^T = K . Q^T,
+// P, and dV += P^T . dO; warpgroup 2 computes dP^T = V . dO^T, dS from the
+// P dtanh that warpgroup 1 leaves in the exchange, and dK += dS^T . Q.  In
+// a consumer warpgroup thread t (warp w = t / 32, lane l) holds keys
+// ka = k0 + 16 w + l / 4 and ka + 8; accumulator register 4 j + e of an
+// m64nN product holds column 8 j + 2 (l % 4) + (e & 1) of row ka (e < 2)
+// or ka + 8 (e >= 2), so a score tile's registers are already the
+// A-fragment layout of the products that take P^T and dS^T.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv,
+                            float* __restrict__ part, int B, int S, int H,
+                            int KV, float scale, int causal, int window,
+                            float softcap) {
+  using C = DkdvCfg<HD>;
+  constexpr int BK = C::BK, BQ = C::BQ, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + C::KV_BYTES;
+  const uint32_t sQ = sV + C::KV_BYTES;          // NS stages of Q
+  const uint32_t sG = sQ + NS * C::Q_BYTES;      // NS stages of dO
+  const uint32_t sX = sG + NS * C::Q_BYTES;      // the exchange
+  const uint32_t sL = sX + C::X_BYTES;           // NS stages of lse, delta
+  const uint32_t kv_full = sL + NS * C::L_BYTES; // then full[NS], empty[NS]
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * NS;
+  float* xch = reinterpret_cast<float*>(smem_raw + (sX - raw));
+  float* lds = reinterpret_cast<float*>(smem_raw + (sL - raw));
+
+  // key tiles slowest and in order: the first ones have the longest
+  // causal columns
+  const int bh = blockIdx.x % (B * H);
+  const int k0 = static_cast<int>(blockIdx.x / (B * H)) * BK;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KV);
+  // query rows that some key of this tile may be attended from: [q_lo, q_hi)
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(S, k0 + BK - 1 + window) : S;
+  const int t_lo = q_lo / BQ;
+  const int n_steps = (q_hi + BQ - 1) / BQ - t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: warp 0
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const size_t r_off = (static_cast<size_t>(b) * H + h) * S;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(sK + c * BK * 128, &tk, kv_full, c * 64, kh, k0, b);
+          tma_load(sV + c * BK * 128, &tv, kv_full, c * 64, kh, k0, b);
+        }
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % NS;
+        const int q0 = (t_lo + i) * BQ;
+        mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
+        // the stage's lse (in log2 units) and delta; rows >= S read 0
+        float* ls = lds + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < S;
+          ls[r] = in ? lse[r_off + q0 + r] * kLog2e : 0.f;
+          ls[BQ + r] = in ? delta[r_off + q0 + r] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          // the arrival releases the warp's stores with the TMA bytes
+          const uint32_t bar = full0 + 8 * s;
+          mbar_expect_tx(bar, 2 * C::Q_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::CHUNKS; ++c) {
+            tma_load(sQ + s * C::Q_BYTES + c * BQ * 128, &tq, bar, c * 64, h,
+                     q0, b);
+            tma_load(sG + s * C::Q_BYTES + c * BQ * 128, &tdo, bar, c * 64,
+                     h, q0, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: c 0 the P / dV warpgroup, c 1 the dS / dK warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int ka = k0 + (t / 32) * 16 + lane / 4, kb = ka + 8;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t sA = c == 0 ? sK : sV;   // A of the score product
+    const uint32_t sB = c == 0 ? sQ : sG;   // its B, stage 0
+    const uint32_t sR = c == 0 ? sG : sQ;   // B of the accumulation, stage 0
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % NS;
+      const int q0 = (t_lo + i) * BQ;
+      mbar_wait(full0 + 8 * s, (i / NS) & 1);
+
+      // S^T = K . Q^T (c 0) or dP^T = V . dO^T (c 1): 64 keys x 64 rows
+      float sc[BQ / 2];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) sc[j] = 0.f;
+      const uint32_t bst = sB + s * C::Q_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;  // 16 columns of a chunk
+        wgmma_ss(sc, sw128_desc(sA + (ks / 4) * BK * 128 + off, 16, 1024),
+                 sw128_desc(bst + (ks / 4) * BQ * 128 + off, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      const float* ls = lds + s * 2 * BQ;
+      if (c == 0) {
+        // P = exp2(score - lse) and P dtanh for the exchange; masks only on
+        // a tile that crosses one
+        const bool edge = q0 + BQ > S || k0 + BK > S ||
+                          (causal && k0 + BK - 1 > q0) ||
+                          (window && k0 <= q0 + BQ - 1 - window);
+        if (i > 0) named_sync(kXEmpty, 256);  // the last tile's is read
+#pragma unroll
+        for (int j = 0; j < BQ / 2; ++j) {
+          const int qc = 8 * (j / 4) + col0 + (j & 1);
+          float dt;
+          float p = exp2f(score_log2(sc[j], scale, softcap, dt) - ls[qc]);
+          if (edge) {
+            const int qi = q0 + qc, kj = (j & 2) ? kb : ka;
+            bool ok = qi < S && kj < S;
+            if (causal) ok = ok && kj <= qi;
+            if (window) ok = ok && kj > qi - window;
+            p = ok ? p : 0.f;
+          }
+          xch[j * 128 + t] = p * dt;
+          sc[j] = p;
+        }
+        named_arrive(kXFull, 256);
+      } else {
+        // dS = P dtanh (dP - delta): zero wherever P is masked
+        named_sync(kXFull, 256);
+#pragma unroll
+        for (int j = 0; j < BQ / 2; ++j) {
+          const int qc = 8 * (j / 4) + col0 + (j & 1);
+          sc[j] = xch[j * 128 + t] * (sc[j] - ls[BQ + qc]);
+        }
+        named_arrive(kXEmpty, 256);
+      }
+
+      // dV += P^T . dO (c 0) or dK += dS^T . Q (c 1): P^T and dS^T rounded
+      // to bf16 in registers, the stage's dO or Q as the MN-major B
+      uint32_t a[BQ / 4];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; j += 2) a[j / 2] = pack_bf16(sc[j], sc[j + 1]);
+      const uint32_t rst = sR + s * C::Q_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                               a[4 * kk + 3]};
+        wgmma_rs(acc, f, sw128_desc(rst + kk * 16 * 128, BQ * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(empty0 + 8 * s);
+    }
+    if (c == 0 && n_steps > 0) named_sync(kXEmpty, 256);  // the last read
+
+    // epilogue: dK carries the scale (q * scale in the product)
+    const float mul = c == 0 ? 1.f : scale;
+    if (part != nullptr) {
+      // this head's float32 partial: dK's [B, S, H, hd] first, then dV's
+      const size_t stride = static_cast<size_t>(H) * HD;
+      float* out = part + (c == 0 ? static_cast<size_t>(B) * S * stride : 0);
+      float* ra = out + (static_cast<size_t>(b) * S + ka) * stride +
+                  static_cast<size_t>(h) * HD + col0;
+      float* rb = ra + 8 * stride;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (ka < S)
+          *reinterpret_cast<float2*>(ra + 8 * j) =
+              make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+        if (kb < S)
+          *reinterpret_cast<float2*>(rb + 8 * j) =
+              make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+      }
+    } else {
+      // G = 1: the head is the group; round once to bf16
+      const size_t stride = static_cast<size_t>(KV) * HD;
+      __nv_bfloat16* out = c == 0 ? dv : dk;
+      __nv_bfloat16* ra = out + (static_cast<size_t>(b) * S + ka) * stride +
+                          static_cast<size_t>(kh) * HD + col0;
+      __nv_bfloat16* rb = ra + 8 * stride;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (ka < S)
+          *reinterpret_cast<uint32_t*>(ra + 8 * j) =
+              pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+        if (kb < S)
+          *reinterpret_cast<uint32_t*>(rb + 8 * j) =
+              pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+      }
+    }
+  }
+}
+
+// Block layout: thread 0 (warpgroup 0) loads; warpgroups 1 and 2 own query
+// rows q0 .. q0+63 and q0+64 .. q0+127, each computing S = Q . K^T and
+// dP = dO . V^T for its rows, dS, and dQ += dS . K.  Thread t holds rows
+// qa = row_lo + 16 w + l / 4 and qa + 8 (the forward's layout).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int B, int S,
+                          int H, int KV, float scale, int causal, int window,
+                          float softcap) {
+  using C = DqCfg<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + C::Q_BYTES;            // dO
+  const uint32_t sK = sG + C::Q_BYTES;            // NS stages
+  const uint32_t sV = sK + NS * C::KV_BYTES;      // NS stages
+  const uint32_t q_full = sV + NS * C::KV_BYTES;  // then full[NS], empty[NS]
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * NS;
+
+  // q tiles slowest and in reverse, so the longest causal rows start first
+  const int nq = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / (B * H))) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KV);
+  // keys that some row of this q tile may attend: [kv_lo, kv_hi)
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
+  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / BK;
+  const int n_tiles = (kv_hi + BK - 1) / BK - t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::CHUNKS; ++c) {
+        tma_load(sQ + c * BQ * 128, &tq, q_full, c * 64, h, q0, b);
+        tma_load(sG + c * BQ * 128, &tdo, q_full, c * 64, h, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % NS;
+        mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
+        const uint32_t bar = full0 + 8 * s;
+        mbar_expect_tx(bar, 2 * C::KV_BYTES);
+        const int k0 = (t_lo + i) * BK;
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(sK + s * C::KV_BYTES + c * BK * 128, &tk, bar, c * 64, kh,
+                   k0, b);
+          tma_load(sV + s * C::KV_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
+                   k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_lo = q0 + (wg - 1) * 64;          // this warpgroup's rows
+    const int qa = row_lo + (t / 32) * 16 + lane / 4, qb = qa + 8;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t sQw = sQ + (wg - 1) * 64 * 128;  // chunk c at + c BQ 128
+    const uint32_t sGw = sG + (wg - 1) * 64 * 128;
+    const size_t r_off = (static_cast<size_t>(b) * H + h) * S;
+    const float l_a = qa < S ? lse[r_off + qa] * kLog2e : 0.f;
+    const float l_b = qb < S ? lse[r_off + qb] * kLog2e : 0.f;
+    const float d_a = qa < S ? delta[r_off + qa] : 0.f;
+    const float d_b = qb < S ? delta[r_off + qb] : 0.f;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % NS;
+      const int k0 = (t_lo + i) * BK;
+      mbar_wait(full0 + 8 * s, (i / NS) & 1);
+      // empty for every row of this warpgroup: nothing to add
+      const bool dead = (causal && k0 > row_lo + 63) ||
+                        (window && k0 + BK - 1 <= row_lo - window);
+      if (!dead) {
+        float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) sc[j] = dp[j] = 0.f;
+        const uint32_t kst = sK + s * C::KV_BYTES;
+        const uint32_t vst = sV + s * C::KV_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;  // 16 columns of a chunk
+          wgmma_ss(sc, sw128_desc(sQw + (ks / 4) * BQ * 128 + off, 16, 1024),
+                   sw128_desc(kst + (ks / 4) * BK * 128 + off, 16, 1024), 1);
+        }
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          wgmma_ss(dp, sw128_desc(sGw + (ks / 4) * BQ * 128 + off, 16, 1024),
+                   sw128_desc(vst + (ks / 4) * BK * 128 + off, 16, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS = P dtanh (dP - delta), masks only on a tile that crosses one
+        const bool edge = k0 + BK > S || row_lo + 64 > S ||
+                          (causal && k0 + BK - 1 > row_lo) ||
+                          (window && k0 <= row_lo + 63 - window);
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) {
+          const bool rb = j & 2;
+          float dt;
+          float p = exp2f(score_log2(sc[j], scale, softcap, dt) -
+                          (rb ? l_b : l_a));
+          if (edge) {
+            const int kj = k0 + 8 * (j / 4) + col0 + (j & 1);
+            const int qi = rb ? qb : qa;
+            bool ok = qi < S && kj < S;
+            if (causal) ok = ok && kj <= qi;
+            if (window) ok = ok && kj > qi - window;
+            p = ok ? p : 0.f;
+          }
+          sc[j] = p * dt * (dp[j] - (rb ? d_b : d_a));
+        }
+        uint32_t a[BK / 4];
+#pragma unroll
+        for (int j = 0; j < BK / 2; j += 2)
+          a[j / 2] = pack_bf16(sc[j], sc[j + 1]);
+
+        // dQ += dS . K: dS rounded to bf16 in registers, the stage's K as
+        // the MN-major B (16 key rows from row 16 kk)
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                                 a[4 * kk + 3]};
+          wgmma_rs(acc, f, sw128_desc(kst + kk * 16 * 128, BK * 128, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+      if (t == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // epilogue: dq = scale * acc, rounded once to bf16
+    const size_t q_stride = static_cast<size_t>(H) * HD;
+    __nv_bfloat16* oa =
+        dq + (static_cast<size_t>(b) * S + qa) * q_stride + h * HD + col0;
+    __nv_bfloat16* ob = oa + 8 * q_stride;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (qa < S)
+        *reinterpret_cast<uint32_t*>(oa + 8 * j) =
+            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (qb < S)
+        *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------------ launch
+
 template <typename T, int HD>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
@@ -453,30 +1237,132 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dkdv(int hd, const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  void* dk, void* dv, int B, int S, int H, int KV, float scale,
-                  int causal, int window, float softcap, cudaStream_t s) {
+int launch_dkdv_simt(int hd, const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dk, void* dv, int B, int S, int H, int KV,
+                     float scale, int causal, int window, float softcap,
+                     cudaStream_t s) {
   switch (hd) {
-    case 64: return launch_dkdv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
-    case 128: return launch_dkdv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
-    case 256: return launch_dkdv<T, 256>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
+    case 64: return launch_dkdv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch_dkdv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch_dkdv<float, 256>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
-int dispatch_dq(int hd, const void* q, const void* k, const void* v,
-                const void* dout, const float* lse, const float* delta,
-                void* dq, int B, int S, int H, int KV, float scale,
-                int causal, int window, float softcap, cudaStream_t s) {
+int launch_dq_simt(int hd, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int S, int H, int KV, float scale,
+                   int causal, int window, float softcap, cudaStream_t s) {
   switch (hd) {
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
-    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
-    case 256: return launch_dq<T, 256>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    case 64: return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda (a copy of flash_attention.cu's).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 [B, S, heads, hd] tensor as a 4-D tensor map, innermost first;
+// boxes of {64 columns (128 bytes), 1 head, rows, 1 batch}, 128-byte
+// swizzle, out-of-range rows read as zero.
+CUresult make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
+                  int B, int S, int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The four tensor maps of a bf16 launch: q and dO with boxes of q_rows
+// rows, k and v with boxes of k_rows rows.
+int make_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
+              const void* k, const void* v, int B, int S, int H, int KV,
+              int hd, int q_rows, int k_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUresult r = make_map(enc, &m[0], q, B, S, H, hd, q_rows);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &m[1], dout, B, S, H, hd, q_rows);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &m[2], k, B, S, KV, hd, k_rows);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &m[3], v, B, S, KV, hd, k_rows);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+int launch_dkdv_tc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, float* part, int B, int S, int H,
+                   int KV, float scale, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  using C = tc::DkdvCfg<HD>;
+  CUtensorMap m[4];
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HD, C::BQ, C::BK);
+  if (rc != 0) return rc;
+  auto kernel = tc::flash_bwd_dkdv_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nk = (S + C::BK - 1) / C::BK;
+  kernel<<<nk * B * H, tc::kThreads, C::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part, B, S, H, KV, scale, causal,
+      window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int B, int S, int H, int KV, float scale,
+                 int causal, int window, float softcap, cudaStream_t stream) {
+  using C = tc::DqCfg<HD>;
+  CUtensorMap m[4];
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HD, C::BQ, C::BK);
+  if (rc != 0) return rc;
+  auto kernel = tc::flash_bwd_dq_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nq = (S + C::BQ - 1) / C::BQ;
+  kernel<<<nq * B * H, tc::kThreads, C::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), B,
+      S, H, KV, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -484,10 +1370,13 @@ int dispatch_dq(int hd, const void* q, const void* k, const void* v,
 // Plain C entry points, loaded with ctypes.  q, o, dout, dq: [B, S, H, hd];
 // k, v, dk, dv: [B, S, KV, hd]; lse, delta: float32 [B, H, S]; all
 // contiguous device pointers, the tensors of one type (dtype 0: float32,
-// 1: bfloat16), 16-byte aligned.  Each launches on ``stream`` of ``device``,
-// does not synchronise and allocates nothing, and returns the CUDA error of
-// its attribute call or launch (0 on success).  The caller checks shapes,
-// H % KV == 0, hd in {64, 128, 256} and the grid's size.
+// the SIMT route; 1: bfloat16, the wgmma/TMA route), 16-byte aligned.  Each
+// launches on ``stream`` of ``device``, does not synchronise and allocates
+// nothing, and returns the CUDA error of its attribute call or launch (0 on
+// success; cudaErrorNotSupported when the driver has no
+// cuTensorMapEncodeTiled, cudaErrorInvalidValue when it refuses a map).
+// The caller checks shapes, H % KV == 0, hd in {64, 128, 256} and the
+// grid's size.
 
 extern "C" int flash_bwd_delta_launch(const void* o, const void* dout,
                                       float* delta, int B, int S, int H,
@@ -513,25 +1402,51 @@ extern "C" int flash_bwd_delta_launch(const void* o, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// part: null, or (bf16 with H > KV) float32 [2, B, S, H, hd] that receives
+// each head's dK and then dV unsummed, for flash_bwd_dkdv_sum_launch; dk
+// and dv are then not written.  float32 ignores it.
 extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* lse, const float* delta,
-                                     void* dk, void* dv, int B, int S, int H,
-                                     int KV, int hd, int dtype, float scale,
-                                     int causal, int window, float softcap,
-                                     int device, void* stream) {
+                                     void* dk, void* dv, float* part, int B,
+                                     int S, int H, int KV, int hd, int dtype,
+                                     float scale, int causal, int window,
+                                     float softcap, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dkdv<float>(hd, q, k, v, dout, lse, delta, dk, dv, B, S,
-                                H, KV, scale, causal, window, softcap, s);
-  if (dtype == 1)
-    return dispatch_dkdv<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dk,
-                                        dv, B, S, H, KV, scale, causal,
-                                        window, softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkdv_simt(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                            KV, scale, causal, window, softcap, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64: return launch_dkdv_tc<64>(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch_dkdv_tc<128>(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch_dkdv_tc<256>(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dk, dv (bf16 [B, S, KV, hd]) from the partials ``part`` (float32
+// [2, B, S, KV * G, hd]) of flash_bwd_dkdv_launch.
+extern "C" int flash_bwd_dkdv_sum_launch(const float* part, void* dk,
+                                         void* dv, int B, int S, int KV,
+                                         int G, int hd, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || S <= 0) return 0;
+  const long long rows = static_cast<long long>(B) * S * KV;
+  const long long n = 2 * rows * (hd / 4);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  flash_bwd_dkdv_sum_kernel<<<static_cast<unsigned>(
+                                  blocks < 1048576 ? blocks : 1048576),
+                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      rows, G, hd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -546,11 +1461,13 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   if (B <= 0 || S <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dq<float>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV,
-                              scale, causal, window, softcap, s);
-  if (dtype == 1)
-    return dispatch_dq<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dq, B,
-                                      S, H, KV, scale, causal, window,
-                                      softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dq_simt(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV,
+                          scale, causal, window, softcap, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64: return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch_dq_tc<256>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

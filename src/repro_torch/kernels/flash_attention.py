@@ -29,17 +29,29 @@ port's own: no Pallas kernel has a backward).  ``flash_attention`` on a
 CUDA tensor that requires grad goes through ``FlashAttention``, a
 ``torch.autograd.Function`` whose forward launches the kernel above with
 an extra float32 log-sum-exp output ``lse [B, H, S]`` and whose backward
-makes three launches: ``flash_bwd_delta`` (delta = rowsum(dO * O)),
-``flash_bwd_dkdv`` (one block per key tile and kv head, the group's query
-heads summed in registers) and ``flash_bwd_dq``.  Without a gradient the
-forward launch is the serving one, with no ``lse``.  On the CPU autograd
-differentiates ``flash_attention_plain``; ``flash_attention_bwd_plain``
-computes what the backward kernels compute, in their order, for the tests
-and the card's checks.
+launches ``flash_bwd_delta`` (delta = rowsum(dO * O)), ``flash_bwd_dkdv``
+and ``flash_bwd_dq``.  The dtype picks their kernels as it does the
+forward's:
+
+- bfloat16: Hopper kernels on the tensor cores (TMA into rings of
+  swizzled stages, a producer warp, two consumer warpgroups running
+  ``wgmma`` for all five products).  dkdv runs one block per key tile and
+  *query* head; with G = H / KV > 1 it writes each head's dK and dV as
+  float32 partials into a scratch tensor, and ``flash_bwd_dkdv_sum`` adds
+  a group's heads in the order g = 0 .. G-1 and rounds once.  P and dS are
+  rounded to bf16 before their products, as the forward rounds P.
+- float32: the first SIMT design, float32 FMAs (dkdv one block per key
+  tile and kv head, the group's heads summed in registers).
+
+Without a gradient the forward launch is the serving one, with no ``lse``.
+On the CPU autograd differentiates ``flash_attention_plain``;
+``flash_attention_bwd_plain`` computes what the backward kernels compute,
+float32 inside, for the tests and the card's checks.
 
 ``LAUNCHES`` counts forward launches, ``DELTA_LAUNCHES``,
-``DKDV_LAUNCHES`` and ``DQ_LAUNCHES`` the backward's, so that a run can
-show that its main path went through the kernels.
+``DKDV_LAUNCHES``, ``DKDV_SUM_LAUNCHES`` and ``DQ_LAUNCHES`` the
+backward's, so that a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -52,10 +64,12 @@ import torch
 NEG_INF = -2.0e38
 HEAD_DIMS = (64, 128, 256)      # the kernel's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132                  # bwd_schedule places blocks on these
 
 LAUNCHES = 0
 DELTA_LAUNCHES = 0
 DKDV_LAUNCHES = 0
+DKDV_SUM_LAUNCHES = 0
 DQ_LAUNCHES = 0
 
 
@@ -157,6 +171,32 @@ def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta, *, causal=True,
+                                  window=0, softcap=0.0, scale=None):
+    """float32 [2, B, S, H, hd]: each query head's own dK (first) and dV
+    (second), before a group's heads are added: what the bf16 dkdv kernel
+    writes when G > 1."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    p, ds, qg, dog = _probs_and_ds(q, k, v, do, lse, delta, causal, window,
+                                   softcap, scale)
+    dv = torch.einsum("bkgqs,bqkgh->bskgh", p, dog)
+    dk = torch.einsum("bkgqs,bqkgh->bskgh", ds, qg)
+    return torch.stack([dk, dv]).reshape(2, B, S, H, hd)
+
+
+def flash_bwd_dkdv_sum_plain(part, kv_heads, dtype=torch.bfloat16):
+    """(dk, dv) in ``dtype`` from the partials [2, B, S, H, hd]: a group's
+    heads added in the order g = 0 .. G-1 in float32, rounded once."""
+    _, B, S, H, hd = part.shape
+    p = part.float().reshape(2, B, S, kv_heads, H // kv_heads, hd)
+    acc = p[:, :, :, :, 0]
+    for g in range(1, H // kv_heads):
+        acc = acc + p[:, :, :, :, g]
+    return acc[0].to(dtype), acc[1].to(dtype)
+
+
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
                        softcap=0.0, scale=None) -> torch.Tensor:
     """dq in q's type (``flash_bwd_dq``): scale * sum_j dS k."""
@@ -183,15 +223,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
     return dq, dk, dv
 
 
-def bwd_tile_config(hd) -> dict:
-    """The backward kernels' tiling at head dim ``hd``, read from
-    ``Tiles<HD>`` in ``csrc/flash_attention_bwd.cu``: BQ query rows a step,
-    BK keys a tile, LD and PLD (padded rows, floats), and the dynamic
-    shared memory of a dkdv and a dq block in bytes."""
-    src = (Path(__file__).parent / "csrc" /
-           "flash_attention_bwd.cu").read_text()
-    body = re.search(r"struct Tiles \{(.*?)\n\};", src, re.S)[1]
-    env = {"HD": hd}
+def _constexprs(body, env) -> dict:
+    """``static constexpr int NAME = expr;`` of a C++ struct body evaluated
+    in order over ``env`` (integer division, C's a ? b : c)."""
     for name, expr in re.findall(r"static constexpr int (\w+) =\s*([^;]+);",
                                  body):
         expr = " ".join(expr.split())
@@ -199,31 +233,98 @@ def bwd_tile_config(hd) -> dict:
         if m:                          # C's a ? b : c
             expr = f"({m[2]}) if ({m[1]}) else ({m[3]})"
         env[name] = int(eval(expr.replace("/", "//"), {}, env))
+    return env
+
+
+def _bwd_source() -> str:
+    return (Path(__file__).parent / "csrc" /
+            "flash_attention_bwd.cu").read_text()
+
+
+def bwd_tile_config(hd) -> dict:
+    """The float32 (SIMT) backward kernels' tiling at head dim ``hd``, read
+    from ``Tiles<HD>`` in ``csrc/flash_attention_bwd.cu``: BQ query rows a
+    step, BK keys a tile, LD and PLD (padded rows, floats), and the dynamic
+    shared memory of a dkdv and a dq block in bytes."""
+    body = re.search(r"struct Tiles \{(.*?)\n\};", _bwd_source(), re.S)[1]
+    env = _constexprs(body, {"HD": hd})
     env["DKDV_SMEM"] = 4 * env["DKDV_FLOATS"]
     env["DQ_SMEM"] = 4 * env["DQ_FLOATS"]
     return env
 
 
-def bwd_plan(S, hd, causal, window) -> dict:
-    """The backward kernels' launch plan, as their loops compute it: for
-    each dkdv block (key tile) the first rows of the query tiles it visits,
-    and for each dq block (query tile, in launch order) the first keys of
-    the key tiles it visits."""
-    t = bwd_tile_config(hd)
-    BQ, BK = t["BQ"], t["BK"]
+def bwd_tc_config(hd) -> dict:
+    """The bf16 (wgmma) backward kernels' tiling at head dim ``hd``, read
+    from ``tc::DkdvCfg<HD>`` and ``tc::DqCfg<HD>`` in the source:
+    {"dkdv": {BK keys a block, BQ query rows a stage, NS stages, SMEM bytes
+    of dynamic shared memory a block, ...}, "dq": {BQ rows a block, BK keys
+    a stage, NS, SMEM, ...}}."""
+    tc = _bwd_source()
+    tc = tc[tc.index("namespace tc {"):]
+    return {name: _constexprs(re.search(
+        rf"struct {struct} \{{(.*?)\n\}};", tc, re.S)[1], {"HD": hd})
+        for name, struct in (("dkdv", "DkdvCfg"), ("dq", "DqCfg"))}
+
+
+def bwd_plan(S, hd, causal, window, dtype=torch.float32) -> dict:
+    """The backward kernels' launch plan along the sequence for ``dtype``'s
+    route, as their loops compute it: {"route": "simt" or "wgmma", "dkdv":
+    {"BQ", "BK", "blocks": [(k0, [first rows of the query tiles it
+    visits]), ...]}, "dq": {"BQ", "BK", "blocks": [(q0, [first keys of the
+    key tiles it visits]), ...] in launch order}}.  A simt dkdv block covers
+    every query head of a kv group; a wgmma one a single query head."""
+    if dtype == torch.bfloat16:
+        t = bwd_tc_config(hd)
+        tiles = {n: (t[n]["BQ"], t[n]["BK"]) for n in ("dkdv", "dq")}
+        route = "wgmma"
+    else:
+        t = bwd_tile_config(hd)
+        tiles = dict.fromkeys(("dkdv", "dq"), (t["BQ"], t["BK"]))
+        route = "simt"
+    BQ, BK = tiles["dkdv"]
     dkdv = []
     for k0 in range(0, S, BK):
         q_lo = k0 if causal else 0
         q_hi = min(S, k0 + BK - 1 + window) if window else S
         dkdv.append((k0, list(range(q_lo // BQ * BQ, q_hi, BQ))))
-    nq = -(-S // BQ)
+    BQ2, BK2 = tiles["dq"]
+    nq = -(-S // BQ2)
     dq = []
     for x in range(nq):
-        q0 = (nq - 1 - x) * BQ
-        k_hi = min(S, q0 + BQ) if causal else S
+        q0 = (nq - 1 - x) * BQ2
+        k_hi = min(S, q0 + BQ2) if causal else S
         k_lo = max(0, q0 - window + 1) if window else 0
-        dq.append((q0, list(range(k_lo // BK * BK, k_hi, BK))))
-    return {"BQ": BQ, "BK": BK, "dkdv": dkdv, "dq": dq}
+        dq.append((q0, list(range(k_lo // BK2 * BK2, k_hi, BK2))))
+    return {"route": route,
+            "dkdv": {"BQ": BQ, "BK": BK, "blocks": dkdv},
+            "dq": {"BQ": BQ2, "BK": BK2, "blocks": dq}}
+
+
+def bwd_schedule(S, hd, causal, window, B, H, KV, dtype) -> dict:
+    """Blocks and makespan of each backward launch, in tile steps (one
+    step: a query tile of a dkdv block, a key tile of a dq block; a simt
+    dkdv block takes G steps a query tile): the blocks in launch order,
+    each to the SM that frees first, one block an SM (shared memory allows
+    no second)."""
+    import heapq
+    plan = bwd_plan(S, hd, causal, window, dtype)
+    G = H // KV
+    if plan["route"] == "wgmma":      # key / query tiles slowest
+        dkdv = [len(t) for _, t in plan["dkdv"]["blocks"]
+                for _ in range(B * H)]
+        dq = [len(t) for _, t in plan["dq"]["blocks"] for _ in range(B * H)]
+    else:                             # grid (tiles, heads, B), x fastest
+        dkdv = [G * len(t) for _ in range(B * KV)
+                for _, t in plan["dkdv"]["blocks"]]
+        dq = [len(t) for _ in range(B * H) for _, t in plan["dq"]["blocks"]]
+    out = {}
+    for name, costs in (("dkdv", dkdv), ("dq", dq)):
+        free = [0] * min(H100_SMS, len(costs))
+        for c in costs:
+            heapq.heappush(free, heapq.heappop(free) + c)
+        out[name] = {"blocks": len(costs), "steps": sum(costs),
+                     "longest": max(costs), "makespan": max(free)}
+    return out
 
 
 def tile_config(hd) -> dict:
@@ -235,14 +336,8 @@ def tile_config(hd) -> dict:
     tc = src[src.index("namespace tc {"):]
     env = {"HD": hd,
            "kBQ": int(re.search(r"constexpr int kBQ = (\d+);", tc)[1])}
-    body = re.search(r"struct Cfg \{(.*?)\n\};", tc, re.S)[1]
-    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
-                                 body):
-        m = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr)
-        if m:                          # C's a ? b : c
-            expr = f"({m[2]}) if ({m[1]}) else ({m[3]})"
-        env[name] = int(eval(expr.replace("/", "//"), {}, env))
-    return env
+    return _constexprs(re.search(r"struct Cfg \{(.*?)\n\};", tc, re.S)[1],
+                       env)
 
 
 def _check(q, k, v, window):
@@ -295,8 +390,11 @@ def _bwd_lib(fn_name):
         if fn_name == "flash_bwd_delta_launch":
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
+        elif fn_name == "flash_bwd_dkdv_sum_launch":
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
         else:
-            n_ptr = 8 if fn_name == "flash_bwd_dkdv_launch" else 7
+            n_ptr = 9 if fn_name == "flash_bwd_dkdv_launch" else 7
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p]
@@ -385,28 +483,88 @@ def flash_bwd_delta(o, do) -> torch.Tensor:
     return delta
 
 
+def _launch_dkdv(q, k, v, do, lse, delta, outs, kw):
+    """One launch of the dkdv kernel into ``outs``: (dk, dv), or the bf16
+    route's float32 partials [2, B, S, H, hd]."""
+    global DKDV_LAUNCHES
+    B, S, H, KV, hd = _check_bwd(q, k, v, do, lse, delta, kw["window"])
+    scale = hd ** -0.5 if kw["scale"] is None else kw["scale"]
+    part = outs if isinstance(outs, torch.Tensor) else None
+    if q.dtype == torch.bfloat16 and H != KV and part is None:
+        raise ValueError("bf16 with H > KV writes per-head partials")
+    ptrs = [None, None, part.data_ptr()] if part is not None else \
+        [outs[0].data_ptr(), outs[1].data_ptr(), None]
+    if B * S == 0:
+        return
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib("flash_bwd_dkdv_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *ptrs, B, S, H, KV, hd,
+        DTYPES[q.dtype], float(scale), int(kw["causal"]), int(kw["window"]),
+        float(kw["softcap"]), q.device.index or 0, stream)
+    _raise_on(rc, "flash_bwd_dkdv")
+    DKDV_LAUNCHES += 1
+
+
+def flash_bwd_dkdv_partials(q, k, v, do, lse, delta, *, causal=True,
+                            window=0, softcap=0.0, scale=None):
+    """float32 [2, B, S, H, hd], each query head's dK and dV before its
+    group is summed: one launch of the bf16 ``flash_bwd_dkdv`` kernel on a
+    CUDA tensor, ``flash_bwd_dkdv_partials_plain`` on the CPU."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta, **kw)
+    _cuda_only(q, "flash_bwd_dkdv")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the partials are the bf16 route's, got {q.dtype}")
+    part = torch.empty((2,) + tuple(q.shape), dtype=torch.float32,
+                       device=q.device)
+    _launch_dkdv(q, k, v, do, lse, delta, part, kw)
+    return part
+
+
+def flash_bwd_dkdv_sum(part, kv_heads):
+    """(dk, dv) in bf16 from the partials [2, B, S, H, hd]: one launch of
+    ``flash_bwd_dkdv_sum`` on a CUDA tensor, ``flash_bwd_dkdv_sum_plain``
+    on the CPU."""
+    global DKDV_SUM_LAUNCHES
+    if part.device.type == "cpu":
+        return flash_bwd_dkdv_sum_plain(part, kv_heads)
+    _cuda_only(part, "flash_bwd_dkdv_sum")
+    if part.dtype != torch.float32 or part.dim() != 5 or part.shape[0] != 2 \
+            or not part.is_contiguous() or kv_heads < 1 or part.shape[3] % kv_heads \
+            or part.shape[4] not in HEAD_DIMS:
+        raise ValueError("part must be a contiguous float32 [2, B, S, H, hd] "
+                         "with H a multiple of kv_heads, summed into bf16")
+    _, B, S, H, hd = part.shape
+    dk = torch.empty(B, S, kv_heads, hd, dtype=torch.bfloat16,
+                     device=part.device)
+    dv = torch.empty_like(dk)
+    if B * S == 0:
+        return dk, dv
+    stream = torch.cuda.current_stream(part.device).cuda_stream
+    rc = _bwd_lib("flash_bwd_dkdv_sum_launch")(
+        part.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, kv_heads,
+        H // kv_heads, hd, part.device.index or 0, stream)
+    _raise_on(rc, "flash_bwd_dkdv_sum")
+    DKDV_SUM_LAUNCHES += 1
+    return dk, dv
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True, window=0,
                    softcap=0.0, scale=None):
-    """(dk, dv): one launch of ``flash_bwd_dkdv`` on a CUDA tensor, the
-    plain version on the CPU."""
-    global DKDV_LAUNCHES
+    """(dk, dv) on a CUDA tensor: one launch of ``flash_bwd_dkdv``, and in
+    bf16 with more query heads than kv heads its partials summed by one
+    launch of ``flash_bwd_dkdv_sum``; the plain version on the CPU."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
     _cuda_only(q, "flash_bwd_dkdv")
-    B, S, H, KV, hd = _check_bwd(q, k, v, do, lse, delta, window)
-    scale = hd ** -0.5 if scale is None else scale
+    if q.dtype == torch.bfloat16 and q.shape[2] != k.shape[2]:
+        return flash_bwd_dkdv_sum(flash_bwd_dkdv_partials(
+            q, k, v, do, lse, delta, **kw), k.shape[2])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if B * S == 0:
-        return dk, dv
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _bwd_lib("flash_bwd_dkdv_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, KV, hd, DTYPES[q.dtype], float(scale), int(causal),
-        int(window), float(softcap), q.device.index or 0, stream)
-    _raise_on(rc, "flash_bwd_dkdv")
-    DKDV_LAUNCHES += 1
+    _launch_dkdv(q, k, v, do, lse, delta, (dk, dv), kw)
     return dk, dv
 
 

@@ -2,15 +2,21 @@
 against autograd of ``flash_attention_plain`` and against ``jax.vjp`` of
 ``repro.kernels.ref.attention_ref`` (windows, softcap, G 1/2/4/8, ragged
 and non-causal S), the log-sum-exp the forward kernel writes, and a CPU
-replay of the backward kernels' plan: which query tiles a key tile's dkdv
-block visits and which key tiles a query tile's dq block visits under the
-masks (read from ``Tiles<HD>`` in the CUDA source), and dK / dV summed per
-kv group over (head, query tile) in the kernel's order.
+replay of both routes' launch plans (tiles read from ``Tiles<HD>``,
+``tc::DkdvCfg`` and ``tc::DqCfg`` in the CUDA source): which query tiles a
+key tile's dkdv block visits and which key tiles a query tile's dq block
+visits under the masks; dK / dV summed per kv group over (head, query
+tile) in the simt kernel's order, or per query head into float32 partials
+that are then added in head order (the wgmma route); the blocks and
+makespan of each launch at the training shape; and the wgmma route's
+bf16 roundings of P and dS against the card's bf16 bound.
 
 Inputs are seeded with numpy.  Tolerances: float32 throughout, sums in
 another order, so 2e-5 absolute plus 1e-4 relative on gradients of order
 1; the replay of the plan 1e-5 relative in norm against the plain version,
-and a control that leaves out one visited tile must miss that by far.
+and a control that leaves out one visited tile (or one head's partial)
+must miss that by far; the bf16 roundings within 5e-3 relative, the card
+tests' bound, which P and dS in fp8 must exceed.
 """
 import jax
 import jax.numpy as jnp
@@ -103,6 +109,35 @@ def test_bwd_tile_config_read_from_the_source():
         assert max(t["DKDV_SMEM"], t["DQ_SMEM"]) <= 232448
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_bwd_tc_config_read_from_the_source(hd):
+    """The bf16 kernels' tiles, read from ``tc::DkdvCfg`` / ``tc::DqCfg``:
+    64 keys a dkdv block over 64-row query stages, 128 rows a dq block
+    (two warpgroups of 64) over 32 or 64 keys a stage; wgmma's shapes
+    (rows of 64, widths a multiple of 16) and 128-byte column chunks; the
+    bytes of every tile a multiple of 1024 (the swizzle's atom), and the
+    shared memory within what Hopper gives one block."""
+    t = FA.bwd_tc_config(hd)
+    kv, dq = t["dkdv"], t["dq"]
+    assert (kv["BK"], kv["BQ"]) == (64, 64)
+    assert (dq["BQ"], dq["BK"]) == (128, 32 if hd == 256 else 64)
+    assert kv["NS"] >= 2 and dq["NS"] >= 2
+    assert kv["CHUNKS"] == dq["CHUNKS"] == hd // 64
+    for c in (kv, dq):
+        assert c["BQ"] % 64 == 0 and c["BK"] % 16 == 0
+        assert c["Q_BYTES"] % 1024 == 0 and c["KV_BYTES"] % 1024 == 0
+        assert c["SMEM"] <= 232448
+    assert kv["X_BYTES"] == 4 * kv["BK"] * kv["BQ"]    # float32 P dtanh
+    assert kv["SMEM"] == 1024 + 2 * kv["KV_BYTES"] + 2 * kv["NS"] * \
+        kv["Q_BYTES"] + kv["X_BYTES"] + kv["NS"] * kv["L_BYTES"] + \
+        kv["BAR_BYTES"]
+    # hd 256: K, V, two Q/dO stages and the exchange as the header says
+    if hd == 256:
+        assert round(kv["SMEM"] / 1024) == 210 and \
+            round(dq["SMEM"] / 1024) == 193
+
+
+ROUTES = [torch.float32, torch.bfloat16]
 PLAN_CASES = [
     # (S, hd, causal, window)
     (300, 256, True, 0), (300, 256, True, 40), (257, 64, True, 128),
@@ -111,55 +146,93 @@ PLAN_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", ROUTES)
 @pytest.mark.parametrize("S,hd,causal,window", PLAN_CASES)
-def test_bwd_plan_covers_every_kept_pair(S, hd, causal, window):
-    """Every (query, key) pair the masks keep lies in a tile pair that
-    both blocks visit; each key tile and each query tile has one block,
-    query tiles launched longest causal rows first."""
-    plan = FA.bwd_plan(S, hd, causal, window)
-    BQ, BK = plan["BQ"], plan["BK"]
+def test_bwd_plan_covers_every_kept_pair(S, hd, causal, window, dtype):
+    """Every (query, key) pair the masks keep lies in exactly one tile pair
+    that a dkdv block visits for each query head (the simt block loops over
+    its group's heads, the wgmma block is one head's) and in exactly one
+    that a dq block visits; each key tile and each query tile has one
+    block, query tiles launched longest causal rows first."""
+    plan = FA.bwd_plan(S, hd, causal, window, dtype)
+    assert plan["route"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
     qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
     ok = np.ones((S, S), bool)
     if causal:
         ok &= kp <= qp
     if window:
         ok &= kp > qp - window
-    seen_dkdv = np.zeros_like(ok)
-    for k0, q_tiles in plan["dkdv"]:
-        for q0 in q_tiles:
-            seen_dkdv[q0:q0 + BQ, k0:k0 + BK] = True
-    seen_dq = np.zeros_like(ok)
-    for q0, k_tiles in plan["dq"]:
-        for k0 in k_tiles:
-            seen_dq[q0:q0 + BQ, k0:k0 + BK] = True
-    assert not (ok & ~seen_dkdv).any() and not (ok & ~seen_dq).any()
-    assert [k0 for k0, _ in plan["dkdv"]] == list(range(0, S, BK))
-    assert sorted(q0 for q0, _ in plan["dq"]) == list(range(0, S, BQ))
-    assert [q0 for q0, _ in plan["dq"]][0] == (S - 1) // BQ * BQ
+    for name in ("dkdv", "dq"):
+        BQ, BK = plan[name]["BQ"], plan[name]["BK"]
+        seen = np.zeros((S, S), int)
+        for t0, tiles in plan[name]["blocks"]:
+            for u0 in tiles:
+                q0, k0 = (u0, t0) if name == "dkdv" else (t0, u0)
+                seen[q0:q0 + BQ, k0:k0 + BK] += 1
+        assert (seen[ok] == 1).all(), name
+    BK = plan["dkdv"]["BK"]
+    assert [k0 for k0, _ in plan["dkdv"]["blocks"]] == list(range(0, S, BK))
+    BQ = plan["dq"]["BQ"]
+    dq_rows = [q0 for q0, _ in plan["dq"]["blocks"]]
+    assert sorted(dq_rows) == list(range(0, S, BQ))
+    assert dq_rows[0] == (S - 1) // BQ * BQ
     if causal:                 # no tile entirely above the diagonal
-        for k0, q_tiles in plan["dkdv"]:
+        BQ = plan["dkdv"]["BQ"]
+        for k0, q_tiles in plan["dkdv"]["blocks"]:
             assert all(q0 + BQ - 1 >= k0 for q0 in q_tiles)
 
 
-def _replay(case, arrays, hd_tiles, drop=None):
-    """The kernels' order of work on the CPU, float32: for each dkdv block
-    (key tile, batch, kv head) the group's heads and the plan's query
-    tiles, P and dS of each tile pair from the saved lse and delta, dK and
-    dV added tile by tile; for each dq block the plan's key tiles.
-    ``drop`` leaves out the last query tile of every key tile (a
-    control)."""
+def test_bwd_schedule_fills_the_card_at_the_training_shape():
+    """The source header's block counts and makespans (tile steps of 4096
+    pairs on 132 SMs) at gemma3-1b's training microbatch: the wgmma dkdv
+    launch splits a kv group's 4 heads over 512 blocks, so that its
+    longest block is 64 steps and its makespan within 2% of the ideal
+    (steps / 132); the simt one, 256 blocks of 4 heads each, took 256."""
+    B, S, H, KV, hd = 2, 4096, 4, 1, 256
+    got = {w: FA.bwd_schedule(S, hd, True, w, B, H, KV, torch.bfloat16)
+           for w in (0, 512)}
+    assert got[0]["dkdv"] == {"blocks": 512, "steps": 16640, "longest": 64,
+                              "makespan": 127}
+    assert got[0]["dq"]["blocks"] == 256 and got[0]["dq"]["makespan"] == 128
+    assert got[512]["dkdv"]["blocks"] == 512 and \
+        got[512]["dkdv"]["makespan"] == 36
+    assert got[512]["dq"]["makespan"] == 40
+    for name in ("dkdv", "dq"):
+        assert got[0][name]["makespan"] <= 1.02 * got[0][name]["steps"] / 132
+    simt = FA.bwd_schedule(S, hd, True, 0, B, H, KV, torch.float32)
+    assert simt["dkdv"]["blocks"] == 256 and \
+        simt["dkdv"]["makespan"] == simt["dkdv"]["longest"] == 256
+
+
+def _round(x, dtype):
+    return x.to(dtype).float() if dtype is not None else x
+
+
+def _replay(case, arrays, hd_tiles, dtype=torch.float32, drop=None,
+            p_type=None):
+    """The kernels' order of work on the CPU, float32, for ``dtype``'s
+    route at the tiles of the instance at ``hd_tiles``.  simt: for each
+    dkdv block (key tile, batch, kv head) the group's heads and the plan's
+    query tiles, dK and dV of the group added tile by tile.  wgmma: for
+    each dkdv block (key tile, batch, query head) its own dK and dV,
+    written as float32 partials, then each group's heads added in the
+    order g = 0 .. G-1.  For each dq block the plan's key tiles.  P and dS
+    of each tile pair come from the saved lse and delta.  ``drop``: "tile"
+    leaves out the last query tile of every key tile, "head" the last head
+    of every group from the sum (controls).  ``p_type`` rounds P and dS to
+    that type before their products (the bf16 route's roundings)."""
     B, S, H, KV, hd, causal, window, cap = case
     q, k, v, do = (torch.tensor(a) for a in arrays)
     kw = _kw(case)
     o = FA.flash_attention_plain(q, k, v, **kw)
     lse = FA.flash_attention_lse_plain(q, k, **kw)
     delta = FA.flash_bwd_delta_plain(o, do)
-    plan = FA.bwd_plan(S, hd_tiles, causal, window)
-    BQ, BK = plan["BQ"], plan["BK"]
+    plan = FA.bwd_plan(S, hd_tiles, causal, window, dtype)
     G, scale = H // KV, hd ** -0.5
+    part = torch.zeros(2, B, S, H, hd)
     dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
 
-    def tile(b, h, q0, k0):
+    def tile(b, h, q0, k0, BQ, BK):
         qs = q[b, q0:q0 + BQ, h] * scale
         ks, vs = k[b, k0:k0 + BK, h // G], v[b, k0:k0 + BK, h // G]
         g = do[b, q0:q0 + BQ, h]
@@ -176,22 +249,32 @@ def _replay(case, arrays, hd_tiles, drop=None):
         if window:
             ok &= kj > qi - window
         p = torch.where(ok, torch.exp(c - lse[b, h, q0:q0 + BQ, None]), 0.0)
-        ds = p * (g @ vs.T - delta[b, h, q0:q0 + BQ, None]) * dt
-        return p, ds, qs, ks, g
+        ds = p * dt * (g @ vs.T - delta[b, h, q0:q0 + BQ, None])
+        return _round(p, p_type), _round(ds, p_type), qs, ks, g
 
+    BQ, BK = plan["dkdv"]["BQ"], plan["dkdv"]["BK"]
     for b in range(B):
-        for kh in range(KV):
-            for k0, q_tiles in plan["dkdv"]:
-                tiles = q_tiles[:-1] if drop and q_tiles else q_tiles
-                for h in range(kh * G, (kh + 1) * G):
-                    for q0 in tiles:
-                        p, ds, qs, _, g = tile(b, h, q0, k0)
-                        dv[b, k0:k0 + BK, kh] += p.T @ g
-                        dk[b, k0:k0 + BK, kh] += ds.T @ qs
+        for k0, q_tiles in plan["dkdv"]["blocks"]:
+            tiles = q_tiles[:-1] if drop == "tile" and q_tiles else q_tiles
+            for h in range(H):
+                for q0 in tiles:
+                    p, ds, qs, _, g = tile(b, h, q0, k0, BQ, BK)
+                    if plan["route"] == "wgmma":
+                        part[1, b, k0:k0 + BK, h] += p.T @ g
+                        part[0, b, k0:k0 + BK, h] += ds.T @ qs
+                    else:
+                        dv[b, k0:k0 + BK, h // G] += p.T @ g
+                        dk[b, k0:k0 + BK, h // G] += ds.T @ qs
+    if plan["route"] == "wgmma":
+        if drop == "head":
+            part.reshape(2, B, S, KV, G, hd)[:, :, :, :, G - 1] = 0.0
+        dk, dv = FA.flash_bwd_dkdv_sum_plain(part, KV, torch.float32)
+    BQ, BK = plan["dq"]["BQ"], plan["dq"]["BK"]
+    for b in range(B):
         for h in range(H):
-            for q0, k_tiles in plan["dq"]:
+            for q0, k_tiles in plan["dq"]["blocks"]:
                 for k0 in k_tiles:
-                    _, ds, _, ks, _ = tile(b, h, q0, k0)
+                    _, ds, _, ks, _ = tile(b, h, q0, k0, BQ, BK)
                     dq[b, q0:q0 + BQ, h] += ds @ ks * scale
     return dq, dk, dv
 
@@ -200,20 +283,80 @@ def _rel(a, b):
     return float((a - b).double().norm() / b.double().norm())
 
 
-@pytest.mark.parametrize("case,hd_tiles", [
-    ((2, 300, 4, 1, 16, True, 40, 0.0), 256),     # BK 32: 10 key tiles
-    ((1, 257, 8, 2, 16, True, 0, 30.0), 64),       # BK 64, G 4, softcap
-    ((1, 200, 4, 4, 16, False, 17, 0.0), 128),     # non-causal window
+@pytest.mark.parametrize("case,hd_tiles,dtype", [
+    ((2, 300, 4, 1, 16, True, 40, 0.0), 256, torch.float32),  # BK 32
+    ((1, 257, 8, 2, 16, True, 0, 30.0), 64, torch.float32),   # G 4, softcap
+    ((1, 200, 4, 4, 16, False, 17, 0.0), 128, torch.float32),
+    ((2, 300, 4, 1, 16, True, 40, 0.0), 256, torch.bfloat16),  # G 4
+    ((1, 257, 8, 2, 16, True, 0, 30.0), 64, torch.bfloat16),
+    ((1, 200, 4, 4, 16, False, 17, 0.0), 128, torch.bfloat16),  # G 1
 ])
-def test_replay_of_the_kernel_plan_matches_plain(case, hd_tiles):
+def test_replay_of_the_kernel_plan_matches_plain(case, hd_tiles, dtype):
     """The plan of the kernel instance at ``hd_tiles`` (its tile sizes)
     replayed at a small head dim gives the plain version's dq, dk, dv; a
-    plan that skips one query tile per key tile does not."""
+    plan that skips one query tile per key tile does not, and on the
+    wgmma route (G > 1) neither does a sum that leaves out one head's
+    partial."""
     arrays = _inputs(case, 2)
     want, _ = _plain_bwd(case, arrays)
-    got = _replay(case, arrays, hd_tiles)
+    got = _replay(case, arrays, hd_tiles, dtype)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-5
-    control = _replay(case, arrays, hd_tiles, drop=True)
-    assert _rel(control[1], want[1]) > 1e-2
-    assert _rel(control[2], want[2]) > 1e-2
+    controls = ["tile"] + (["head"] if dtype == torch.bfloat16
+                           and case[2] > case[3] else [])
+    for drop in controls:
+        control = _replay(case, arrays, hd_tiles, dtype, drop=drop)
+        assert _rel(control[1], want[1]) > 1e-2, drop
+        assert _rel(control[2], want[2]) > 1e-2, drop
+
+
+def test_dkdv_partials_summed_in_head_order_give_the_plain_dkdv():
+    """``flash_bwd_dkdv_partials_plain`` summed by
+    ``flash_bwd_dkdv_sum_plain`` (g = 0 .. G-1, float32, one rounding)
+    equals ``flash_bwd_dkdv_plain``; the CPU wrappers route to them."""
+    case = (2, 37, 8, 2, 32, True, 9, 20.0)
+    q, k, v, do = (torch.tensor(a) for a in _inputs(case, 3))
+    kw = _kw(case)
+    o = FA.flash_attention_plain(q, k, v, **kw)
+    lse = FA.flash_attention_lse_plain(q, k, **kw)
+    delta = FA.flash_bwd_delta_plain(o, do)
+    part = FA.flash_bwd_dkdv_partials(q, k, v, do, lse, delta, **kw)
+    assert part.shape == (2,) + tuple(q.shape) and part.dtype == torch.float32
+    dk, dv = FA.flash_bwd_dkdv_sum_plain(part, 2, torch.float32)
+    want = FA.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
+    for g, w in zip((dk, dv), want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL)
+    bf = FA.flash_bwd_dkdv_sum(part, 2)
+    assert all(t.dtype == torch.bfloat16 for t in bf)
+    torch.testing.assert_close(bf[0], dk.to(torch.bfloat16), atol=0, rtol=0)
+
+
+# the card's bf16 bound (tests/test_torch_gpu.py, chip_smoke.py)
+FLASH_BWD_BF16_REL = 5e-3
+
+
+@pytest.mark.parametrize("case,hd_tiles", [
+    ((1, 256, 4, 1, 64, True, 0, 0.0), 256),
+    ((1, 200, 8, 2, 32, True, 40, 30.0), 64),
+])
+def test_bf16_roundings_of_p_and_ds_stay_within_the_bound(case, hd_tiles):
+    """The wgmma route's own roundings, replayed in float32 on inputs
+    rounded to bf16: P and dS rounded to bf16 before their products, dq,
+    dk and dv once at the end.  Against the plain version (float32 inside,
+    outputs rounded once) they stay within the card's FLASH_BWD_BF16_REL,
+    while the same replay with P and dS in fp8 e4m3 does not: the bound
+    can see a coarser P or dS."""
+    arrays = [a.astype(np.float32) for a in _inputs(case, 4)]
+    arrays = [torch.tensor(a).to(torch.bfloat16).float().numpy()
+              for a in arrays]
+    want, _ = _plain_bwd(case, arrays)
+    want = [w.to(torch.bfloat16).float() for w in want]
+    got = _replay(case, arrays, hd_tiles, torch.bfloat16,
+                  p_type=torch.bfloat16)
+    rels = [_rel(g.to(torch.bfloat16).float(), w) for g, w in zip(got, want)]
+    assert max(rels) <= FLASH_BWD_BF16_REL, rels
+    assert min(rels) > 1e-4, rels          # the roundings are there
+    coarse = _replay(case, arrays, hd_tiles, torch.bfloat16,
+                     p_type=torch.float8_e4m3fn)
+    assert min(_rel(g, w) for g, w in zip(coarse, want)) > \
+        FLASH_BWD_BF16_REL
