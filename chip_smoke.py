@@ -11,9 +11,10 @@ Phases:
   flash_build  per instantiation of the flash-attention kernels: ptxas's
                registers and spills, dynamic shared memory, and the HGMMA
                and UTMALDG instructions in the library's SASS
-  kernel_build per instantiation of the decode, WKV6 and GBM kernels:
-               ptxas's registers, spills, stack and shared memory; the
-               loops of the GBM instance at d 3, depth 3 in its SASS
+  kernel_build per instantiation of the decode, WKV6 (serving and
+               training), GBM and RWKV / Mamba backward kernels: ptxas's
+               registers, spills, stack and shared memory; the loops of
+               the GBM instance at d 3, depth 3 in its SASS
   kernel   GBM-ensemble kernel vs its plain version (bit for bit at
            y_scale != 0) at the serving shape, edge cases (non-finite
            inputs, n = 1, ragged n, T = 1, 203 and 2000, depth 1, 4 and
@@ -113,7 +114,9 @@ Phases:
                 bit for bit) and float32, each repeated bit for bit; the
                 forward's bytes with and without its lse output;
                 gemma3-1b's training microbatch (B 2, S 4096, H 4 over 1,
-                hd 256; global and window 512) and edge cases (softcap,
+                hd 256; global and window 512), jamba's attention layer
+                at its microbatch (B 1, S 4096, 64 heads over 8 of 128)
+                and edge cases (softcap,
                 G 1/2/4/8, non-causal, ragged S, S = 1, hd 64 and 128);
                 ptxas per instantiation (no spills), the wgmma instances'
                 shared memory and HGMMA/UTMALDG counts; CUDA-event times,
@@ -136,6 +139,32 @@ Phases:
                 the backward's delta set to 0; crash-restart at full width
                 with 2 layers, the final loss against the uninterrupted
                 run's at rtol 1e-4
+  ssm_train_kernel  wkv6_bwd and mamba_scan_bwd (the backward kernels of
+                WKV6 and the selective scan) vs their plain versions and
+                autograd of the plain forwards (also through the WKV6 and
+                MambaScan autograd Functions): the training microbatch
+                (B 1, S 4096; 40 heads of 64, 16,384 channels of 16), the
+                serving shapes (B 8, S 2048), given s0 / h0 and ds_end /
+                dh_end, decays on all sides of the clamp with ties at -9,
+                exp(dt A) that underflows, hd 16 and 32, N 4 with ragged S
+                and D; every call repeated bit for bit, each check with a
+                control that must exceed it (the u diagonal's gradient
+                dropped; the checkpoints zeroed); CUDA-event times at the
+                training shape beside the plain versions' and the bounds
+  rwkv_train    rwkv6-3b at full width and depth (32 layers, d 2560, vocab
+                65,536) through repro_torch.launch.train.run: 4 steps of
+                8 x 4096 (remat full, AdamW, grad_accum 8); step s,
+                tokens/s, MFU, peak memory, the analytic step, launches a
+                step (512 wkv6, 256 wkv6_bwd)
+  jamba_train   jamba-1.5-large at launch.train's cut (4 layers, d_ff and
+                moe_d_ff 2,048: 3.66 B) the same way (Adafactor, bf16
+                accumulation, the MoE aux loss); launches a step 48
+                mamba_scan, 24 mamba_scan_bwd, 16 flash forwards and 8 of
+                each backward launch
+  ssm_train_parity  rwkv6 at rwkv_parity's cut and jamba at jamba_parity's,
+                batch 1 x 128, one float32 step: card vs CPU (loss, grad
+                norm, every gradient leaf, the parameters after AdamW's
+                first step, split by |g| against eps)
   eval     the evaluation plane on the card: run_replay at the golden's
            config cut to its grep job (2 users, 3 contributions each), the
            final MAPE per model held to tests/goldens/replay_mini.json
@@ -145,14 +174,16 @@ Phases:
            beats the global mean, transfer_source stamped); wall time,
            gbm_predict launches and engine fits per checkpoint and part
 
-Seven main paths: the phases fit, serve and loop (the paper's loop,
+Nine main paths: the phases fit, serve and loop (the paper's loop,
 through the GBM kernel), edge (the hub's public surface over a socket,
 through the GBM kernel), eval (the evaluation plane, through the GBM
 kernel), lm_serve (gemma3-1b serving, through the two
 attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
 kernel), jamba_serve (jamba-1.5-large serving, through the scan and
-the attention kernels) and train (gemma3-1b training, through the flash
-forward and the three backward launches).  Each path's kernel launch counts are set to 0
+the attention kernels), train (gemma3-1b training, through the flash
+forward and the four backward launches), rwkv_train (through the WKV6
+kernel and wkv6_bwd) and jamba_train (through the scan kernel,
+mamba_scan_bwd and the flash kernels).  Each path's kernel launch counts are set to 0
 just before it and read just after it.  Before the last line it prints the ``kernels``
 line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero.  Without a
@@ -1485,19 +1516,113 @@ def lm_time(fn, reps, kernels_per_call=1):
             "kernel_names": sorted({n[:80] for n in by_name})}
 
 
+def traced_kernel_names(fn, done=bool, calls=3, tries=3):
+    """The device events' names of ``calls`` calls of ``fn``, each
+    followed by a synchronisation, pooled over torch.profiler traces until
+    ``done(names)`` holds, up to ``tries`` traces (the profiler drops
+    events: one trace recorded none of 20 back-to-back flash launches
+    after the earlier phases)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    seen = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                sync()
+        seen |= {e.name[:80] for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if done(seen):
+            break
+    return sorted(seen)
+
+
+def _bwd_kernels_seen(names):
+    """The flash backward's kernel names among traced names."""
+    return {w for n in names for w in re.findall(r"flash_bwd_\w+_kernel", n)}
+
+
+def _route_call(kind, a):
+    """(the call whose kernels a route trace records, the test that a
+    trace has seen the route's kernels): the bf16 flash_attention
+    (``kind`` "flash") or decode_attention ("decode") on ``_qkv``'s seeded
+    inputs, ``a`` the shape's arguments; or ("bwd") flash_attention_bwd in
+    ``a["dtype"]`` at the training microbatch (4 query heads over 1 of
+    256), ``a["window"]`` its window."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.modeling.attention import ring_positions
+    if kind == "flash":
+        q, k, v = _qkv(a["seed"], a["B"], a["S"], a["H"], a["KV"], a["hd"],
+                       "bfloat16")
+        return (lambda: FA.flash_attention(q, k, v, window=a["window"]),
+                lambda names: any("flash_fwd_wgmma" in n for n in names))
+    if kind == "bwd":
+        B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
+        q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
+                                   (B, S, KV, hd), (B, S, H, hd)),
+                               a["dtype"])
+        o, lse = FA.flash_attention_lse(q, k, v, window=a["window"])
+        need = bwd_route_kernels(a["dtype"])[1]
+        return (lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                               window=a["window"]),
+                lambda names: need <= _bwd_kernels_seen(names))
+    q, kc, vc = _qkv(a["seed"], a["B"], 1, a["H"], a["KV"], a["hd"],
+                     "bfloat16", L=a["Lc"])
+    q = q[:, 0].contiguous()
+    k_pos = (ring_positions(a["Lc"], a["pos"], LM_DEVICE) if a["ring"]
+             else None)
+    return (lambda: DA.decode_attention(q, kc, vc, a["pos"],
+                                        window=a["window"], k_pos=k_pos),
+            lambda names: any("decode_kernel" in n for n in names))
+
+
+def route_trace_child(kind, args):
+    """``chip_smoke.py --trace KIND ARGS``: ``traced_kernel_names`` of
+    ``_route_call(KIND, ARGS)`` in a fresh process; prints the names."""
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    print(json.dumps(traced_kernel_names(*_route_call(kind, args))))
+    return 0
+
+
+def route_trace(kind, **args):
+    """(the kernel names that profiler traces of ``_route_call(kind,
+    args)`` show, where they were traced): in this process, and where
+    torch.profiler has stopped recording the route's device events here
+    (after the earlier phases it recorded none in three traces of a jamba
+    flash call, twice in seven runs, and none of a float32 flash
+    backward), in a process of its own (``route_trace_child``)."""
+    fn, done = _route_call(kind, args)
+    names = traced_kernel_names(fn, done)
+    del fn
+    if done(names):
+        return names, "this process"
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--trace", kind, json.dumps(args)],
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0 and p.stdout.strip(), \
+        f"route trace {kind}: rc {p.returncode}: {p.stderr[-2000:]}"
+    return json.loads(p.stdout.strip().splitlines()[-1]), "a child process"
+
+
 def flash_times(seed, B, S, H, KV, hd, window):
     """Kernel, plain and SDPA times of one causal bf16 flash_attention call
     at [B, S, H over KV, hd], and its bound.  The times are CUDA events,
     the kernel's and SDPA's over the same 20 calls; beside them the
     profiler's device times, and for each reading of the kernel and SDPA
     its achieved TFLOP/s (the operations of ``flash_bound_ms`` over the
-    time).  Fails on a reading above the bf16 peak, and unless the trace
-    shows the tensor-core kernel."""
+    time).  Fails on a reading above the bf16 peak, and unless a trace
+    (``route_trace``) shows the tensor-core kernel."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _qkv(seed, B, S, H, KV, hd, "bfloat16")
     kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
-    assert any("flash_fwd_wgmma" in n for n in kern["kernel_names"]), \
-        kern["kernel_names"]
+    traced, traced_in = route_trace("flash", seed=seed, B=B, S=S, H=H,
+                                    KV=KV, hd=hd, window=window)
+    assert any("flash_fwd_wgmma" in n for n in traced), traced
     plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
                                                      window=window), 5)
     lib = sdpa_flash(q, k, v, True, window)
@@ -1518,6 +1643,7 @@ def flash_times(seed, B, S, H, KV, hd, window):
             "bound_ms": bnd, "bound_by": by,
             "library_ms": lib_t and lib_t["events_ms"],
             "ms_from": "cuda events", "tflops": tflops,
+            "route_traced_in": traced_in,
             "library_max_abs_err_vs_plain": lib_err,
             "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
 
@@ -1536,8 +1662,10 @@ def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
     k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
     kern = lm_time(lambda: DA.decode_attention(
         q, kc, vc, pos, window=window, k_pos=k_pos), 200)
-    assert any("decode_kernel" in n for n in kern["kernel_names"]), \
-        kern["kernel_names"]
+    traced, traced_in = route_trace("decode", seed=seed, B=B, Lc=Lc, H=H,
+                                    KV=KV, hd=hd, pos=pos, window=window,
+                                    ring=ring)
+    assert any("decode_kernel" in n for n in traced), traced
     plain = lm_time(lambda: DA.decode_attention_plain(
         q, kc, vc, pos, window=window, k_pos=k_pos), 50)
     ok = DA._mask(k_pos, Lc, pos, window, q.device)
@@ -1546,7 +1674,11 @@ def decode_times(seed, B, Lc, H, KV, hd, pos, window, ring):
     n_kept = int(ok.sum())
     bnd, by = decode_bound_ms(B, H, KV, hd, n_kept, Lc if ring else 0,
                               "bfloat16")
-    return {"ms": kern["device_ms"], "ms_from": "profiler device time",
+    # the events' time only where the trace recorded no launch at all
+    dev = kern["device_ms"] is not None
+    return {"ms": kern["device_ms"] if dev else kern["events_ms"],
+            "ms_from": "profiler device time" if dev else "cuda events",
+            "route_traced_in": traced_in,
             "plain_ms": plain["ms"], "bound_ms": bnd,
             "bound_by": by, "library_ms": lib_t and lib_t["ms"],
             "pos": pos, "slots_kept": n_kept,
@@ -1772,8 +1904,10 @@ def flash_build_phase(build, so_path):
 
 def _instance(mangled):
     """A short label of a mangled kernel name of decode_attention.cu,
-    wkv6.cu or gbm_predict.cu, such as 'decode bf16 hd 128 G 8', 'wkv6 hd
-    64' or 'gbm d 3 depth 3' (depth 0: the generic instance for 5-10),
+    wkv6.cu, gbm_predict.cu, wkv6_bwd.cu or mamba_scan_bwd.cu, such as
+    'decode bf16 hd 128 G 8', 'wkv6 hd 64' (the serving instance), 'wkv6
+    hd 64 states' (the training one), 'gbm d 3 depth 3' (depth 0: the
+    generic instance for 5-10), 'wkv6_bwd hd 64' or 'mamba_scan_bwd N 16',
     else None."""
     m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
                   mangled)
@@ -1783,8 +1917,14 @@ def _instance(mangled):
     m = re.search(r"gbm_kernelILi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"gbm d {m.group(1)} depth {m.group(2)}"
-    m = re.search(r"wkv6_kernelILi(\d+)E", mangled)
-    return f"wkv6 hd {m.group(1)}" if m else None
+    m = re.search(r"wkv6_kernelILi(\d+)E(Lb1E)?", mangled)
+    if m:
+        return f"wkv6 hd {m.group(1)}{' states' if m.group(2) else ''}"
+    m = re.search(r"(wkv6_bwd|mamba_scan_bwd)_kernelILi(\d+)E", mangled)
+    if m:
+        dim = "hd" if m.group(1) == "wkv6_bwd" else "N"
+        return f"{m.group(1)} {dim} {m.group(2)}"
+    return None
 
 
 def sass_loops(so_path, function):
@@ -1834,14 +1974,16 @@ def kernel_build_phase(build, built):
     ``build.BUILD_INFO``), the warps, dynamic shared memory and resident
     blocks an SM of a decode block, as the library reports them
     (``tile_config``), and the loops of the GBM instance that serves d 3,
-    depth 3 (``sass_loops``).  Fails if a decode or GBM instantiation
-    spills or a GBM one has a stack, or a WKV6 one stores or loads more
-    than WKV6_SPILL_BYTES of spills."""
+    depth 3 (``sass_loops``); the same for the backward kernels of WKV6
+    and the scan.  Fails if a decode, GBM or backward instantiation
+    spills or a GBM one has a stack, or a WKV6 forward (serving or
+    training) stores or loads more than WKV6_SPILL_BYTES of spills."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     t0 = time.perf_counter()
     per = {}
-    for name in ("decode_attention", "wkv6", "gbm_predict"):
+    for name in ("decode_attention", "wkv6", "gbm_predict", "wkv6_bwd",
+                 "mamba_scan_bwd"):
         per.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
                                      _instance))
     for name, info in per.items():
@@ -1852,11 +1994,13 @@ def kernel_build_phase(build, built):
             info.update(warps=cfg["W"], dynamic_smem_bytes=cfg["SMEM"],
                         blocks_per_sm=cfg["blocks_per_sm"])
     assert sum(n.startswith("decode") for n in per) == 24, sorted(per)
-    assert sum(n.startswith("wkv6") for n in per) == 3, sorted(per)
+    assert sum(n.startswith("wkv6 ") for n in per) == 6, sorted(per)
     assert sum(n.startswith("gbm") for n in per) == 30, sorted(per)
+    assert sum(n.startswith(("wkv6_bwd", "mamba_scan_bwd"))
+               for n in per) == 6, sorted(per)
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
-              > (WKV6_SPILL_BYTES if n.startswith("wkv6") else 0)
+              > (WKV6_SPILL_BYTES if n.startswith("wkv6 ") else 0)
               or (n.startswith("gbm") and i.get("stack_bytes", 1) != 0)}
     assert not spills, spills
     emit("kernel_build", t0, instances=per,
@@ -2537,6 +2681,7 @@ def jamba_kernel_phase():
         [("jamba attention layer", B, S, H, KV, hd, True, 0, 0.0)],
         [("jamba decode pos 2100", B, SERVE_L, H, KV, hd, 2100, 0, 0.0,
           False)], seed=200)
+    _free_card()
     attn_times = {
         "flash_attention": flash_times(207, B, S, H, KV, hd, 0),
         "decode_attention": decode_times(
@@ -3037,8 +3182,9 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
     bf16 with G > 1 the dkdv launch (its partials) and the sum are timed
     apart, the sum beside one ``torch.sum`` over the heads of the same
     partials (float32 out: without the rounding).  The kernel names that
-    profiled calls of the whole backward show (``bwd_trace``) go with the
-    times, and those the traces missed."""
+    profiled calls of the whole backward show (``route_trace`` "bwd") go
+    with the times, and those the traces missed; fails unless the route's
+    dkdv and dq kernels were seen, and on any kernel of the other route."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     kw = dict(window=window)
@@ -3078,7 +3224,13 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
         out["flash_bwd_dkdv_sum"]["library_ms"] = cuda_ms(
             lambda: torch.sum(grouped, dim=4), 10, warm=2)
         del part, grouped
-    out.update(bwd_trace(dtype, window))
+    traced, traced_in = route_trace("bwd", dtype=dtype, window=window)
+    want, need = bwd_route_kernels(dtype)
+    seen = _bwd_kernels_seen(traced)
+    assert need <= seen <= want, \
+        f"flash backward {dtype} window {window}: the trace shows {seen}"
+    out.update(trace_kernels=sorted(seen), trace_missing=sorted(want - seen),
+               route_traced_in=traced_in)
     out["forward_ms"] = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)
     out["sdpa"] = sdpa_backward_times(q, k, v, do, window) \
         if dtype == "bfloat16" else None
@@ -3096,55 +3248,6 @@ def bwd_route_kernels(dtype):
                        "flash_bwd_dkdv_sum_kernel"}, need
     need = {"flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"}
     return need | {"flash_bwd_delta_kernel"}, need
-
-
-def bwd_trace_child(dtype, window):
-    """``chip_smoke.py --bwd-trace DTYPE WINDOW``: up to three profiled
-    traces of 5 calls of flash_attention_bwd at the training microbatch
-    (4 query heads over 1 of 256), stopping once every kernel of the
-    route is seen; prints the pooled kernel names and the traces taken."""
-    import torch
-    if not torch.cuda.is_available():
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as FA
-    build.build_all(["flash_attention", "flash_attention_bwd"])
-    B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
-    q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
-                               (B, S, KV, hd), (B, S, H, hd)), dtype)
-    o, lse = FA.flash_attention_lse(q, k, v, window=window)
-    want, _ = bwd_route_kernels(dtype)
-    seen, tries = set(), 0
-    while tries < 3 and not want <= seen:
-        tries += 1
-        names = lm_time(lambda: FA.flash_attention_bwd(
-            q, k, v, o, lse, do, window=window), 5)["kernel_names"]
-        seen |= {w for n in names
-                 for w in re.findall(r"flash_bwd_\w+_kernel", n)}
-    print(json.dumps({"seen": sorted(seen), "traces": tries}))
-    return 0
-
-
-def bwd_trace(dtype, window):
-    """The kernel names that traces of the whole backward show at the
-    training microbatch, from ``bwd_trace_child`` in a process of its own.
-    In this process, after the earlier phases, torch.profiler has
-    recorded no device event of a float32 backward in three traces, while
-    a fresh process records every launch.  Fails unless the route's dkdv
-    and dq kernels were seen, and on any kernel of the other route."""
-    p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--bwd-trace", dtype, str(window)],
-                       capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0 and p.stdout.strip(), \
-        f"bwd trace {dtype}: rc {p.returncode}: {p.stderr[-2000:]}"
-    got = json.loads(p.stdout.strip().splitlines()[-1])
-    want, need = bwd_route_kernels(dtype)
-    seen = set(got["seen"])
-    assert need <= seen <= want, \
-        f"flash backward {dtype} window {window}: the trace shows {seen}"
-    return {"trace_kernels": sorted(seen),
-            "trace_missing": sorted(want - seen), "traces": got["traces"]}
 
 
 def bwd_build(build):
@@ -3181,7 +3284,8 @@ def train_kernel_phase(build):
     """The flash backward on the card: ``bwd_build`` (registers, shared
     memory, spills, HGMMA and UTMALDG per instantiation), every case of
     ``check_flash_bwd`` in bfloat16 and float32 (gemma3-1b's training
-    microbatch, global and window 512, and the edge cases: softcap, G
+    microbatch, global and window 512, jamba's attention layer at its
+    microbatch, and the edge cases: softcap, G
     1/2/4/8, non-causal, ragged S, S = 1, hd 64 and 128, a window across
     tiles), then CUDA-event times at the training shape with their bounds
     and SDPA's backward, and the kernels a profiled call runs."""
@@ -3198,7 +3302,10 @@ def train_kernel_phase(build):
          0.0),
         ("S=1", 2, 1, 4, 1, 256, True, 0, 0.0),
         ("S=129 hd 128 softcap 30", 2, 129, 4, 1, 128, True, 0, 30.0),
-        ("non-causal window 16 hd 64", 1, 77, 2, 2, 64, False, 16, 0.0)]
+        ("non-causal window 16 hd 64", 1, 77, 2, 2, 64, False, 16, 0.0),
+        # jamba's attention layer at its training microbatch
+        ("jamba train H64 KV8 hd 128", 1, TRAIN_S, JAMBA_H, JAMBA_KV,
+         JAMBA_HD, True, 0, 0.0)]
     rel, worst = {}, {}
     for i, c in enumerate(cases):
         for dt in ("bfloat16", "float32"):
@@ -3225,9 +3332,11 @@ def train_kernel_phase(build):
 def _train_flops(cfg, B, S):
     """Model FLOPs of one step (3 forward passes' worth: forward and
     backward), not counting remat's recompute: the products of the layers
-    and the head (6 N per token) and attention's scores and values over
-    the kept pairs; and with remat="full" the recompute (the layers' and
-    attention's forward once more)."""
+    and the head (6 N per token, N the active parameters) and the
+    attention layers' scores and values over the kept pairs (the WKV6 and
+    scan recurrences, under 1% of a step's FLOPs, are not counted); and
+    with remat="full" the recompute (the layers' and attention's forward
+    once more)."""
     counts = cfg.param_counts()
     embed = cfg.padded_vocab_size * cfg.d_model
     dense = 6.0 * (counts["active"] - embed) * B * S
@@ -3235,7 +3344,8 @@ def _train_flops(cfg, B, S):
     hd, H = cfg.resolved_head_dim, cfg.n_heads
     attn = sum(3.0 * 4 * hd * H * B * kept_pairs(
         S, True, cfg.window_size if cfg.layer_kind(i) == "attn_local" else 0)
-        for i in range(cfg.n_layers))
+        for i in range(cfg.n_layers)
+        if cfg.layer_kind(i) in ("attn", "attn_local"))
     model = dense + head + attn
     return model, model + (dense + attn) / 3.0
 
@@ -3492,6 +3602,563 @@ def train_parity_phase():
     return r
 
 
+
+# rwkv6-3b's and jamba's training microbatch: batch 8 over grad_accum 8
+SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS, SSM_MICRO_B = 8, 4096, 4, 1
+# wkv6_bwd against wkv6_bwd_plain and autograd of wkv6_plain: float32 on
+# both sides (the kernel's products are float32 FMAs, its exponentials
+# MUFU's, ~1e-6 relative), sums in another order; ||got - want|| /
+# ||want|| per output.  dw is d(log w) / w: the 1 / w of a decay near the
+# clamp (1.2e-4) scales a float32 difference of d(log w) by up to 8,100,
+# so w dw is held to WKV_BWD_REL and dw itself to WKV_BWD_DW_REL.  The
+# control (the u diagonal's gradient dropped from dr, dk and du) must
+# exceed the bound
+WKV_BWD_REL, WKV_BWD_DW_REL = 1e-4, 1e-3
+# mamba_scan_bwd against mamba_scan_bwd_plain and autograd of
+# mamba_scan_plain: float32, the kernel's exponentials ex2.approx (~1e-6
+# relative), sums over 16,384 channels and 4,096 steps in another order;
+# the control (the checkpoints zeroed: every recomputed state wrong) must
+# exceed it
+SCAN_BWD_REL = 1e-4
+# ssm_train_parity: rwkv6 at rwkv_parity's cut (4 layers at full width)
+# and jamba at jamba_parity's (4 layers, d_ff and moe_d_ff 2,048), batch
+# 1, sequence 128, one float32 AdamW step on the card against the CPU,
+# held to TRAIN_F32_REL and TRAIN_F32_FAR_REL as train_parity
+SSM_PARITY_B, SSM_PARITY_S = 1, 128
+
+
+def wkv6_bwd_bound_ms(B, S, H, hd, ds_end=False):
+    """(least time for one wkv6_bwd call, what bounds it, the bytes the
+    design moves beyond the function's own): the function reads r, k, v,
+    w, dy, u and s0 (and ds_end where given) once and writes dr, dk, dv,
+    dw, du and ds0 once, float32, at the HBM rate; against its float32
+    operations per (b, h, chunk of 16), two a multiply-add: the strictly
+    lower scores and their gradient, the two diagonals, dv (sc^T dy, diag
+    dy, kd dS), da, db, drq, dkd, ddecay and the dS update, at the 67
+    TFLOP/s float32 peak.  The design's own bytes, outside the bound: the
+    forward's chunk states it reads instead of recomputing them, and du's
+    per-b partials written and read."""
+    low = 16 * 15 // 2
+    n = B * H * (S // 16)
+    nbytes = 4 * (9 * B * S * H * hd + 2 * H * hd
+                  + (3 if ds_end else 2) * B * H * hd * hd)
+    design_bytes = 4 * (n * hd * hd + 2 * B * H * hd)
+    macs = (5 * low * hd + 2 * 16 * hd + 16 * hd + 4 * 16 * hd * hd
+            + 2 * hd * hd) * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / FP32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (design_bytes,)
+
+
+def scan_bwd_bound_ms(B, S, D, N, dh_end=False):
+    """(least time for one mamba_scan_bwd call, what bounds it, the bytes
+    the design moves beyond the function's own): the function reads u,
+    dt, dy, A, B_in, C_in and h0 (and dh_end where given) once and writes
+    du, d(dt), dA, dB, dC and dh0 once, float32, at the HBM rate; against
+    its operations: one exponential per (b, t, d, n) (the state's decay,
+    which both h_{t-1} and the reverse step need) and some 20 float32
+    operations there (the state, g, its four products and sums), split as
+    ``scan_bound_ms`` splits them between the special-function units and
+    float32 polynomials.  The design's own bytes, outside the bound: the
+    forward's tile checkpoints it reads, the per-block partials of dB and
+    dC and the per-b partials of dA, each written and read."""
+    import torch
+    from repro_torch.kernels.build import load
+    n_blk = -(-D // load("mamba_scan_bwd").mamba_scan_bwd_block_channels())
+    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
+                  + (3 if dh_end else 2) * B * D * N)
+    design_bytes = 4 * (B * -(-S // 64) * D * N + 2 * 2 * n_blk * B * S * N
+                        + 2 * B * D * N)
+    flops = 20 * B * S * D * N
+    n_exp = B * S * D * N
+    mhz = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_fp32 = flops / FP32_OPS_PER_S * 1e3
+    t_sfu = n_exp / (sms * SFU_PER_SM_CLOCK * mhz * 1e6) * 1e3
+    t_emul = 2 * EXP_EMULATION_FMAS * n_exp / FP32_OPS_PER_S * 1e3
+    f = min(max((t_sfu - t_fp32) / (t_emul + t_sfu), 0.0), 1.0)
+    t_ops = max(t_fp32 + f * t_emul, (1 - f) * t_sfu)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (design_bytes,)
+
+
+def _check_ssm_bwd(label, got, again, wants, names, limits):
+    """Per output ||got - want|| / ||want|| against each reference; every
+    output finite and repeated bit for bit.  ``limits``: name -> bound
+    (a name "w*dw" holds got * w); returns the readings."""
+    import torch
+    r = {}
+    for i, n in enumerate(names):
+        g = got[i]
+        assert bool(g.isfinite().all()), f"{label}: {n} not finite"
+        assert torch.equal(g, again[i]), f"{label}: {n} does not repeat"
+    for ref, want in wants.items():
+        for n, (g_fn, w_fn, lim) in limits.items():
+            rel = _rel_err(g_fn(got), w_fn(want))
+            r[f"{n} vs {ref}"] = rel
+            assert rel <= lim, f"{label}: {n} vs {ref} {rel} beyond {lim}"
+    return r
+
+
+def _wkv_bwd_inputs(seed, B, S, H, hd, s0, ds_end, clamp=False):
+    """``_wkv_inputs`` plus dy (and ds_end) ~ N(0, 0.5^2); s0 zeros where
+    not given (the model's training path); with ``clamp``, log w down to
+    -12 and ties exp(-9) planted at one token's first dims."""
+    import torch
+    r, k, v, w, u, st = _wkv_inputs(seed, B, S, H, hd, s0,
+                                    -12.0 if clamp else None)
+    if clamp:
+        w[0, 3, 0, :4] = float(np.float32(np.exp(-9.0)))
+    if st is None:
+        st = torch.zeros(B, H, hd, hd, device=LM_DEVICE)
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 1)
+    dy = 0.5 * torch.randn(B, S, H, hd, generator=g, device=LM_DEVICE)
+    dse = (0.5 * torch.randn(B, H, hd, hd, generator=g, device=LM_DEVICE)
+           if ds_end else None)
+    return r, k, v, w, u, st, dy, dse
+
+
+def check_wkv6_bwd(label, B, S, H, hd, s0, ds_end, clamp, seed,
+                   autograd=True):
+    """wkv6_bwd on the card against wkv6_bwd_plain on the same inputs and
+    against autograd of wkv6_plain (through ``WKV6``'s forward too: the
+    kernel's gradient by ``torch.autograd.grad`` of ``wkv6``), repeated bit
+    for bit; the control drops the u diagonal's gradient."""
+    import torch
+    from repro_torch.kernels import wkv6 as WK
+    ins = _wkv_bwd_inputs(seed, B, S, H, hd, s0, ds_end, clamp)
+    r, k, v, w, u, st, dy, dse = ins
+    states = WK.wkv6_with_states(*ins[:6])[2]
+    got = WK.wkv6_bwd(*ins, states=states)
+    again = WK.wkv6_bwd(*ins, states=states)
+    del states
+    sync()
+    wants = {"plain": WK.wkv6_bwd_plain(*ins)}
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    if autograd:
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, st)]
+        y, s_end = WK.wkv6_plain(*leaves)
+        outs, grads_in = [y], [dy]
+        if dse is not None:
+            outs.append(s_end)
+            grads_in.append(dse)
+        wants["autograd"] = torch.autograd.grad(outs, leaves, grads_in)
+        # the Function's own route: the forward kernel's states, then
+        # the backward kernel
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, st)]
+        y, s_end = WK.wkv6(*leaves)
+        outs = [y] + ([s_end] if dse is not None else [])
+        via = torch.autograd.grad(outs, leaves, grads_in)
+        for n, a, b in zip(names, via, got):
+            assert torch.equal(a, b), f"wkv6 bwd {label}: WKV6's {n}"
+    lim = {n: ((lambda g, i=i: g[i]), (lambda x, i=i: x[i]), WKV_BWD_REL)
+           for i, n in enumerate(names) if n != "dw"}
+    lim["w*dw"] = (lambda g: g[3] * w, lambda x: x[3] * w, WKV_BWD_REL)
+    lim["dw"] = (lambda g: g[3], lambda x: x[3], WKV_BWD_DW_REL)
+    out = _check_ssm_bwd(f"wkv6 bwd {label}", got, again, wants, names, lim)
+    # the control: the u diagonal's gradient dropped
+    ddiag = (dy * v).sum(-1, keepdim=True)
+    ctl = (got[0] - ddiag * u * k, got[1] - ddiag * u * r)
+    want = wants["plain"]
+    out["control_no_u_diagonal"] = min(_rel_err(ctl[0], want[0]),
+                                       _rel_err(ctl[1], want[1]),
+                                       _rel_err(torch.zeros_like(got[4]),
+                                                want[4]))
+    assert out["control_no_u_diagonal"] > WKV_BWD_REL, \
+        f"wkv6 bwd {label}: the control passes: {out}"
+    out["max_abs_err"] = max(float((a - b).abs().max())
+                             for a, b in zip(got, want))
+    return out
+
+
+def check_scan_bwd(label, B, S, D, N, h0, dh_end, dt_max, seed,
+                   autograd=True):
+    """mamba_scan_bwd on the card against mamba_scan_bwd_plain on the
+    same inputs and against autograd of mamba_scan_plain (and through
+    ``MambaScan``), repeated bit for bit; the control zeroes the forward's
+    checkpoints."""
+    import torch
+    from repro_torch.kernels import mamba_scan as MS
+    u, dt, A, Bi, Ci, h = _scan_inputs(seed, B, S, D, N, h0, dt_max)
+    if h is None:
+        h = torch.zeros(B, D, N, device=LM_DEVICE)   # the model's path
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 1)
+    dy = 0.5 * torch.randn(B, S, D, generator=g, device=LM_DEVICE)
+    dhe = (0.5 * torch.randn(B, D, N, generator=g, device=LM_DEVICE)
+           if dh_end else None)
+    ins = (u, dt, A, Bi, Ci, h, dy, dhe)
+    chk = MS.mamba_scan_with_checkpoints(*ins[:6])[2]
+    got = MS.mamba_scan_bwd(*ins, checkpoints=chk)
+    again = MS.mamba_scan_bwd(*ins, checkpoints=chk)
+    sync()
+    names = ("du", "ddt", "dA", "dB", "dC", "dh0")
+    wants = {"plain": MS.mamba_scan_bwd_plain(*ins)}
+    if autograd:
+        leaves = [t.detach().requires_grad_() for t in ins[:6]]
+        y, h_end = MS.mamba_scan_plain(*leaves)
+        outs = [y] + ([h_end] if dhe is not None else [])
+        grads_in = [dy] + ([dhe] if dhe is not None else [])
+        wants["autograd"] = torch.autograd.grad(outs, leaves, grads_in)
+        leaves = [t.detach().requires_grad_() for t in ins[:6]]
+        y, h_end = MS.mamba_scan(*leaves)
+        outs = [y] + ([h_end] if dhe is not None else [])
+        via = torch.autograd.grad(outs, leaves, grads_in)
+        for n, a, b in zip(names, via, got):
+            assert torch.equal(a, b), f"scan bwd {label}: MambaScan's {n}"
+    lim = {n: ((lambda x, i=i: x[i]), (lambda x, i=i: x[i]), SCAN_BWD_REL)
+           for i, n in enumerate(names)}
+    out = _check_ssm_bwd(f"scan bwd {label}", got, again, wants, names, lim)
+    ctl = MS.mamba_scan_bwd(*ins, checkpoints=torch.zeros_like(chk))
+    want = wants["plain"]
+    out["control_zero_checkpoints"] = max(_rel_err(a, b)
+                                          for a, b in zip(ctl, want))
+    assert out["control_zero_checkpoints"] > SCAN_BWD_REL, \
+        f"scan bwd {label}: the control passes: {out}"
+    out["max_abs_err"] = max(float((a - b).abs().max())
+                             for a, b in zip(got, want))
+    return out
+
+
+def ssm_train_kernel_phase():
+    """wkv6_bwd and mamba_scan_bwd on the card: each against its plain
+    version and autograd of the plain forward at the training microbatch
+    (B 1, S 4096; rwkv6-3b's 40 heads of 64, jamba's 16,384 channels of
+    16 states), the serving shapes (B 8, S 2048), a given s0 / h0 and
+    ds_end / dh_end, decays on all sides of the clamp, exp(dt A) that
+    underflows, hd 16 and 32, N 4 and 8 with ragged S and D; every call
+    repeated bit for bit, with a control that must exceed the bound.  Then
+    CUDA-event times at the training shape beside the plain version's and
+    the bounds."""
+    import torch
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import wkv6 as WK
+    t0 = time.perf_counter()
+    B, S = SSM_MICRO_B, SSM_TRAIN_S
+    wkv_cases = [   # label, B, S, H, hd, s0, ds_end, clamp, autograd
+        ("train", B, S, RWKV_H, RWKV_HD, False, False, False, True),
+        ("serve B8 S2048", SERVE_B, SERVE_PROMPT, RWKV_H, RWKV_HD, True,
+         False, False, False),
+        ("s0 and ds_end given", 2, 256, 4, 64, True, True, False, True),
+        ("clamp binds, ties at -9", 2, 128, 4, 64, True, True, True, True),
+        ("hd 32", 1, 64, 3, 32, True, True, True, True),
+        ("hd 16", 2, 48, 2, 16, False, True, True, True)]
+    scan_cases = [  # label, B, S, D, N, h0, dh_end, dt_max, autograd
+        ("train", B, S, JAMBA_D, JAMBA_N, False, False, None, True),
+        ("serve B8 S2048", SERVE_B, SERVE_PROMPT, JAMBA_D, JAMBA_N, True,
+         False, None, False),
+        ("h0 and dh_end given", 2, 256, 2048, 16, True, True, None, True),
+        ("exp(dt A) underflows", 1, 128, 512, 8, True, True, 250.0, True),
+        ("N 4, ragged S and D", 1, 100, 200, 4, True, True, None, True)]
+    wkv, scan = {}, {}
+    for i, c in enumerate(wkv_cases):
+        wkv[c[0]] = check_wkv6_bwd(*c[:8], 70 + i, autograd=c[8])
+        _free_card()
+    for i, c in enumerate(scan_cases):
+        scan[c[0]] = check_scan_bwd(*c[:8], 80 + i, autograd=c[8])
+        _free_card()
+
+    ins = _wkv_bwd_inputs(9, B, S, RWKV_H, RWKV_HD, False, False)
+    states = WK.wkv6_with_states(*ins[:6])[2]
+    bnd, by, design = wkv6_bwd_bound_ms(B, S, RWKV_H, RWKV_HD)
+    wkv_t = {"ms": cuda_ms(lambda: WK.wkv6_bwd(*ins, states=states), 10),
+             "plain_ms": cuda_ms(lambda: WK.wkv6_bwd_plain(*ins), 2, warm=1),
+             "forward_ms": cuda_ms(lambda: WK.wkv6(*ins[:6]), 10),
+             "forward_with_states_ms": cuda_ms(
+                 lambda: WK.wkv6_with_states(*ins[:6]), 10),
+             "bound_ms": bnd, "bound_by": by, "design_bytes": design,
+             "ms_from": "cuda events",
+             "shape": f"B={B} S={S} H={RWKV_H} hd={RWKV_HD} float32"}
+    del ins, states
+    _free_card()
+    u, dt, A, Bi, Ci, _ = _scan_inputs(9, B, S, JAMBA_D, JAMBA_N, False)
+    h0 = torch.zeros(B, JAMBA_D, JAMBA_N, device=LM_DEVICE)
+    dy = 0.5 * torch.randn_like(u)
+    ins = (u, dt, A, Bi, Ci, h0, dy, None)
+    chk = MS.mamba_scan_with_checkpoints(*ins[:6])[2]
+    bnd, by, design = scan_bwd_bound_ms(B, S, JAMBA_D, JAMBA_N)
+    scan_t = {"ms": cuda_ms(lambda: MS.mamba_scan_bwd(*ins, checkpoints=chk),
+                            10),
+              "plain_ms": cuda_ms(lambda: MS.mamba_scan_bwd_plain(*ins), 1,
+                                  warm=1),
+              "forward_ms": cuda_ms(lambda: MS.mamba_scan(*ins[:6]), 10),
+              "forward_with_checkpoints_ms": cuda_ms(
+                  lambda: MS.mamba_scan_with_checkpoints(*ins[:6]), 10),
+              "bound_ms": bnd, "bound_by": by, "design_bytes": design,
+              "ms_from": "cuda events",
+              "shape": f"B={B} S={S} D={JAMBA_D} N={JAMBA_N} float32"}
+    del ins, chk
+    _free_card()
+    emit("ssm_train_kernel", t0, wkv6_bwd=wkv, mamba_scan_bwd=scan,
+         tolerances={"wkv6_bwd": WKV_BWD_REL, "wkv6_bwd_dw": WKV_BWD_DW_REL,
+                     "mamba_scan_bwd": SCAN_BWD_REL},
+         times={"wkv6_bwd": wkv_t, "mamba_scan_bwd": scan_t})
+    err = {"wkv6_bwd": max(r["max_abs_err"] for r in wkv.values()),
+           "mamba_scan_bwd": max(r["max_abs_err"] for r in scan.values())}
+    return err, {"wkv6_bwd": wkv_t, "mamba_scan_bwd": scan_t}
+
+
+def ssm_train_phase(arch):
+    """rwkv6-3b whole, or jamba-1.5-large at ``launch.train``'s cut (4
+    layers, d_ff and moe_d_ff 2,048), through
+    ``repro_torch.launch.train.run``: 4 steps of batch 8 x 4096 (remat
+    full, grad_accum 8, the config's optimizer and accumulation type),
+    the weights drawn on the card.  The counts are set to 0 just before
+    the run and read just after it; the first step is the warm-up, outside
+    the runtime log's median.  Prints the median step, tokens/s, MFU, peak
+    memory, launches a step and the analytic model's step time."""
+    import tempfile
+    import torch
+    from repro_torch.configs import CUT_KEYS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import wkv6 as WK
+    from repro_torch.launch import autoconfig as AC
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    cfg = train.train_config(arch)
+    hist = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        WK.LAUNCHES = WK.LAUNCHES_BWD = MS.LAUNCHES = MS.LAUNCHES_BWD = 0
+        FA.LAUNCHES = FA.DELTA_LAUNCHES = FA.DKDV_LAUNCHES = 0
+        FA.DKDV_SUM_LAUNCHES = FA.DQ_LAUNCHES = 0
+        t1 = time.perf_counter()
+        losses = train.run(arch, SSM_TRAIN_STEPS, SSM_TRAIN_B, SSM_TRAIN_S,
+                           smoke=False, device=LM_DEVICE, runtime_log=log,
+                           history=hist)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = {"wkv6": WK.LAUNCHES, "wkv6_bwd": WK.LAUNCHES_BWD,
+                    "mamba_scan": MS.LAUNCHES,
+                    "mamba_scan_bwd": MS.LAUNCHES_BWD,
+                    "flash_attention": FA.LAUNCHES,
+                    "flash_bwd_delta": FA.DELTA_LAUNCHES,
+                    "flash_bwd_dkdv": FA.DKDV_LAUNCHES,
+                    "flash_bwd_dkdv_sum": FA.DKDV_SUM_LAUNCHES,
+                    "flash_bwd_dq": FA.DQ_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+    step_s = rec["median_step_s"]
+    model_flops, hw_flops = _train_flops(cfg, SSM_TRAIN_B, SSM_TRAIN_S)
+    job = ShapeConfig("chip_smoke_train", SSM_TRAIN_S, SSM_TRAIN_B, "train")
+    predicted = AC.predicted_step_time(cfg, job, AC.GPU_FAMILIES["h100-sxm"],
+                                       1)
+    name = "rwkv_train" if arch == RWKV_ARCH else "jamba_train"
+    emit(name, t0, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, moe_d_ff=cfg.moe_d_ff, vocab=cfg.vocab_size,
+         batch=SSM_TRAIN_B, seq=SSM_TRAIN_S, grad_accum=cfg.grad_accum,
+         remat=cfg.remat, optimizer=cfg.optimizer,
+         grad_accum_dtype=cfg.grad_accum_dtype,
+         params=cfg.param_counts()["total"],
+         active_params=cfg.param_counts()["active"], losses=losses,
+         history=hist, run_wall_s=wall, step_s=step_s,
+         tokens_per_s=SSM_TRAIN_B * SSM_TRAIN_S / step_s,
+         model_flops_per_step=model_flops,
+         mfu=model_flops / step_s / BF16_OPS_PER_S,
+         hfu_with_remat=hw_flops / step_s / BF16_OPS_PER_S,
+         peak_device_bytes=peak, launches=launches,
+         launches_per_step={n: c / SSM_TRAIN_STEPS
+                            for n, c in launches.items()},
+         runtime_log_line=rec,
+         analytic={"predicted_step_s_h100_row": predicted,
+                   "measured_step_s": step_s,
+                   "measured_over_predicted": step_s / predicted})
+    assert len(losses) == SSM_TRAIN_STEPS and all(map(math.isfinite, losses))
+    # random weights at full width start at losses of 50 (rwkv6) and 130
+    # (jamba); jamba's Adafactor at lr 1e-2 then moves the loss up and
+    # down (131.9, 31.5, 84.5 in a probe run), so the check is that some
+    # later step's loss is below the first
+    assert min(losses[1:]) < losses[0], \
+        f"{name}: the loss did not fall: {losses}"
+    assert cfg.remat == "full" and cfg.grad_accum == 8
+    micro = SSM_TRAIN_STEPS * cfg.grad_accum
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_rwkv, n_mamba = kinds.count("rwkv"), kinds.count("mamba")
+    n_attn = len(kinds) - n_rwkv - n_mamba
+    want = {"wkv6": 2 * micro * n_rwkv, "wkv6_bwd": micro * n_rwkv,
+            "mamba_scan": 2 * micro * n_mamba,
+            "mamba_scan_bwd": micro * n_mamba,
+            "flash_attention": 2 * micro * n_attn,
+            "flash_bwd_delta": micro * n_attn,
+            "flash_bwd_dkdv": micro * n_attn,
+            "flash_bwd_dkdv_sum": micro * n_attn,
+            "flash_bwd_dq": micro * n_attn}
+    assert launches == want, (name, launches, want)
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    # the runtime-log record names the cut: jamba's depth and widths,
+    # none for rwkv6-3b, which trains whole
+    assert {k: rec[k] for k in CUT_KEYS if k in rec} == (
+        {"n_layers": 4, "d_ff": 2048, "moe_d_ff": 2048}
+        if arch == JAMBA_ARCH else {}), rec
+    if cfg.n_experts:
+        assert all(h["aux_loss"] > 0 for h in hist), hist
+    return launches
+
+
+def _first_adamw_step(p, g, scale):
+    """The parameter after AdamW's first step from zero moments
+    (``train.optimizer.adamw``'s defaults): m-hat = g, v-hat = g^2, so
+    p - lr (g / (|g| + eps) + wd p), g clipped by ``scale``."""
+    import inspect
+    from repro_torch.train import optimizer
+    d = {k: v.default for k, v in
+         inspect.signature(optimizer.adamw).parameters.items()}
+    gs = g * scale
+    return p - d["lr"] * (gs / (gs.abs() + d["eps"]) + d["weight_decay"] * p)
+
+
+def _stream_compare(card, cpu, params_cpu):
+    """Card against CPU after one AdamW step, leaf by leaf (the CPU's
+    gradient and parameter of a leaf copied to the card at a time, so the
+    3.66 B jamba cut needs no third copy and the card does the
+    arithmetic): the loss, the grad norm, every gradient leaf, and the
+    parameters after the step where decided, also split by the CPU's
+    clipped |g| against AdamW's eps, as ``_compare_step``."""
+    (cg, cm), (wg, wm) = card, cpu
+    eps = _adamw_eps()
+    c_norm = math.sqrt(sum(float(g.double().square().sum())
+                           for g in cg.values()))
+    w_norm = math.sqrt(sum(float(g.to(LM_DEVICE).double().square().sum())
+                           for g in wg.values()))
+    c_clip, w_clip = min(1.0, 1.0 / c_norm), min(1.0, 1.0 / w_norm)
+    bins = {"g<=10eps": (0.0, 10.0),
+            f"10eps<g<={ADAMW_FAR_EPS:g}eps": (10.0, ADAMW_FAR_EPS),
+            f"g>{ADAMW_FAR_EPS:g}eps": (ADAMW_FAR_EPS, math.inf)}
+    by_g = {b: {"rel_max": 0.0, "leaf": None, "elements": 0} for b in bins}
+    per, prel, undecided = {}, {}, 0
+    num = den = 0.0
+    for n, w in wg.items():
+        g = cg[n].float()
+        w = w.to(g.device)
+        per[n] = _rel_err(g, w)
+        num += float((g.double() - w.double()).square().sum())
+        den += float(w.double().square().sum())
+        p0 = params_cpu[n].detach().float().to(g.device)
+        gp = _first_adamw_step(p0, g, c_clip)
+        wp = _first_adamw_step(p0, w, w_clip)
+        decided = w.abs() > 2 * (g - w).abs()
+        undecided += int((~decided).sum())
+        r = _rel_err(gp[decided], wp[decided]) if bool(decided.any()) else 0.0
+        prel[n] = r if math.isfinite(r) else 0.0
+        g_eps = (w * w_clip).abs() / eps
+        for b, (lo, hi) in bins.items():
+            sel = decided & (g_eps > lo) & (g_eps <= hi)
+            if not bool(sel.any()):
+                continue
+            r = _rel_err(gp[sel], wp[sel])
+            r = r if math.isfinite(r) else 0.0
+            by_g[b]["elements"] += int(sel.sum())
+            if r > by_g[b]["rel_max"]:
+                by_g[b].update(rel_max=r, leaf=n)
+        del g, w, p0, gp, wp
+    worst = max(per, key=per.get)
+    return {"loss_rel": abs(cm["loss"] - wm["loss"]) / abs(wm["loss"]),
+            "grad_norm_rel": abs(c_norm - w_norm) / w_norm,
+            "grad_rel_global": math.sqrt(num / den),
+            "grad_rel_max": per[worst], "grad_rel_max_leaf": worst,
+            "params_after_rel_max": max(prel.values()),
+            "params_after_rel_by_g": by_g,
+            "params_after_rel_far": by_g[f"g>{ADAMW_FAR_EPS:g}eps"]
+            ["rel_max"], "params_undecided": undecided,
+            "loss": cm["loss"], "loss_cpu": wm["loss"],
+            "aux_loss": cm["aux_loss"], "aux_loss_cpu": wm["aux_loss"]}
+
+
+def ssm_train_parity_phase():
+    """rwkv6-3b at rwkv_parity's cut (4 layers at full width) and
+    jamba-1.5-large at jamba_parity's (4 layers, d_ff and moe_d_ff 2,048,
+    3.66 B), batch 1, sequence 128, one float32 step from the same weights:
+    the card (the WKV6 / scan kernels forward and backward, the flash
+    kernels, remat full) against the CPU (plain versions, remat none):
+    loss, grad norm, every gradient leaf and the parameters after AdamW's
+    first step (also split by |g| against AdamW's eps), held to
+    TRAIN_F32_REL and, where |g| > 1e3 eps, TRAIN_F32_FAR_REL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import wkv6 as WK
+    from repro_torch.launch.train import train_config
+    from repro_torch.modeling.model import Model, init_params
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import make_batch
+    t0 = time.perf_counter()
+    cuts = {RWKV_ARCH: get_config(RWKV_ARCH, n_layers=4, grad_accum=1),
+            JAMBA_ARCH: train_config(JAMBA_ARCH, grad_accum=1)}
+    readings = {}
+    for arch, cfg in cuts.items():
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        params = init_params(cfg32, 5, LM_DEVICE, gen_device=LM_DEVICE)
+        batch = make_batch(cfg, SSM_PARITY_B, SSM_PARITY_S, 0, seed=5)
+        before = (WK.LAUNCHES_BWD, MS.LAUNCHES_BWD)
+        model = Model(cfg32, params).trainable()
+        grads, m = TS.compute_grads(
+            model, {n: t.to(LM_DEVICE) for n, t in batch.items()})
+        sync()
+        bwd = (WK.LAUNCHES_BWD - before[0], MS.LAUNCHES_BWD - before[1])
+        card = (grads, {"loss": float(m["loss"]),
+                        "aux_loss": float(m["aux_loss"])})
+        params_cpu = _cpu_f32(params)
+        del model, params
+        _free_card()
+        t1 = time.perf_counter()
+        cpu_model = Model(dataclasses.replace(cfg32, remat="none"),
+                          params_cpu).trainable()
+        wg, wm = TS.compute_grads(cpu_model, batch)
+        cpu_s = time.perf_counter() - t1
+        cpu = ({n: g.detach() for n, g in wg.items()},
+               {"loss": float(wm["loss"]), "aux_loss": float(wm["aux_loss"])})
+        r = _stream_compare(card, cpu, TS.params_of(cpu_model))
+        r.update(layers=cfg.n_layers, params=cfg.param_counts()["total"],
+                 cpu_step_s=cpu_s, bwd_launches={"wkv6_bwd": bwd[0],
+                                                 "mamba_scan_bwd": bwd[1]})
+        readings[arch] = r
+        del card, cpu, cpu_model, params_cpu, grads, wg
+        _free_card()
+        kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+        assert bwd == (kinds.count("rwkv"), kinds.count("mamba")), (arch, bwd)
+    emit("ssm_train_parity", t0, batch=SSM_PARITY_B, seq=SSM_PARITY_S,
+         readings=readings,
+         tolerances={"float32": TRAIN_F32_REL,
+                     "float32_params_where_g_over_eps_above":
+                     [ADAMW_FAR_EPS, TRAIN_F32_FAR_REL]})
+    for arch, a in readings.items():
+        for key in ("loss_rel", "grad_norm_rel", "grad_rel_max",
+                    "params_after_rel_max"):
+            assert a[key] <= TRAIN_F32_REL, \
+                f"ssm_train_parity {arch} {key}: {a}"
+        assert a["params_after_rel_far"] <= TRAIN_F32_FAR_REL, \
+            f"ssm_train_parity {arch} where |g| >> eps: " \
+            f"{a['params_after_rel_by_g']}"
+    return readings
+
+
+def ssm_bwd_kernel_line(name, launches, err, times):
+    """The ``kernels`` line's entry of wkv6_bwd or mamba_scan_bwd: times
+    at the training microbatch, launches on the training path."""
+    t = times[name]
+    src = {"wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                        "src/repro/kernels/wkv6.py:66"),
+           "mamba_scan_bwd": ("src/repro_torch/kernels/csrc/"
+                              "mamba_scan_bwd.cu",
+                              "src/repro/kernels/mamba_scan.py:51")}[name]
+    return {"name": name, "route": "cuda", "source": src[0],
+            "replaces": f"{src[1]} (its gradient: the JAX package has no "
+                        "Pallas backward)",
+            "launches": launches, "max_abs_err": err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "design_bytes": t["design_bytes"],
+            "ms_from": t["ms_from"], "shape": t["shape"],
+            "library": "none: no one PyTorch call computes it"}
+
+
 def bwd_kernel_line(name, launches, err, times):
     """The ``kernels`` line's entry of one flash backward launch: times at
     gemma3-1b's training microbatch, global layer, bf16 (the main path's
@@ -3609,6 +4276,15 @@ def main():
     train_launches = train_phase()
     train_parity_phase()
 
+    # ---- main paths of slice 12: RWKV and Mamba training (each phase
+    # sets the counts to 0 itself and reads them after)
+    _free_card()
+    ssm_err, ssm_times = ssm_train_kernel_phase()
+    rwkv_train_launches = ssm_train_phase(RWKV_ARCH)
+    jamba_train_launches = ssm_train_phase(JAMBA_ARCH)
+    ssm_train_parity_phase()
+    _free_card()
+
     # ---- main path of slice 9: the eval plane (eval_phase sets the GBM
     # count to 0 itself and reads it after)
     evals = eval_phase()
@@ -3663,6 +4339,7 @@ def main():
         "bound_ms_local": fl["bound_ms"],
         "library_ms_local": fl["library_ms"], "tflops_local": fl["tflops"],
         "launches_jamba": jamba_launches["flash_attention"],
+        "launches_jamba_train": jamba_train_launches["flash_attention"],
         "shape_jamba": f"attention layer B={SERVE_B} S={SERVE_PROMPT} "
                        f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} causal bf16",
         "ms_jamba": fj["ms"], "plain_ms_jamba": fj["plain_ms"],
@@ -3683,7 +4360,7 @@ def main():
         "ms": dg["ms"], "plain_ms": dg["plain_ms"],
         "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
         "library_ms": dg["library_ms"],
-        "ms_from": "profiler device time",
+        "ms_from": dg["ms_from"],
         "shape": f"global layer B={SERVE_B} L={SERVE_L} H=4 KV=1 hd=256 "
                  f"pos={dg['pos']} bf16, one launch",
         "ms_local": dl["ms"], "plain_ms_local": dl["plain_ms"],
@@ -3693,13 +4370,15 @@ def main():
         "shape_jamba": f"attention layer B={SERVE_B} L={SERVE_L} "
                        f"H={JAMBA_H} KV={JAMBA_KV} hd={JAMBA_HD} "
                        f"pos={dj['pos']} bf16, one launch",
-        "ms_jamba": dj["ms"], "plain_ms_jamba": dj["plain_ms"],
+        "ms_jamba": dj["ms"], "ms_from_jamba": dj["ms_from"],
+        "plain_ms_jamba": dj["plain_ms"],
         "bound_ms_jamba": dj["bound_ms"], "bound_by_jamba": dj["bound_by"],
         "library_ms_jamba": dj["library_ms"]}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:66",
         "launches": wkv_launches, "max_abs_err": wkv_err,
+        "launches_rwkv_train": rwkv_train_launches["wkv6"],
         "ms": wkv_times["ms"], "ms_from": wkv_times["ms_from"],
         "device_ms": wkv_times["device_ms"], "plain_ms": wkv_times["plain_ms"],
         "bound_ms": wkv_times["bound_ms"],
@@ -3710,6 +4389,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:51",
         "launches": jamba_launches["mamba_scan"],
+        "launches_jamba_train": jamba_train_launches["mamba_scan"],
         "max_abs_err": max(scan_err.values()),
         "max_abs_err_by_dtype": scan_err,
         "ms": scan_times["ms"], "plain_ms": scan_times["plain_ms"],
@@ -3717,8 +4397,20 @@ def main():
         "bound_by": scan_times["bound_by"], "library_ms": None,
         "shape": f"B={SERVE_B} S={SERVE_PROMPT} D={JAMBA_D} N={JAMBA_N} "
                  "float32, given h0"}] + [
-        bwd_kernel_line(name, train_launches[name], bwd_err, bwd_times)
-        for name in BWD_KERNELS]}),
+        dict(bwd_kernel_line(name, train_launches[name], bwd_err,
+                             bwd_times),
+             launches_jamba_train=jamba_train_launches[name])
+        for name in BWD_KERNELS] + [
+        dict(ssm_bwd_kernel_line("wkv6_bwd",
+                                 rwkv_train_launches["wkv6_bwd"], ssm_err,
+                                 ssm_times),
+             launches_per_step=rwkv_train_launches["wkv6_bwd"]
+             / SSM_TRAIN_STEPS),
+        dict(ssm_bwd_kernel_line("mamba_scan_bwd",
+                                 jamba_train_launches["mamba_scan_bwd"],
+                                 ssm_err, ssm_times),
+             launches_per_step=jamba_train_launches["mamba_scan_bwd"]
+             / SSM_TRAIN_STEPS)]}),
         flush=True)
     print(smi, flush=True)
     if not edge["gate_ok"]:
@@ -3738,6 +4430,6 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--bwd-trace":
-        sys.exit(bwd_trace_child(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--trace":
+        sys.exit(route_trace_child(sys.argv[2], json.loads(sys.argv[3])))
     sys.exit(main())

@@ -43,8 +43,11 @@ and depth (10 steps of 8 x 4096, the runtime log's median step, warm-up
 excluded).  Each step of that run also records its wall and process CPU
 seconds on the host, and what ``nvidia-smi`` sampled during it every
 0.1 s or so: SM clock, power draw, utilization and the clock-event
-(throttle) reasons.  ``--only`` takes steps from gbm, kernels, flash, train and the
-archs.  Needs a CUDA card.
+(throttle) reasons.  The step "recurrences" (run only when ``--only``
+names it) hashes the SASS of the WKV6 and selective-scan serving forwards
+(the instances without the training outputs) and times them by CUDA
+events at rwkv6-3b's and jamba's serving shapes (B 8, S 2048).  ``--only``
+takes steps from gbm, kernels, flash, train, recurrences and the archs.  Needs a CUDA card.
 """
 import hashlib
 import json
@@ -130,10 +133,19 @@ FLASH_SHAPES = {   # B, S, H, KV, hd, window
     "flash_jamba": (8, 2048, 64, 8, 128, 0)}
 
 
-def serving_sass(so_path):
-    """{head dim: instructions and a hash of them} of the bf16 flash
-    forward's serving instances in the library's SASS: the kernel of a tree
-    without the lse template argument, or its LSE = false instance."""
+# the serving instances whose SASS two trees compare: a kernel without a
+# training template argument, or its instance with that argument false
+SERVING_INSTANCES = {
+    "flash_attention": r"flash_fwd_wgmma_kernelILi(\d+)E(Lb0E)?EEv",
+    "wkv6": r"wkv6_kernelILi(\d+)E(Lb0E)?EEv",
+    "mamba_scan": r"mamba_scan_kernelILi(\d+)E(f|13__nv_bfloat16)(Lb0E)?EEv"}
+
+
+def serving_sass(so_path, kernel="flash_attention"):
+    """{instance: instructions and a hash of them} of a kernel's serving
+    instances in the library's SASS (``SERVING_INSTANCES``): the bf16 flash
+    forward's by head dim, wkv6's by head dim, mamba_scan's by N and u's
+    type."""
     from repro_torch.kernels import build
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -142,18 +154,37 @@ def serving_sass(so_path):
                           timeout=300).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
-        # the template arguments, then the end of the nested name: a
-        # tree's kernel<HD> is ...ILi256EEEv..., its serving instance
-        # kernel<HD, false> ...ILi256ELb0EEEv...
-        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E(Lb0E)?EEv",
-                      part.split()[0])
+        m = re.search(SERVING_INSTANCES[kernel], part.split()[0])
         if m:
             ops = [op.strip() for op in
                    re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
-            out[f"hd {m.group(1)}"] = {
+            key = f"hd {m.group(1)}" if kernel != "mamba_scan" else \
+                f"N {m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} u"
+            out[key] = {
                 "instructions": len(ops),
                 "sha256": hashlib.sha256("\n".join(ops).encode())
                 .hexdigest()[:16]}
+    return out
+
+
+def recurrences(label):
+    """The serving forwards of WKV6 and the selective scan: their SASS
+    hashes and CUDA-event times at rwkv6-3b's and jamba's serving shapes
+    (B 8, S 2048; 40 heads of 64, 16,384 channels of 16, float32)."""
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import wkv6 as WK
+    so = build.build_all(["wkv6", "mamba_scan"])
+    out = {"label": label, "card": CS.nvidia_smi(),
+           "wkv6_sass": serving_sass(so["wkv6"], "wkv6"),
+           "mamba_scan_sass": serving_sass(so["mamba_scan"], "mamba_scan")}
+    ins = CS._wkv_inputs(0, 8, 2048, 40, 64)
+    out["wkv6_B8_events_ms"] = CS.cuda_ms(lambda: WK.wkv6(*ins), 20)
+    del ins
+    ins = CS._scan_inputs(0, 8, 2048, 16384, 16)
+    out["mamba_scan_B8_events_ms"] = CS.cuda_ms(lambda: MS.mamba_scan(*ins),
+                                                20)
     return out
 
 
@@ -295,7 +326,7 @@ def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
     step = {"gbm": gbm, "kernels": kernels, "flash": flash,
-            "train": train}.get(what)
+            "train": train, "recurrences": recurrences}.get(what)
     res = step(label) if step else serve(label, what)
     print(json.dumps(res), flush=True)
     return 0

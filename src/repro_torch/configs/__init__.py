@@ -10,6 +10,11 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
                                       get_config, list_archs, supports_shape)
 import dataclasses
 
+# the fields of a configuration that a run on one card may cut from the
+# architecture's own (its depth, FFN and expert widths), as a runtime-log
+# record names them
+CUT_KEYS = ("n_layers", "d_ff", "moe_d_ff")
+
 
 def smoke_config(name: str, **extra) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests: same layer pattern and

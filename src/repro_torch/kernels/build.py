@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, ``build/<name>-<hash>.so`` at the repository root, and
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source never loads a stale library.  ``build_all`` starts one
+loaded with ``ctypes``.  The hash covers the source, the ``csrc/`` headers
+it includes and the flags, so an edited source or header never loads a
+stale library.  ``build_all`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module, and there
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,6 +50,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        src += (CSRC / header.decode()).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

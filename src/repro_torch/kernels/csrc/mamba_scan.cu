@@ -28,9 +28,17 @@
 // current one.  exp(dt A) is computed as ex2.approx(dt * (A log2 e)) with
 // A log2 e formed once per channel: one multiply and one special-function
 // instruction per state, about 1e-6 relative from the exact exp.
+//
+// Training adds one output: the instance kChk = true (float32 u only) also
+// writes the state entering every tile of kTile = 64 steps, [B, ceil(S /
+// 64), D, N] float32, which mamba_scan_bwd.cu recomputes each tile's
+// states from.  The serving instances, kChk = false, have none of that
+// code.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,12 +61,13 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);   // round to nearest even, as Tensor.to
 }
 
-template <int N, typename T>
+template <int N, typename T, bool kChk>
 __global__ void __launch_bounds__(kThreads)
 mamba_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bin,
                   const float* __restrict__ Cin, const float* __restrict__ h0,
-                  T* __restrict__ y, float* __restrict__ h_end, int S, int D) {
+                  T* __restrict__ y, float* __restrict__ h_end, int S, int D,
+                  float* __restrict__ chk) {
   __shared__ float sB[kTile * N];
   __shared__ float sC[kTile * N];
   const int b = blockIdx.y;
@@ -92,6 +101,14 @@ mamba_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
 
   for (int t0 = 0; t0 < S; t0 += kTile) {
     const int nt = min(kTile, S - t0);
+    if constexpr (kChk) {   // the state entering this tile
+      if (active) {
+        float* c = chk + ((static_cast<size_t>(b) * ((S + kTile - 1) / kTile)
+                           + t0 / kTile) * D + d) * N;
+#pragma unroll
+        for (int n = 0; n < N; ++n) c[n] = h[n];
+      }
+    }
     __syncthreads();   // the previous tile's readers are done
     for (int i = threadIdx.x; i < nt * N; i += kThreads) {
       sB[i] = Bb[static_cast<size_t>(t0) * N + i];
@@ -141,23 +158,31 @@ mamba_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
 
 template <int N, typename T>
 int launch(const void* u, const float* dt, const float* A, const float* B,
-           const float* C, const float* h0, void* y, float* h_end, int Bsz,
-           int S, int D, cudaStream_t stream) {
+           const float* C, const float* h0, void* y, float* h_end, float* chk,
+           int Bsz, int S, int D, cudaStream_t stream) {
   const dim3 grid((D + kThreads - 1) / kThreads, Bsz);
-  mamba_scan_kernel<N, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(u), dt, A, B, C, h0, static_cast<T*>(y), h_end,
-      S, D);
+  if (chk != nullptr) {   // training: float32 u only
+    if constexpr (!std::is_same<T, float>::value)
+      return static_cast<int>(cudaErrorInvalidValue);
+    mamba_scan_kernel<N, float, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(u), dt, A, B, C, h0,
+        static_cast<float*>(y), h_end, S, D, chk);
+  } else {
+    mamba_scan_kernel<N, T, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(u), dt, A, B, C, h0, static_cast<T*>(y), h_end,
+        S, D, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_n(const void* u, const float* dt, const float* A, const float* B,
                const float* C, const float* h0, void* y, float* h_end,
-               int Bsz, int S, int D, int N, cudaStream_t st) {
+               float* chk, int Bsz, int S, int D, int N, cudaStream_t st) {
   switch (N) {
-    case 4: return launch<4, T>(u, dt, A, B, C, h0, y, h_end, Bsz, S, D, st);
-    case 8: return launch<8, T>(u, dt, A, B, C, h0, y, h_end, Bsz, S, D, st);
-    case 16: return launch<16, T>(u, dt, A, B, C, h0, y, h_end, Bsz, S, D, st);
+    case 4: return launch<4, T>(u, dt, A, B, C, h0, y, h_end, chk, Bsz, S, D, st);
+    case 8: return launch<8, T>(u, dt, A, B, C, h0, y, h_end, chk, Bsz, S, D, st);
+    case 16: return launch<16, T>(u, dt, A, B, C, h0, y, h_end, chk, Bsz, S, D, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -167,13 +192,15 @@ int dispatch_n(const void* u, const float* dt, const float* A, const float* B,
 // Plain C entry point, loaded with ctypes.  u, y: [B, S, D] in float32
 // (u_bf16 = 0) or bfloat16 (u_bf16 = 1); dt: [B, S, D], A: [D, N],
 // B_in, C_in: [B, S, N], h0 (may be null: zeros) and h_end: [B, D, N], all
+// float32; chk (may be null: the serving instance) [B, ceil(S / 64), D, N]
 // float32; every pointer contiguous on ``device``.  Launches on ``stream``,
 // does not synchronise and allocates nothing.  Returns the CUDA error of the
 // launch (0 on success).  The caller checks the shapes and N in {4, 8, 16}.
 extern "C" int mamba_scan_launch(const void* u, const void* dt, const void* A,
                                  const void* B_in, const void* C_in,
                                  const void* h0, void* y, void* h_end,
-                                 int Bsz, int S, int D, int N, int u_bf16,
+                                 void* chk, int Bsz, int S, int D, int N,
+                                 int u_bf16,
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -186,8 +213,10 @@ extern "C" int mamba_scan_launch(const void* u, const void* dt, const void* A,
   const auto* Cf = static_cast<const float*>(C_in);
   const auto* hf = static_cast<const float*>(h0);
   auto* ef = static_cast<float*>(h_end);
+  auto* cf = static_cast<float*>(chk);
   if (u_bf16)
-    return dispatch_n<__nv_bfloat16>(u, dtf, Af, Bf, Cf, hf, y, ef, Bsz, S, D,
-                                     N, st);
-  return dispatch_n<float>(u, dtf, Af, Bf, Cf, hf, y, ef, Bsz, S, D, N, st);
+    return dispatch_n<__nv_bfloat16>(u, dtf, Af, Bf, Cf, hf, y, ef, cf, Bsz,
+                                     S, D, N, st);
+  return dispatch_n<float>(u, dtf, Af, Bf, Cf, hf, y, ef, cf, Bsz, S, D, N,
+                           st);
 }

@@ -64,6 +64,14 @@
 // added in another order than a sequential cumsum, which moves the output
 // by about 1e-6 relative; the exponentials are __expf (MUFU ex2), within
 // about 1e-5 relative for arguments up to the 72 the clamp allows.
+//
+// Training adds one output: the instance kStates = true also writes the
+// state entering every chunk, [B, H, S / 16, hd, hd] float32, which
+// wkv6_bwd.cu reads (the state warps store their accumulators when they
+// publish them).  It may take 128 registers a thread (two blocks an SM,
+// where the 80 of three spill those stores); training runs one block a
+// (batch, head) at B 1, 40 blocks.  The serving instance, kStates = false,
+// has none of that code.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -143,12 +151,13 @@ struct Smem {
   float diag_part[HD / 8][kC];                 // r u k summed over 8 dims
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int HD, bool kStates>
+__global__ void __launch_bounds__(kThreads, kStates ? 2 : 3)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ y, float* __restrict__ s_end, int S, int H) {
+            float* __restrict__ y, float* __restrict__ s_end, int S, int H,
+            float* __restrict__ states) {
   static_assert(HD == 16 || HD == 32 || HD == 64, "hd in {16, 32, 64}");
   constexpr int NT = HD / 8;                   // n-tiles of 8 value columns
   constexpr int YW = NT < 4 ? NT : 4;          // warps of the output product
@@ -225,6 +234,17 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             make_float2(sacc[n][0], sacc[n][1]);
         *reinterpret_cast<float2*>(&sm.Bm[kC + d0 + 8][j]) =
             make_float2(sacc[n][2], sacc[n][3]);
+      }
+      if constexpr (kStates) {   // the state entering chunk ci
+        float* st = states + (sbase / (HD * HD) * (S / kC) + ci) * HD * HD;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int j = 8 * n + 2 * tg;
+          *reinterpret_cast<float2*>(st + static_cast<size_t>(d0) * HD + j) =
+              make_float2(sacc[n][0], sacc[n][1]);
+          *reinterpret_cast<float2*>(st + static_cast<size_t>(d0 + 8) * HD + j) =
+              make_float2(sacc[n][2], sacc[n][3]);
+        }
       }
     }
     // A: the decayed operands of dim d at this thread's 4 tokens.  The
@@ -412,36 +432,50 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool kStates>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* y, float* s_end, int B,
-           int S, int H, int device, cudaStream_t stream) {
+           const float* u, const float* s0, float* y, float* s_end,
+           float* states, int B, int S, int H, int device,
+           cudaStream_t stream) {
   static int attr_device = -1;
   if (attr_device != device) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wkv6_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wkv6_kernel<HD, kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(Smem<HD>)));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_device = device;
   }
   const dim3 grid(H, B);
-  wkv6_kernel<HD><<<grid, kThreads, sizeof(Smem<HD>), stream>>>(
-      r, k, v, w, u, s0, y, s_end, S, H);
+  wkv6_kernel<HD, kStates><<<grid, kThreads, sizeof(Smem<HD>), stream>>>(
+      r, k, v, w, u, s0, y, s_end, S, H, states);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_hd(const float* r, const float* k, const float* v, const float* w,
+              const float* u, const float* s0, float* y, float* s_end,
+              float* states, int B, int S, int H, int device,
+              cudaStream_t stream) {
+  if (states != nullptr)
+    return launch<HD, true>(r, k, v, w, u, s0, y, s_end, states, B, S, H,
+                            device, stream);
+  return launch<HD, false>(r, k, v, w, u, s0, y, s_end, nullptr, B, S, H,
+                           device, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  r, k, v, w, y: [B, S, H, hd];
-// u: [H, hd]; s0 (may be null: zeros), s_end: [B, H, hd, hd]; all float32,
+// u: [H, hd]; s0 (may be null: zeros), s_end: [B, H, hd, hd]; states (may
+// be null: the serving instance) [B, H, S / 16, hd, hd]; all float32,
 // contiguous, 16-byte aligned device pointers.  Launches on ``stream`` of
 // ``device``, does not synchronise and allocates nothing.  Returns the CUDA
 // error of the launch (0 on success).  The caller checks the shapes,
 // S % 16 == 0 and hd in {16, 32, 64}.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, const void* s0,
-                           void* y, void* s_end, int B, int S, int H, int hd,
-                           int device, void* stream) {
+                           void* y, void* s_end, void* states, int B, int S,
+                           int H, int hd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || S % kC) return static_cast<int>(cudaErrorInvalidValue);
@@ -454,10 +488,11 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   const auto* sf = static_cast<const float*>(s0);
   auto* yf = static_cast<float*>(y);
   auto* ef = static_cast<float*>(s_end);
+  auto* tf = static_cast<float*>(states);
   switch (hd) {
-    case 16: return launch<16>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
-    case 32: return launch<32>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
-    case 64: return launch<64>(rf, kf, vf, wf, uf, sf, yf, ef, B, S, H, device, st);
+    case 16: return launch_hd<16>(rf, kf, vf, wf, uf, sf, yf, ef, tf, B, S, H, device, st);
+    case 32: return launch_hd<32>(rf, kf, vf, wf, uf, sf, yf, ef, tf, B, S, H, device, st);
+    case 64: return launch_hd<64>(rf, kf, vf, wf, uf, sf, yf, ef, tf, B, S, H, device, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

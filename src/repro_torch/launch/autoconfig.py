@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import CUT_KEYS, get_config, smoke_config
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core.configurator import Configurator
 from repro_torch.core.datastore import RuntimeDataStore
@@ -141,9 +141,10 @@ def records_from_runtime_log(path: str, families: Optional[Dict] = None,
     """The training lines of a runtime log (``launch/train.py``'s records;
     serving lines are skipped) as rows of ``schema``: scale-out the
     record's devices, its sequence length, tokens a step, the parameter
-    counts (billions) of the configuration it ran, with its depth cut where
-    "n_layers" says so; the runtime its median step in seconds; the
-    machine type its device's family."""
+    counts (billions) of the configuration it ran, with its depth and
+    widths cut where the record says so (``configs.CUT_KEYS``:
+    "n_layers", "d_ff", "moe_d_ff"); the runtime its median step in seconds;
+    the machine type its device's family."""
     machines, rows, ys = [], [], []
     with open(path) as f:
         for line in f:
@@ -152,7 +153,7 @@ def records_from_runtime_log(path: str, families: Optional[Dict] = None,
             rec = json.loads(line)
             if "median_step_s" not in rec:
                 continue
-            cut = {"n_layers": rec["n_layers"]} if "n_layers" in rec else {}
+            cut = {k: rec[k] for k in CUT_KEYS if k in rec}
             cfg = (smoke_config(rec["arch"], **cut) if rec["smoke"]
                    else get_config(rec["arch"], **cut))
             shape = ShapeConfig("runtime_log", rec["seq"], rec["batch"],

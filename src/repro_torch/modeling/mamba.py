@@ -13,9 +13,11 @@ The reference walks a prefill in chunks of 128 tokens, each an associative
 scan over [B, C, d_inner, N] carrying (state, conv tail) from chunk to
 chunk.  The port convolves the whole prompt with the cached tail and makes
 one ``kernels.mamba_scan`` call over the whole sequence from the cached
-state (on the card the hand-written kernel): the same recurrence, without
-the [B, C, d_inner, N] intermediates.  A decode step (S = 1) is the single
-update in plain PyTorch; it never launches the kernel.  The cache
+state (on the card the hand-written kernel, and in training its autograd
+Function ``MambaScan`` with the hand-written backward): the same
+recurrence, without the [B, C, d_inner, N] intermediates.  A decode step
+(S = 1) is the single update in plain PyTorch; it never launches the
+kernel.  The cache
 {"h", "conv"} lives in the activation type, as the reference keeps it, and
 is overwritten in place after a prefill and after each step.
 """

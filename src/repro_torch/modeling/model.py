@@ -22,8 +22,11 @@ chunked loss) in train mode with a gradient runs each layer under
 ``cfg.remat``: "full" recomputes the layer in the backward
 (``torch.utils.checkpoint``, the JAX package's ``nothing_saveable``),
 "dots" keeps the outputs of its matrix products and recomputes the rest,
-"none" keeps everything.  RWKV and Mamba layers do not train yet: their
-kernels have no backward, and no plain-version gradient stands in for one.
+"none" keeps everything.  On the card an RWKV layer's WKV6 and a Mamba
+layer's scan run through their autograd Functions (``kernels.wkv6.WKV6``,
+``kernels.mamba_scan.MambaScan``: the forward kernel, then its hand-written
+backward kernel), so under "full" the forward kernel runs twice a layer;
+on the CPU autograd differentiates their plain versions.
 """
 from __future__ import annotations
 
@@ -42,9 +45,6 @@ from repro_torch.modeling.layers import (ffn_apply, init_normal, rms_norm,
                                          softcap)
 
 _WAITS = "not ported yet (ROADMAP.md §1, the queue of modules)"
-_TRAIN_WAITS = ("training them needs a backward kernel of wkv6 / mamba_scan, "
-                "which waits in ROADMAP.md §1 (the RWKV and Mamba backward "
-                "kernels)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -63,14 +63,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port can train ``cfg``: the
-    dense and MoE attention families, not RWKV or Mamba layers."""
+    """Raise ``NotImplementedError`` unless the port can train ``cfg``:
+    every family it serves trains (attention, MoE, RWKV and Mamba
+    layers), so this refuses what ``check_supported`` refuses."""
     check_supported(cfg)
-    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)}
-                   & {RWKV, MAMBA})
-    if kinds:
-        raise NotImplementedError(f"{cfg.name} has {' and '.join(kinds)} "
-                                  f"layers: {_TRAIN_WAITS}")
 
 
 # the matrix products whose outputs remat="dots" keeps (the JAX package's

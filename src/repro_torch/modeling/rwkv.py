@@ -13,8 +13,10 @@ The casts are the reference's: projections in the activation type, the
 decay lora's sum, r, k, v, w and the state in float32.  The routing is the
 reference's too (``rwkv.py:131-149``): S >= 32 with S % 16 == 0 (prefill)
 goes through ``kernels.wkv6`` (on the card the hand-written kernel, which
-clamps log w at -9), every other length, decode included, through the
-exact sequential recurrence here, which has no clamp.
+clamps log w at -9, and in training its autograd Function ``WKV6`` with
+the hand-written backward), every other length, decode included, through
+the exact sequential recurrence here, which has no clamp and which
+autograd differentiates, as ``jax.grad`` does the reference's.
 """
 from __future__ import annotations
 

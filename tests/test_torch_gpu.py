@@ -12,7 +12,11 @@ their GBM launches counted, the fit sidecar); a tiny collaborative
 replay on the card against the same replay on the CPU; the flash-attention
 backward kernels against their plain version, the forward's bytes with and
 without its log-sum-exp output, and one train step of a 2-layer
-full-width gemma3 on the card against the same step on the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
+full-width gemma3 on the card against the same step on the CPU; the WKV6
+and selective-scan backward kernels against their plain versions (bit
+for bit on repeat, through their autograd Functions, and the wrappers'
+refusals), and one train step of a reduced rwkv6 and jamba on the card
+against the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -901,3 +905,186 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         if bool(far.any()):
             assert _rel(pg[n][far], pc[n][far]) <= 1e-5, \
                 (n, _rel(pg[n][far], pc[n][far]))
+
+
+# ------------------------------------------- RWKV and Mamba backward kernels
+
+# wkv6_bwd / mamba_scan_bwd against their plain versions: float32 on both
+# sides, sums in another order and MUFU exponentials (~1e-6 relative), in
+# norm per output; dw = d(log w) / w is held as w dw (the 1 / w of a decay
+# near the clamp scales float32 noise by up to 8,100) and dw itself to
+# 1e-3, as chip_smoke.py's WKV_BWD_REL, WKV_BWD_DW_REL and SCAN_BWD_REL
+SSM_BWD_REL, SSM_BWD_DW_REL = 1e-4, 1e-3
+
+
+def _wkv_bwd_inputs(seed, B, S, H, hd, device, ds_end=True):
+    r, k, v, w, u, s0 = _wkv_inputs(seed, B, S, H, hd, device, s0=True,
+                                    log_w_min=-12.0)
+    w[0, 1, 0, :4] = float(np.float32(np.exp(-9.0)))     # ties at -9
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = 0.5 * torch.randn(B, S, H, hd, generator=g, device=device)
+    dse = (0.5 * torch.randn(B, H, hd, hd, generator=g, device=device)
+           if ds_end else None)
+    return r, k, v, w, u, s0, dy, dse
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds_end", [
+    (1, 64, 2, 16, True), (2, 96, 3, 32, False), (2, 256, 4, 64, True),
+    (1, 512, 40, 64, False)])
+def test_wkv6_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, ds_end):
+    ins = _wkv_bwd_inputs(B + S + hd, B, S, H, hd, cuda_device, ds_end)
+    w = ins[3]
+    states = WK.wkv6_with_states(*ins[:6])[2]
+    before = WK.LAUNCHES_BWD
+    got = WK.wkv6_bwd(*ins, states=states)
+    again = WK.wkv6_bwd(*ins, states=states)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES_BWD == before + 2
+    want = WK.wkv6_bwd_plain(*ins)
+    for i, (g, a, x) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a)              # no atomics: bit for bit
+        if i == 3:
+            assert _rel(g * w, x * w) <= SSM_BWD_REL
+            assert _rel(g, x) <= SSM_BWD_DW_REL
+        else:
+            assert _rel(g, x) <= SSM_BWD_REL, (i, _rel(g, x))
+
+
+@pytest.mark.parametrize("B,S,D,N,dh_end", [
+    (1, 100, 200, 4, True), (2, 128, 256, 8, False), (1, 256, 1000, 16, True),
+    (1, 64, 64, 16, False)])
+def test_mamba_scan_bwd_kernel_matches_plain(cuda_device, B, S, D, N,
+                                             dh_end):
+    u, dt, A, Bi, Ci, h0 = _scan_inputs(B + S + D, B, S, D, N, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    dy = 0.5 * torch.randn(B, S, D, generator=g, device=cuda_device)
+    dhe = (0.5 * torch.randn(B, D, N, generator=g, device=cuda_device)
+           if dh_end else None)
+    ins = (u, dt, A, Bi, Ci, h0, dy, dhe)
+    before = (MS.LAUNCHES, MS.LAUNCHES_BWD)
+    chk = MS.mamba_scan_with_checkpoints(*ins[:6])[2]
+    got = MS.mamba_scan_bwd(*ins, checkpoints=chk)
+    again = MS.mamba_scan_bwd(*ins, checkpoints=chk)
+    torch.cuda.synchronize()
+    assert (MS.LAUNCHES, MS.LAUNCHES_BWD) == (before[0] + 1, before[1] + 2)
+    want = MS.mamba_scan_bwd_plain(*ins)
+    for i, (a, b, x) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b)
+        assert _rel(a, x) <= SSM_BWD_REL, (i, _rel(a, x))
+
+
+def test_autograd_functions_route_through_the_backward_kernels(cuda_device):
+    """wkv6 and mamba_scan on inputs that require grad go through WKV6 and
+    MambaScan: the forward's training instance, then the backward kernel,
+    whose gradients equal the wrappers' on the same inputs and agree with
+    autograd of the plain forwards."""
+    r, k, v, w, u, s0, dy, _ = _wkv_bwd_inputs(3, 1, 128, 4, 64, cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+    before = (WK.LAUNCHES, WK.LAUNCHES_BWD)
+    y, _ = WK.wkv6(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (WK.LAUNCHES, WK.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    states = WK.wkv6_with_states(r, k, v, w, u, s0)[2]
+    for a, b in zip(got, WK.wkv6_bwd(r, k, v, w, u, s0, dy, states=states)):
+        assert torch.equal(a, b)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+    want = torch.autograd.grad(WK.wkv6_plain(*leaves)[0], leaves, dy)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i != 3:
+            assert _rel(a, b) <= SSM_BWD_REL, (i, _rel(a, b))
+    u_, dt, A, Bi, Ci, h0 = _scan_inputs(4, 1, 192, 512, 16, cuda_device)
+    dy = torch.randn_like(u_)
+    leaves = [t.detach().requires_grad_() for t in (u_, dt, A, Bi, Ci, h0)]
+    before = (MS.LAUNCHES, MS.LAUNCHES_BWD)
+    y, _ = MS.mamba_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (MS.LAUNCHES, MS.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    leaves = [t.detach().requires_grad_() for t in (u_, dt, A, Bi, Ci, h0)]
+    want = torch.autograd.grad(MS.mamba_scan_plain(*leaves)[0], leaves, dy)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _rel(a, b) <= SSM_BWD_REL, (i, _rel(a, b))
+
+
+def test_backward_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    r, k, v, w, u, s0, dy, dse = _wkv_bwd_inputs(5, 1, 32, 2, 64,
+                                                 cuda_device)
+    states = WK.wkv6_with_states(r, k, v, w, u, s0)[2]
+    with pytest.raises(TypeError):
+        WK.wkv6_bwd(r, k, v, w, u, s0, dy.bfloat16(), states=states)
+    with pytest.raises(ValueError):                   # states' shape
+        WK.wkv6_bwd(r, k, v, w, u, s0, dy, states=states[:, :, :1]
+                    .contiguous())
+    with pytest.raises(ValueError):                   # ds_end's shape
+        WK.wkv6_bwd(r, k, v, w, u, s0, dy, dse[:, :1].contiguous(),
+                    states=states)
+    with pytest.raises(ValueError):                   # a CPU tensor
+        WK.wkv6_bwd(r, k, v, w, u, s0, dy.cpu(), states=states)
+    with pytest.raises(ValueError):                   # strided
+        WK.wkv6_bwd(r, k, v, w, u, s0, dy.transpose(1, 2), states=states)
+    u_, dt, A, Bi, Ci, h0 = _scan_inputs(6, 1, 96, 256, 16, cuda_device)
+    dy = torch.randn_like(u_)
+    chk = MS.mamba_scan_with_checkpoints(u_, dt, A, Bi, Ci, h0)[2]
+    with pytest.raises(TypeError):                    # bf16 u
+        MS.mamba_scan_bwd(u_.bfloat16(), dt, A, Bi, Ci, h0, dy,
+                          checkpoints=chk)
+    with pytest.raises(TypeError):                    # ... also via autograd
+        MS.mamba_scan(u_.bfloat16(), dt.requires_grad_(), A, Bi, Ci, h0)
+    with pytest.raises(ValueError):                   # checkpoints' shape
+        MS.mamba_scan_bwd(u_, dt, A, Bi, Ci, h0, dy,
+                          checkpoints=chk[:, :1].contiguous())
+    with pytest.raises(ValueError):                   # dh_end's shape
+        MS.mamba_scan_bwd(u_, dt, A, Bi, Ci, h0, dy, h0[:, :8].contiguous(),
+                          checkpoints=chk)
+    with pytest.raises(TypeError):
+        MS.mamba_scan_bwd(u_, dt, A, Bi, Ci, h0, dy.double(),
+                          checkpoints=chk)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("rwkv6-3b", {"n_layers": 2}),
+    ("jamba-1.5-large-398b", {"n_layers": 4, "head_dim": 64}),
+])
+def test_rwkv_and_jamba_train_step_on_the_card_matches_the_cpu(
+        cuda_device, arch, kw):
+    """One train step of a 2-layer reduced rwkv6 and of jamba's 4-layer
+    cut at smoke width (head_dim 64 for the flash kernels), batch 2 x 64,
+    float32, remat full on the card (the forward kernel twice a layer, its
+    backward once) against remat none on the CPU from the same weights:
+    loss and grad norm within 1e-5, every gradient leaf within 1e-4
+    relative (float32 sums in another order through the kernels)."""
+    import dataclasses
+    from repro_torch.modeling.model import init_params
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import make_batch
+    cfg = smoke_config(arch, **kw)
+    params = init_params(cfg, 3, "cpu")
+    batch = make_batch(cfg, 2, 64, 0, seed=3)
+    out = {}
+    for dev, remat in (("cpu", "none"), (cuda_device, "full")):
+        c = dataclasses.replace(cfg, remat=remat)
+
+        def to(t):
+            return t.to(dev, copy=True) if isinstance(t, torch.Tensor) else \
+                ({k: to(x) for k, x in t.items()} if isinstance(t, dict)
+                 else [to(x) for x in t])
+        model = Model(c, to(params)).trainable()
+        before = (WK.LAUNCHES, WK.LAUNCHES_BWD, MS.LAUNCHES,
+                  MS.LAUNCHES_BWD)
+        grads, metrics = TS.compute_grads(model, to(batch))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            kinds = [c.layer_kind(i) for i in range(c.n_layers)]
+            n_r, n_m = kinds.count("rwkv"), kinds.count("mamba")
+            assert (WK.LAUNCHES - before[0], WK.LAUNCHES_BWD - before[1],
+                    MS.LAUNCHES - before[2], MS.LAUNCHES_BWD - before[3]) \
+                == (2 * n_r, n_r, 2 * n_m, n_m)
+        out[str(dev)] = ({n: g.cpu() for n, g in grads.items()},
+                         float(metrics["loss"]), float(metrics["aux_loss"]))
+    (gc, lc, ac), (gg, lg, ag) = out["cpu"], out[str(cuda_device)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert abs(ag - ac) <= 1e-5 * max(abs(ac), 1e-30)
+    nc = sum(float(g.double().square().sum()) for g in gc.values()) ** 0.5
+    ng = sum(float(g.double().square().sum()) for g in gg.values()) ** 0.5
+    assert abs(ng - nc) <= 1e-5 * nc
+    for n in gc:
+        assert _rel(gg[n], gc[n]) <= 1e-4, (n, _rel(gg[n], gc[n]))

@@ -2,8 +2,9 @@
 optimizers on a seeded tree, the cross-entropies, the loss, router aux and
 every gradient of reduced models under ``jax.value_and_grad`` with the train
 state carried across, gradient accumulation, three train steps, the
-error-feedback compressor bit for bit; and the port's own behaviour:
-remat modes, the refusal to train RWKV and Mamba layers, the data law,
+error-feedback compressor bit for bit, a train step of reduced rwkv6 and
+jamba (Adafactor, bf16 accumulation); and the port's own behaviour: remat
+modes (RWKV and Mamba layers too), what trains and what serves, the data law,
 checkpoints (keep, torn writes, a corrupt newest one, dtype casts, bf16),
 crash-restart determinism and the runtime-log line.
 
@@ -181,6 +182,12 @@ def _by_name(pcfg, jtree, ref_tree):
     ("gemma3-1b", {"attn_logit_softcap": 30.0, "final_logit_softcap": 20.0,
                    "loss_chunk": 0}),
     ("olmoe-1b-7b", {"loss_chunk": 16}),       # the router's aux loss
+    # S 32 takes the chunked WKV6 (S >= 32, a multiple of 16)
+    ("rwkv6-3b", {"loss_chunk": 16}),
+    # Mamba's chunk of min(128, S) and the MoE layers' aux loss; the
+    # first 4 layers (mamba, mamba + MoE, mamba, attention + MoE), the
+    # card's cut, hold every kind of layer
+    ("jamba-1.5-large-398b", {"loss_chunk": 16, "n_layers": 4}),
 ])
 def test_loss_aux_and_gradients_match_jax(arch, kw):
     jcfg, pcfg, jstate, pstate = _pair(arch, **kw)
@@ -319,19 +326,106 @@ def test_compress_decompress_rounds_half_to_even():
     torch.testing.assert_close(err, x - x_hat)
 
 
-# -------------------------------------------------- what does not train
+# ------------------------------------------------------- RWKV and Mamba
+
+@pytest.mark.parametrize("arch,kw", [
+    ("rwkv6-3b", {"grad_accum": 2}),
+    # jamba's own optimizer and accumulation type
+    ("jamba-1.5-large-398b", {"grad_accum": 2, "optimizer": "adafactor",
+                              "grad_accum_dtype": "bfloat16",
+                              "n_layers": 4}),
+])
+def test_rwkv_and_mamba_train_step_matches_jax(arch, kw):
+    """A train step of a reduced rwkv6 and jamba (the chunked WKV6 and the
+    Mamba chunk at S 32, two microbatches) from a JAX train state one step
+    in, so that ``train_state_from_jax`` carries moments that are not
+    zeros (AdamW's m and v, Adafactor's vr, vc and v): the metrics, the
+    parameters after the step and the optimizer's state.  jamba
+    accumulates in bf16 as its config does, so an accumulated element may
+    round one bf16 step apart when the float32 gradients differ in their
+    last bits; the second moments are held to 1e-3 and the grad norm (of
+    the bf16 sums) to REL, where float32 sums get 1e-5.  Both optimizers
+    move an element by lr times a normalised update whatever its
+    gradient's size, so a parameter near zero (a bias after two steps)
+    carries that noise as a few percent of lr: the parameters are held
+    element by element to REL relative plus 5% of lr, as in
+    ``test_three_train_steps_match_jax``."""
+    jcfg, pcfg = jax_smoke(arch, **kw), smoke_config(arch, **kw)
+    jstep = jax.jit(JT.make_train_step(jcfg))
+    jstate, _ = jstep(JT.init_train_state(jcfg, jax.random.PRNGKey(0)),
+                      _jbatch(jcfg, 4, 32, 0)[0])
+    pstate = train_state_from_jax(pcfg, jax.tree.map(np.asarray, jstate),
+                                  "cpu")
+    jb, pb = _jbatch(jcfg, 4, 32, 1)
+    jnew, jm = jstep(jstate, jb)
+    pnew, pm = PT.make_train_step(pcfg)(pstate, pb)
+    bf16_sums = pcfg.grad_accum_dtype == "bfloat16"
+    for key in ("loss", "aux_loss", "grad_norm"):
+        tol = REL if key == "grad_norm" and bf16_sums else 1e-5
+        assert abs(float(pm[key]) - float(jm[key])) <= \
+            tol * max(abs(float(jm[key])), 1e-30), key
+    assert pnew["step"] == int(jnew["step"]) == 2
+    ref = jstate["params"]
+    want = _by_name(pcfg, jnew["params"], ref)
+    lr = {"adamw": 3e-4, "adafactor": 1e-2}[pcfg.optimizer]   # defaults
+    for n, p in PT.params_of(pnew["model"]).items():
+        np.testing.assert_allclose(_np(p), want[n], rtol=REL,
+                                   atol=0.05 * lr, err_msg=n)
+    if pcfg.optimizer == "adamw":
+        m = _by_name(pcfg, jnew["opt"]["m"], ref)
+        for n in m:
+            assert _rel(_np(pnew["opt"]["m"][n]), m[n]) <= REL, n
+    else:
+        leaves = pnew["opt"]["leaves"]
+        for n, (path, b) in param_paths(pcfg, ref).items():
+            js = jnew["opt"]["leaves"]
+            for k in path:
+                js = js[k]
+            if "vr" in js and np.ndim(_np(leaves[n].get("v", 0))) == 1:
+                continue     # a stacked vector: factored in JAX only
+            for k, a in js.items():
+                a = np.asarray(a) if b is None else np.asarray(a)[b]
+                assert _rel(_np(leaves[n][k]), a) <= 1e-3, (n, k)
+
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_rwkv_and_mamba_do_not_train(arch):
+def test_rwkv_and_mamba_are_trainable_and_still_serve(arch):
+    """``check_trainable`` refuses only what ``check_supported`` refuses:
+    RWKV and Mamba layers train, and a trainable model still serves under
+    ``no_grad``, with the logits of a frozen one."""
     cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_train_state(cfg, 0, "cpu")
-    model = Model.from_seed(cfg, 0, "cpu")
-    model.requires_grad_(True)                 # no plain-version gradient
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        model.hidden_forward(torch.zeros(1, 16, dtype=torch.long))
-    with torch.no_grad():                      # serving still works
-        model.hidden_forward(torch.zeros(1, 16, dtype=torch.long))
+    state = PT.init_train_state(cfg, 0, "cpu")
+    model = state["model"]
+    assert all(p.requires_grad for p in model.parameters())
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, 32)))
+    with torch.no_grad():
+        got, _ = model.hidden_forward(tokens)
+    want, _ = Model.from_seed(cfg, 0, "cpu").hidden_forward(tokens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        PT.init_train_state(smoke_config("minicpm3-4b"), 0, "cpu")
+
+
+@pytest.mark.parametrize("arch,kw", [("rwkv6-3b", {}),
+                                     ("jamba-1.5-large-398b", {"n_layers": 4})])
+def test_remat_recomputes_rwkv_and_mamba_layers(arch, kw):
+    """remat "full" and "dots" give an RWKV or Mamba layer's gradients of
+    remat "none" (the chunked WKV6 and the Mamba chunk at S 32)."""
+    jcfg, pcfg, jstate, pstate = _pair(arch, **kw)
+    _, pb = _jbatch(jcfg, 2, 32)
+    grads = {}
+    for mode in ("none", "full", "dots"):
+        model = pstate["model"]
+        model.cfg = smoke_config(arch, remat=mode, **kw)
+        for layer in model.layers:
+            layer.cfg = model.cfg
+        tot, _ = PT.loss_fn(model, pb)
+        grads[mode] = torch.autograd.grad(
+            tot, list(PT.params_of(model).values()))
+    for mode in ("full", "dots"):
+        for a, b in zip(grads["none"], grads[mode]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_training_needs_a_card_unless_asked_for_the_cpu():
