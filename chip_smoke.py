@@ -147,10 +147,16 @@ Phases:
                 serving shapes (B 8, S 2048), given s0 / h0 and ds_end /
                 dh_end, decays on all sides of the clamp with ties at -9,
                 exp(dt A) that underflows, hd 16 and 32, N 4 with ragged S
-                and D; every call repeated bit for bit, each check with a
-                control that must exceed it (the u diagonal's gradient
-                dropped; the checkpoints zeroed); CUDA-event times at the
-                training shape beside the plain versions' and the bounds
+                and D, chunks that wkv6_bwd's segments do not divide and
+                one segment, D off the scan's 128-, 256- and 512-channel
+                blocks at N 16, 8 and 4 (D % 4 != 0 too); every call
+                repeated bit for bit, each check with a control that must
+                exceed it (the u diagonal's gradient dropped; the
+                checkpoints zeroed); CUDA-event times at the training
+                shape beside the plain versions' and the bounds, each
+                launch on its own (wkv6_bwd's fold, carry scan, walk and
+                du sum; the scan's walk and sums) with its blocks, blocks
+                resident an SM and waves; ptxas per instance
   rwkv_train    rwkv6-3b at full width and depth (32 layers, d 2560, vocab
                 65,536) through repro_torch.launch.train.run: 4 steps of
                 8 x 4096 (remat full, AdamW, grad_accum 8); step s,
@@ -1907,8 +1913,9 @@ def _instance(mangled):
     wkv6.cu, gbm_predict.cu, wkv6_bwd.cu or mamba_scan_bwd.cu, such as
     'decode bf16 hd 128 G 8', 'wkv6 hd 64' (the serving instance), 'wkv6
     hd 64 states' (the training one), 'gbm d 3 depth 3' (depth 0: the
-    generic instance for 5-10), 'wkv6_bwd hd 64' or 'mamba_scan_bwd N 16',
-    else None."""
+    generic instance for 5-10), 'wkv6_bwd hd 64' (the walk; 'wkv6_bwd fold
+    hd 64' and 'wkv6_bwd carry hd 64' its first two launches) or
+    'mamba_scan_bwd N 16', else None."""
     m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
                   mangled)
     if m:
@@ -1920,10 +1927,12 @@ def _instance(mangled):
     m = re.search(r"wkv6_kernelILi(\d+)E(Lb1E)?", mangled)
     if m:
         return f"wkv6 hd {m.group(1)}{' states' if m.group(2) else ''}"
-    m = re.search(r"(wkv6_bwd|mamba_scan_bwd)_kernelILi(\d+)E", mangled)
+    m = re.search(r"(wkv6_bwd|mamba_scan_bwd)_(fold_|carry_)?kernelILi(\d+)E",
+                  mangled)
     if m:
         dim = "hd" if m.group(1) == "wkv6_bwd" else "N"
-        return f"{m.group(1)} {dim} {m.group(2)}"
+        part = f"{m.group(2)[:-1]} " if m.group(2) else ""
+        return f"{m.group(1)} {part}{dim} {m.group(3)}"
     return None
 
 
@@ -1997,7 +2006,7 @@ def kernel_build_phase(build, built):
     assert sum(n.startswith("wkv6 ") for n in per) == 6, sorted(per)
     assert sum(n.startswith("gbm") for n in per) == 30, sorted(per)
     assert sum(n.startswith(("wkv6_bwd", "mamba_scan_bwd"))
-               for n in per) == 6, sorted(per)
+               for n in per) == 12, sorted(per)
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
               > (WKV6_SPILL_BYTES if n.startswith("wkv6 ") else 0)
@@ -3627,7 +3636,7 @@ SCAN_BWD_REL = 1e-4
 SSM_PARITY_B, SSM_PARITY_S = 1, 128
 
 
-def wkv6_bwd_bound_ms(B, S, H, hd, ds_end=False):
+def wkv6_bwd_bound_ms(B, S, H, hd, ds_end=False, segments=1):
     """(least time for one wkv6_bwd call, what bounds it, the bytes the
     design moves beyond the function's own): the function reads r, k, v,
     w, dy, u and s0 (and ds_end where given) once and writes dr, dk, dv,
@@ -3636,13 +3645,21 @@ def wkv6_bwd_bound_ms(B, S, H, hd, ds_end=False):
     lower scores and their gradient, the two diagonals, dv (sc^T dy, diag
     dy, kd dS), da, db, drq, dkd, ddecay and the dS update, at the 67
     TFLOP/s float32 peak.  The design's own bytes, outside the bound: the
-    forward's chunk states it reads instead of recomputing them, and du's
-    per-b partials written and read."""
+    forward's chunk states it reads instead of recomputing them; with
+    ``segments`` > 1 the fold's second read of r, w and dy over the
+    segments after the first, its (D, L) pairs written and read by the
+    carry scan, the carried dS written and read by the walk; du's per-(b,
+    segment) partials written and read."""
     low = 16 * 15 // 2
-    n = B * H * (S // 16)
+    n_chunks = S // 16
+    n = B * H * n_chunks
     nbytes = 4 * (9 * B * S * H * hd + 2 * H * hd
                   + (3 if ds_end else 2) * B * H * hd * hd)
-    design_bytes = 4 * (n * hd * hd + 2 * B * H * hd)
+    folded = n_chunks - n_chunks // segments      # chunks after segment 0
+    pairs = B * H * (segments - 1) * (hd * hd + hd)
+    design_bytes = 4 * (n * hd * hd + 3 * B * H * folded * 16 * hd
+                        + 2 * pairs + 2 * B * H * segments * hd * hd
+                        + 2 * B * segments * H * hd)
     macs = (5 * low * hd + 2 * 16 * hd + 16 * hd + 4 * 16 * hd * hd
             + 2 * hd * hd) * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3662,10 +3679,11 @@ def scan_bwd_bound_ms(B, S, D, N, dh_end=False):
     ``scan_bound_ms`` splits them between the special-function units and
     float32 polynomials.  The design's own bytes, outside the bound: the
     forward's tile checkpoints it reads, the per-block partials of dB and
-    dC and the per-b partials of dA, each written and read."""
+    dC (one block per ``block_channels(N)`` channels) and the per-b
+    partials of dA, each written and read."""
     import torch
-    from repro_torch.kernels.build import load
-    n_blk = -(-D // load("mamba_scan_bwd").mamba_scan_bwd_block_channels())
+    from repro_torch.kernels import mamba_scan as MS
+    n_blk = -(-D // MS.block_channels(N))
     nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
                   + (3 if dh_end else 2) * B * D * N)
     design_bytes = 4 * (B * -(-S // 64) * D * N + 2 * 2 * n_blk * B * S * N
@@ -3682,6 +3700,49 @@ def scan_bwd_bound_ms(B, S, D, N, dh_end=False):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")) + (design_bytes,)
+
+
+def wkv6_bwd_launch_times(ins, states):
+    """wkv6_bwd's launches at the inputs' shape, each on its own (fold,
+    carry scan, walk, du's sum: ``wkv6._bwd_launch`` with one bit of
+    ``parts``) by CUDA events over calls queued behind a sleeping kernel
+    (``queued_ms``: the host enqueues a call slower than the card runs
+    the small ones); the segments, each launch's blocks, blocks resident
+    an SM (the CUDA runtime's occupancy) and waves over the card's SMs."""
+    from repro_torch.kernels import wkv6 as WK
+    r = ins[0]
+    B, S, H, hd = r.shape
+    args = (*ins[:5], states, ins[6], ins[7])
+    plan = WK.bwd_plan(B, S, H, hd, r.device)
+    ms = {name: queued_ms(lambda m=m: WK._bwd_launch(*args, parts=m), 10)
+          for name, m in (("fold", 1), ("carry", 2), ("walk", 4),
+                          ("du_sum", 8))}
+    res = dict(plan["resident"], du_sum=None)
+    return {"segments": plan["segments"], "launch_ms": ms,
+            "sum_of_launches_ms": sum(ms.values()),
+            "blocks": plan["blocks"], "resident_per_sm": res,
+            "waves": {n: (-(-b // (plan["sms"] * res[n])) if res[n] else None)
+                      for n, b in plan["blocks"].items()}}
+
+
+def scan_bwd_launch_times(ins, chk):
+    """mamba_scan_bwd's reverse walk and its fixed-order sums, each on its
+    own (``mamba_scan._bwd_launch`` with one bit of ``parts``) by
+    ``queued_ms``; the walk's blocks, blocks resident an SM and waves."""
+    import torch
+    from repro_torch.kernels import mamba_scan as MS
+    u, A = ins[0], ins[2]
+    B, S, D = u.shape
+    N = A.shape[1]
+    args = (*ins[:5], chk, ins[6], ins[7])
+    ms = {name: queued_ms(lambda m=m: MS._bwd_launch(*args, parts=m), 10)
+          for name, m in (("walk", 1), ("sums", 2))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-D // MS.block_channels(N)) * B
+    res = MS.bwd_resident(N)
+    return {"launch_ms": ms, "sum_of_launches_ms": sum(ms.values()),
+            "block_channels": MS.block_channels(N), "blocks": blocks,
+            "resident_per_sm": res, "waves": -(-blocks // (sms * res))}
 
 
 def _check_ssm_bwd(label, got, again, wants, names, limits):
@@ -3827,14 +3888,22 @@ def ssm_train_kernel_phase():
     (B 1, S 4096; rwkv6-3b's 40 heads of 64, jamba's 16,384 channels of
     16 states), the serving shapes (B 8, S 2048), a given s0 / h0 and
     ds_end / dh_end, decays on all sides of the clamp, exp(dt A) that
-    underflows, hd 16 and 32, N 4 and 8 with ragged S and D; every call
-    repeated bit for bit, with a control that must exceed the bound.  Then
-    CUDA-event times at the training shape beside the plain version's and
-    the bounds."""
+    underflows, hd 16 and 32, N 4 and 8 with ragged S and D, chunks that
+    wkv6_bwd's segments do not divide and one segment, D not a multiple of
+    the scan's block channels at N 4, 8 and 16 (D % 4 != 0 too); every
+    call repeated bit for bit, with a control that must exceed the bound.
+    Then CUDA-event times at the training shape beside the plain
+    version's and the bounds, each launch's time, blocks and waves, and
+    ptxas's registers and spills for every instance of the two kernels."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import wkv6 as WK
     t0 = time.perf_counter()
+    ptxas = {}
+    for name in ("wkv6_bwd", "mamba_scan_bwd"):
+        ptxas.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
+                                       _instance))
     B, S = SSM_MICRO_B, SSM_TRAIN_S
     wkv_cases = [   # label, B, S, H, hd, s0, ds_end, clamp, autograd
         ("train", B, S, RWKV_H, RWKV_HD, False, False, False, True),
@@ -3843,26 +3912,41 @@ def ssm_train_kernel_phase():
         ("s0 and ds_end given", 2, 256, 4, 64, True, True, False, True),
         ("clamp binds, ties at -9", 2, 128, 4, 64, True, True, True, True),
         ("hd 32", 1, 64, 3, 32, True, True, True, True),
-        ("hd 16", 2, 48, 2, 16, False, True, True, True)]
+        ("hd 16", 2, 48, 2, 16, False, True, True, True),
+        ("63 chunks, B 2", 2, 1008, 8, 64, True, True, False, True),
+        ("one segment", 1, 16, 3, 64, True, True, True, True)]
     scan_cases = [  # label, B, S, D, N, h0, dh_end, dt_max, autograd
         ("train", B, S, JAMBA_D, JAMBA_N, False, False, None, True),
         ("serve B8 S2048", SERVE_B, SERVE_PROMPT, JAMBA_D, JAMBA_N, True,
          False, None, False),
         ("h0 and dh_end given", 2, 256, 2048, 16, True, True, None, True),
         ("exp(dt A) underflows", 1, 128, 512, 8, True, True, 250.0, True),
-        ("N 4, ragged S and D", 1, 100, 200, 4, True, True, None, True)]
+        ("N 4, ragged S and D", 1, 100, 200, 4, True, True, None, True),
+        ("N 8, D 300 of 256 a block, ragged S", 2, 200, 300, 8, True, True,
+         None, True),
+        ("N 16, D 129 (D % 4 != 0), ragged S", 1, 130, 129, 16, True, False,
+         None, True)]
     wkv, scan = {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, c in enumerate(wkv_cases):
         wkv[c[0]] = check_wkv6_bwd(*c[:8], 70 + i, autograd=c[8])
+        wkv[c[0]]["segments"] = WK.bwd_segments(
+            c[1], c[2], c[3], sms, per_sm=WK.bwd_resident(c[4])[2])
         _free_card()
+    ragged = wkv["63 chunks, B 2"]["segments"]
+    assert 1 < ragged and 63 % ragged, wkv      # the segments do not divide
+    assert wkv["one segment"]["segments"] == 1, wkv
     for i, c in enumerate(scan_cases):
         scan[c[0]] = check_scan_bwd(*c[:8], 80 + i, autograd=c[8])
         _free_card()
 
     ins = _wkv_bwd_inputs(9, B, S, RWKV_H, RWKV_HD, False, False)
     states = WK.wkv6_with_states(*ins[:6])[2]
-    bnd, by, design = wkv6_bwd_bound_ms(B, S, RWKV_H, RWKV_HD)
+    launches = wkv6_bwd_launch_times(ins, states)
+    bnd, by, design = wkv6_bwd_bound_ms(B, S, RWKV_H, RWKV_HD,
+                                        segments=launches["segments"])
     wkv_t = {"ms": cuda_ms(lambda: WK.wkv6_bwd(*ins, states=states), 10),
+             "launches": launches,
              "plain_ms": cuda_ms(lambda: WK.wkv6_bwd_plain(*ins), 2, warm=1),
              "forward_ms": cuda_ms(lambda: WK.wkv6(*ins[:6]), 10),
              "forward_with_states_ms": cuda_ms(
@@ -3880,6 +3964,7 @@ def ssm_train_kernel_phase():
     bnd, by, design = scan_bwd_bound_ms(B, S, JAMBA_D, JAMBA_N)
     scan_t = {"ms": cuda_ms(lambda: MS.mamba_scan_bwd(*ins, checkpoints=chk),
                             10),
+              "launches": scan_bwd_launch_times(ins, chk),
               "plain_ms": cuda_ms(lambda: MS.mamba_scan_bwd_plain(*ins), 1,
                                   warm=1),
               "forward_ms": cuda_ms(lambda: MS.mamba_scan(*ins[:6]), 10),
@@ -3891,6 +3976,7 @@ def ssm_train_kernel_phase():
     del ins, chk
     _free_card()
     emit("ssm_train_kernel", t0, wkv6_bwd=wkv, mamba_scan_bwd=scan,
+         ptxas=ptxas,
          tolerances={"wkv6_bwd": WKV_BWD_REL, "wkv6_bwd_dw": WKV_BWD_DW_REL,
                      "mamba_scan_bwd": SCAN_BWD_REL},
          times={"wkv6_bwd": wkv_t, "mamba_scan_bwd": scan_t})
@@ -4156,6 +4242,9 @@ def ssm_bwd_kernel_line(name, launches, err, times):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "design_bytes": t["design_bytes"],
             "ms_from": t["ms_from"], "shape": t["shape"],
+            "launch_ms": t["launches"]["launch_ms"],
+            "blocks": t["launches"]["blocks"],
+            "waves": t["launches"]["waves"],
             "library": "none: no one PyTorch call computes it"}
 
 

@@ -46,8 +46,16 @@ seconds on the host, and what ``nvidia-smi`` sampled during it every
 (throttle) reasons.  The step "recurrences" (run only when ``--only``
 names it) hashes the SASS of the WKV6 and selective-scan serving forwards
 (the instances without the training outputs) and times them by CUDA
-events at rwkv6-3b's and jamba's serving shapes (B 8, S 2048).  ``--only``
-takes steps from gbm, kernels, flash, train, recurrences and the archs.  Needs a CUDA card.
+events at rwkv6-3b's and jamba's serving shapes (B 8, S 2048), then
+times the training forwards (with chunk states, with tile checkpoints)
+and the backward kernels wkv6_bwd and mamba_scan_bwd by CUDA events at the
+training microbatch (B 1, S 4096).  The steps "rwkv_train" and
+"jamba_train" (also only when ``--only`` names them) train rwkv6-3b whole
+and jamba's 3.66 B cut as ``chip_smoke.py`` does (4 steps of 8 x 4096),
+giving the median step and each step's wall and CPU seconds with the
+card's samples.  ``--only``
+takes steps from gbm, kernels, flash, train, recurrences, rwkv_train,
+jamba_train and the archs.  Needs a CUDA card.
 """
 import hashlib
 import json
@@ -170,21 +178,42 @@ def serving_sass(so_path, kernel="flash_attention"):
 def recurrences(label):
     """The serving forwards of WKV6 and the selective scan: their SASS
     hashes and CUDA-event times at rwkv6-3b's and jamba's serving shapes
-    (B 8, S 2048; 40 heads of 64, 16,384 channels of 16, float32)."""
+    (B 8, S 2048; 40 heads of 64, 16,384 channels of 16, float32); then
+    the training forwards (with chunk states, with tile checkpoints) and
+    the backward kernels, wkv6_bwd and mamba_scan_bwd, by CUDA events at
+    the training microbatch (B 1, S 4096)."""
+    import torch
     import chip_smoke as CS
     from repro_torch.kernels import build
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import wkv6 as WK
-    so = build.build_all(["wkv6", "mamba_scan"])
+    so = build.build_all(["wkv6", "mamba_scan", "wkv6_bwd",
+                          "mamba_scan_bwd"])
     out = {"label": label, "card": CS.nvidia_smi(),
            "wkv6_sass": serving_sass(so["wkv6"], "wkv6"),
            "mamba_scan_sass": serving_sass(so["mamba_scan"], "mamba_scan")}
     ins = CS._wkv_inputs(0, 8, 2048, 40, 64)
-    out["wkv6_B8_events_ms"] = CS.cuda_ms(lambda: WK.wkv6(*ins), 20)
+    out["wkv6_B8_events_ms"] = CS.cuda_ms(lambda: WK.wkv6(*ins), 50)
     del ins
     ins = CS._scan_inputs(0, 8, 2048, 16384, 16)
     out["mamba_scan_B8_events_ms"] = CS.cuda_ms(lambda: MS.mamba_scan(*ins),
-                                                20)
+                                                50)
+    del ins
+    ins = CS._wkv_bwd_inputs(9, 1, 4096, 40, 64, False, False)
+    out["wkv6_with_states_B1_S4096_events_ms"] = CS.cuda_ms(
+        lambda: WK.wkv6_with_states(*ins[:6]), 10)
+    st = WK.wkv6_with_states(*ins[:6])[2]
+    out["wkv6_bwd_B1_S4096_events_ms"] = CS.cuda_ms(
+        lambda: WK.wkv6_bwd(*ins, states=st), 10)
+    del ins, st
+    u, dt, A, Bi, Ci, _ = CS._scan_inputs(9, 1, 4096, 16384, 16, False)
+    h0 = torch.zeros(1, 16384, 16, device="cuda")
+    ins = (u, dt, A, Bi, Ci, h0, 0.5 * torch.randn_like(u), None)
+    out["mamba_scan_with_checkpoints_B1_S4096_events_ms"] = CS.cuda_ms(
+        lambda: MS.mamba_scan_with_checkpoints(*ins[:6]), 10)
+    chk = MS.mamba_scan_with_checkpoints(*ins[:6])[2]
+    out["mamba_scan_bwd_B1_S4096_events_ms"] = CS.cuda_ms(
+        lambda: MS.mamba_scan_bwd(*ins, checkpoints=chk), 10)
     return out
 
 
@@ -308,6 +337,39 @@ def train(label):
     return out
 
 
+SSM_TRAIN = {"rwkv_train": "rwkv6-3b", "jamba_train": "jamba-1.5-large-398b"}
+
+
+def ssm_train(label, step):
+    """rwkv6-3b whole or jamba's 3.66 B cut trained as ``chip_smoke.py``'s
+    rwkv_train / jamba_train train them (4 steps of 8 x 4096, the first a
+    warm-up outside the runtime log's median), each step's wall and CPU
+    seconds beside what ``nvidia-smi`` sampled during it."""
+    import torch
+    import chip_smoke as CS
+    from repro_torch.launch import train as T
+    arch = SSM_TRAIN[step]
+    out = {"label": label, "arch": arch, "card": CS.nvidia_smi()}
+    history, samples, stop = StepStamps(), [], threading.Event()
+    sampler = threading.Thread(target=smi_sampler, args=(stop, samples))
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        sampler.start()
+        t0, cpu0 = time.perf_counter(), time.process_time()
+        try:
+            losses = T.run(arch, CS.SSM_TRAIN_STEPS, CS.SSM_TRAIN_B,
+                           CS.SSM_TRAIN_S, smoke=False, device="cuda",
+                           runtime_log=log, history=history)
+        finally:
+            stop.set()
+            sampler.join()
+        rec = json.loads(open(log).read().splitlines()[-1])
+    out.update(median_step_s=rec["median_step_s"], losses=losses,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               steps=step_table(t0, cpu0, history, samples))
+    return out
+
+
 def serve(label, arch):
     import torch
     from repro_torch.launch import serve as S
@@ -327,7 +389,10 @@ def one(src, label, what):
     sys.path[:0] = [os.path.abspath(src), ROOT]
     step = {"gbm": gbm, "kernels": kernels, "flash": flash,
             "train": train, "recurrences": recurrences}.get(what)
-    res = step(label) if step else serve(label, what)
+    if what in SSM_TRAIN:
+        res = ssm_train(label, what)
+    else:
+        res = step(label) if step else serve(label, what)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -224,7 +224,35 @@ def _check_bwd(u, dt, A, B_in, C_in, chk, dy, dh_end):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
                              f"{tuple(t.shape)}")
+    # the kernel reads A, B_in, C_in, the checkpoints and dh_end 4 states
+    # at a time, and writes dh0 and dA's partials so
+    for name, t in [("A", A), ("B_in", B_in), ("C_in", C_in),
+                    ("checkpoints", chk), ("dh_end", dh_end)]:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     return B, S, D, N
+
+
+def bwd_resident(N):
+    """Blocks of mamba_scan_bwd's reverse walk resident on one SM of the
+    current card at state size N, as the CUDA runtime computes them."""
+    from repro_torch.kernels.build import load
+    fn = load("mamba_scan_bwd").mamba_scan_bwd_resident
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    got = fn(N)
+    if got <= 0:
+        raise RuntimeError(f"mamba_scan_bwd occupancy at N {N}: {got}")
+    return got
+
+
+def block_channels(N):
+    """The channels one block of ``csrc/mamba_scan_bwd.cu`` owns at state
+    size N (512 threads of 4 states each: 128 at N 16), which sizes its
+    per-block partials of dB and dC."""
+    from repro_torch.kernels.build import load
+    fn = load("mamba_scan_bwd").mamba_scan_bwd_block_channels
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return fn(N)
 
 
 def mamba_scan_bwd(u, dt, A, B_in, C_in, h0, dy, dh_end=None, *,
@@ -232,37 +260,48 @@ def mamba_scan_bwd(u, dt, A, B_in, C_in, h0, dy, dh_end=None, *,
     """(du, d(dt), dA, dB_in, dC_in, dh0), float32, given the checkpoints
     of ``mamba_scan_with_checkpoints`` on the same inputs (they carry h0).
     On a CUDA tensor one call of ``csrc/mamba_scan_bwd.cu`` (the reverse
-    walk, one block per 64 channels and batch row, then the sums over
-    blocks and over b in launches of fixed order); on a CPU tensor
-    ``mamba_scan_bwd_plain``."""
+    walk, one block per ``block_channels(N)`` channels and batch row, then
+    the sums over blocks and over b in launches of fixed order); on a CPU
+    tensor ``mamba_scan_bwd_plain``."""
     global LAUNCHES_BWD
     if u.device.type == "cpu":
         return mamba_scan_bwd_plain(u, dt, A, B_in, C_in, h0, dy, dh_end,
                                     checkpoints=checkpoints)
     if u.device.type != "cuda":
         raise ValueError(f"no mamba_scan_bwd for device {u.device}")
-    B, S, D, N = _check_bwd(u, dt, A, B_in, C_in, checkpoints, dy, dh_end)
+    _check_bwd(u, dt, A, B_in, C_in, checkpoints, dy, dh_end)
+    grads = _bwd_launch(u, dt, A, B_in, C_in, checkpoints, dy, dh_end)
+    LAUNCHES_BWD += 1
+    return grads
+
+
+def _bwd_launch(u, dt, A, B_in, C_in, checkpoints, dy, dh_end, parts=3):
+    """(du, d(dt), dA, dB_in, dC_in, dh0): one call of
+    ``csrc/mamba_scan_bwd.cu``'s entry on checked CUDA tensors, with the
+    launches whose bits are in ``parts`` (1 the reverse walk, 2 the sums
+    over blocks and over b; one alone times those launches, on fresh
+    scratch)."""
+    B, S, D = u.shape
+    N = A.shape[1]
     f32 = dict(dtype=torch.float32, device=u.device)
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     dA, dh0 = torch.empty(D, N, **f32), torch.empty(B, D, N, **f32)
     dB, dC = torch.empty(B, S, N, **f32), torch.empty(B, S, N, **f32)
-    from repro_torch.kernels.build import load
-    n_blk = -(-D // load("mamba_scan_bwd").mamba_scan_bwd_block_channels())
+    n_blk = -(-D // block_channels(N))
     part_b = torch.empty(n_blk, B, S, N, **f32)
     part_c = torch.empty(n_blk, B, S, N, **f32)
     part_a = torch.empty(B, D, N, **f32)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = _lib("mamba_scan_bwd_launch", "mamba_scan_bwd", 17, 5)(
+    rc = _lib("mamba_scan_bwd_launch", "mamba_scan_bwd", 17, 6)(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
         C_in.data_ptr(), checkpoints.data_ptr(), dy.data_ptr(),
         None if dh_end is None else dh_end.data_ptr(), du.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         dh0.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
-        part_a.data_ptr(), B, S, D, N, u.device.index or 0, stream)
+        part_a.data_ptr(), B, S, D, N, parts, u.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan_bwd kernel failed to launch: CUDA "
                            f"error {rc}")
-    LAUNCHES_BWD += 1
     return du, ddt, dA, dB, dC, dh0
 
 

@@ -24,13 +24,18 @@ through the kernel.
 The gradient (the JAX package differentiates ``wkv6_chunked_ref`` with
 ``jax.grad``; no Pallas kernel has one): ``wkv6_bwd_plain`` walks the
 chunks in reverse, carrying dS, and ``wkv6_bwd`` launches
-``csrc/wkv6_bwd.cu`` on a CUDA tensor (``LAUNCHES_BWD``).  ``WKV6`` is the
-autograd Function of the card: its forward launches the forward kernel's
-instance that also writes the state entering every chunk, [B, H, S/16,
-hd, hd] float32, which the backward reads.  ``wkv6`` goes through it when
-an input on the card requires grad; on the CPU autograd differentiates
-``wkv6_plain``.  The clamp's derivative is ``jax.grad``'s of
-``jnp.maximum``: 1 above -9, 0.5 at log w = -9 exactly, 0 below.
+``csrc/wkv6_bwd.cu`` on a CUDA tensor (``LAUNCHES_BWD``).  The kernel
+splits each (b, h)'s chunks into ``bwd_segments`` segments: the dS
+entering a segment's end comes from the later segments' folds
+(``segment_folds_plain``, ``segment_carry_plain``), and
+``wkv6_bwd_plain(..., segments=n)`` walks the segments that way.
+``WKV6`` is the autograd Function of the card: its forward launches the
+forward kernel's instance that also writes the state entering every
+chunk, [B, H, S/16, hd, hd] float32, which the backward reads.  ``wkv6``
+goes through it when an input on the card requires grad; on the CPU
+autograd differentiates ``wkv6_plain``.  The clamp's derivative is
+``jax.grad``'s of ``jnp.maximum``: 1 above -9, 0.5 at log w = -9
+exactly, 0 below.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ import torch
 CHUNK = 16
 LOG_W_MIN = -9.0      # the clamp of the per-step log-decay (wkv6.py:75-78)
 HEAD_DIMS = (16, 32, 64)      # the kernel's instantiations
+BWD_BLOCKS_PER_SM = 2         # wkv6_bwd's walk: 104 KB, 128 registers
+BWD_MAX_SEGMENTS = 64
 
 LAUNCHES = 0
 LAUNCHES_BWD = 0
@@ -68,6 +75,14 @@ def log_decay_grad(w: torch.Tensor) -> torch.Tensor:
     return side / wf
 
 
+def _chunked(chunk, *arrays):
+    """Each [B, S, H, hd] array as float32 [S / chunk, B, H, chunk, hd]."""
+    B, S, H, hd = arrays[0].shape
+    n = S // chunk
+    return [a.float().reshape(B, n, chunk, H, hd).permute(1, 0, 3, 2, 4)
+            for a in arrays]
+
+
 def wkv6_plain(r, k, v, w, u, s0=None, *, chunk=CHUNK):
     """The chunked recurrence in plain PyTorch, float32 inside and out
     (``ref.wkv6_chunked_ref``): within a chunk a masked strictly-lower
@@ -77,8 +92,7 @@ def wkv6_plain(r, k, v, w, u, s0=None, *, chunk=CHUNK):
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
     n, C = S // chunk, chunk
-    rc, kc, vc, wc = [a.float().reshape(B, n, C, H, hd).permute(1, 0, 3, 2, 4)
-                      for a in (r, k, v, w)]             # [n, B, H, C, hd]
+    rc, kc, vc, wc = _chunked(chunk, r, k, v, w)         # [n, B, H, C, hd]
     lw = log_decay(wc)
     s = (torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
@@ -127,9 +141,8 @@ def chunk_states_plain(r, k, v, w, s0=None, *, chunk=CHUNK):
     (the first is s0, or zeros), by ``wkv6_plain``'s state update: what the
     forward kernel's training instance writes for the backward."""
     B, S, H, hd = r.shape
-    n, C = S // chunk, chunk
-    kc, vc, wc = [a.float().reshape(B, n, C, H, hd).permute(1, 0, 3, 2, 4)
-                  for a in (k, v, w)]
+    n = S // chunk
+    kc, vc, wc = _chunked(chunk, k, v, w)
     lw = log_decay(wc)
     s = (torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
@@ -144,8 +157,73 @@ def chunk_states_plain(r, k, v, w, s0=None, *, chunk=CHUNK):
     return torch.stack(out, dim=2)
 
 
+def bwd_segments(B, S, H, sms, per_sm=BWD_BLOCKS_PER_SM,
+                 most=BWD_MAX_SEGMENTS):
+    """The segments wkv6_bwd splits each (b, h)'s S / 16 chunks into: the
+    count s in 1 .. min(chunks, ``most``) that minimises the makespan in
+    chunk-steps, ceil(B H s / (sms per_sm)) waves of ceil(chunks / s)
+    chunks and one more for a segment's start (the smallest s of a
+    tie)."""
+    n = S // CHUNK
+    slots = sms * per_sm
+    best = None
+    for s in range(1, min(n, most) + 1):
+        span = -(-B * H * s // slots) * (-(-n // s) + 1)
+        if best is None or span < best[0]:
+            best = (span, s)
+    return best[1]
+
+
+def segment_bounds(n, segments):
+    """[(c0, c1)] of each segment of ``n`` chunks, as the kernel splits
+    them: segment q holds chunks q n // segments .. (q + 1) n // segments
+    - 1."""
+    return [(q * n // segments, (q + 1) * n // segments)
+            for q in range(segments)]
+
+
+def segment_folds_plain(r, w, dy, segments, *, chunk=CHUNK):
+    """(D [B, H, segments, hd], L [B, H, segments, hd, hd]) float32: each
+    segment's chunks folded in reverse from zero, L <- diag(e^last) L +
+    rq^T dy, and D the product of their decays e^last by row (the first
+    segment's pair too, which no carry reads)."""
+    B, S, H, hd = r.shape
+    rc, wc, dyc = _chunked(chunk, r, w, dy)
+    lw = log_decay(wc)
+    D, L = [], []
+    for c0, c1 in segment_bounds(S // chunk, segments):
+        dprod = torch.ones(B, H, hd, dtype=torch.float32, device=r.device)
+        fold = torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
+        for i in reversed(range(c0, c1)):
+            cum = torch.cumsum(lw[i], dim=2)
+            rq = rc[i] * torch.exp(cum - lw[i])
+            decay = torch.exp(cum[:, :, -1, :])
+            fold = decay[..., None] * fold + torch.einsum(
+                "bhtd,bhtv->bhdv", rq, dyc[i])
+            dprod = dprod * decay
+        D.append(dprod)
+        L.append(fold)
+    return torch.stack(D, dim=2), torch.stack(L, dim=2)
+
+
+def segment_carry_plain(D, L, ds_end=None):
+    """[B, H, segments, hd, hd] float32: X_s, the gradient of the state
+    leaving segment s's last chunk, from ds_end (None: zeros) and the
+    later segments' folds in a fixed order, X_s = D_{s+1} X_{s+1} +
+    L_{s+1}.  A product of decays that underflowed to 0 multiplies X by 0
+    as the sequential walk does chunk by chunk."""
+    n = D.shape[2]
+    x = (torch.zeros_like(L[:, :, 0]) if ds_end is None
+         else ds_end.float())
+    out = [x]
+    for s in range(n - 2, -1, -1):
+        x = D[:, :, s + 1, :, None] * x + L[:, :, s + 1]
+        out.append(x)
+    return torch.stack(out[::-1], dim=2)
+
+
 def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_end=None, *, chunk=CHUNK,
-                   states=None):
+                   states=None, segments=1):
     """(dr, dk, dv, dw [B, S, H, hd], du [H, hd], ds0 [B, H, hd, hd]),
     float32: the gradient of ``wkv6_plain``'s (y, s_end) against dy and
     ds_end (None: zeros), chunk by chunk in reverse with the carried dS.
@@ -160,25 +238,36 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_end=None, *, chunk=CHUNK,
         dlog w: the exponents' gradients, (da a, drq rq) on cum_excl,
         -(db b), -(dkd kd) on cum, the sums on ref and cum_last, through
         the reverse cumsum; dw = dlog w * ``log_decay_grad``.
-    du sums (dy.v) r k over the batch and the chunks, in reverse order."""
+    du sums (dy.v) r k over the batch and the chunks, in reverse order.
+    With ``segments`` > 1 the chunks are split as the kernel splits them
+    (``segment_bounds``), and each segment's walk starts from the dS that
+    ``segment_carry_plain`` gives it."""
     B, S, H, hd = r.shape
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
     n, C = S // chunk, chunk
     if states is None:
         states = chunk_states_plain(r, k, v, w, s0, chunk=chunk)
-    rc, kc, vc, wc, dyc = [
-        a.float().reshape(B, n, C, H, hd).permute(1, 0, 3, 2, 4)
-        for a in (r, k, v, w, dy)]                       # [n, B, H, C, hd]
+    rc, kc, vc, wc, dyc = _chunked(chunk, r, k, v, w, dy)   # [n, B, H, C, hd]
     lw, dlw_dw = log_decay(wc), log_decay_grad(wc)
     u_ = u.float()[None, :, None, :]
     lower = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)
     zero = torch.zeros((), device=r.device)
-    ds = (torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
-          if ds_end is None else ds_end.float())
+    if segments == 1:
+        carry = [(torch.zeros(B, H, hd, hd, dtype=torch.float32,
+                              device=r.device)
+                  if ds_end is None else ds_end.float())]
+    else:
+        carry = segment_carry_plain(
+            *segment_folds_plain(r, w, dy, segments, chunk=chunk),
+            ds_end).unbind(2)
+    starts = {c1 - 1: q for q, (_, c1) in
+              enumerate(segment_bounds(n, segments))}
     du = torch.zeros(H, hd, dtype=torch.float32, device=r.device)
     grads = [[None] * n for _ in range(4)]             # dr, dk, dv, dw
     for i in reversed(range(n)):
+        if i in starts:
+            ds = carry[starts[i]]
         r_, k_, v_, lw_, dy_ = rc[i], kc[i], vc[i], lw[i], dyc[i]
         s_in = states[:, :, i].float()
         cum = torch.cumsum(lw_, dim=2)
@@ -319,34 +408,82 @@ def _check_bwd(r, k, v, w, u, states, dy, ds_end):
     return B, S, H, hd
 
 
+_RESIDENT = {}
+
+
+def bwd_resident(hd):
+    """Blocks of wkv6_bwd's fold, carry scan and walk resident on one SM of
+    the current card at head dim hd, as the CUDA runtime computes them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if hd not in _RESIDENT:
+        from repro_torch.kernels.build import load
+        fn = load("wkv6_bwd").wkv6_bwd_resident
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        got = tuple(fn(hd, which) for which in range(3))
+        if min(got) <= 0:
+            raise RuntimeError(f"wkv6_bwd occupancy at hd {hd}: {got}")
+        _RESIDENT[hd] = got
+    return _RESIDENT[hd]
+
+
 def wkv6_bwd(r, k, v, w, u, s0, dy, ds_end=None, *, states):
     """(dr, dk, dv, dw, du, ds0), float32, given the chunk states of
     ``wkv6_with_states`` on the same inputs (they carry s0).  On a CUDA
-    tensor one call of ``csrc/wkv6_bwd.cu`` (the reverse walk, one block
-    per (b, h), then du's sum over b in a second launch of fixed order);
-    on a CPU tensor ``wkv6_bwd_plain``."""
+    tensor one call of ``csrc/wkv6_bwd.cu``: each (b, h)'s chunks split
+    into ``bwd_segments`` segments, the segments' folds, their carry scan,
+    the walk (one block per (b, h, segment)) and du's sum over (b,
+    segment) in fixed order; on a CPU tensor ``wkv6_bwd_plain``."""
     global LAUNCHES_BWD
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_end, states=states)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6_bwd for device {r.device}")
-    B, S, H, hd = _check_bwd(r, k, v, w, u, states, dy, ds_end)
+    _check_bwd(r, k, v, w, u, states, dy, ds_end)
+    grads = _bwd_launch(r, k, v, w, u, states, dy, ds_end)
+    LAUNCHES_BWD += 1
+    return grads
+
+
+def bwd_plan(B, S, H, hd, device):
+    """{"segments", "blocks": {launch: grid size}, "resident": {launch:
+    blocks an SM}} of wkv6_bwd on ``device`` at [B, S, H, hd]."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    res = bwd_resident(hd)
+    nseg = bwd_segments(B, S, H, sms, per_sm=res[2])
+    return {"segments": nseg, "sms": sms,
+            "blocks": {"fold": (nseg - 1) * H * B,
+                       "carry": -(-hd * hd // 1024) * H * B,
+                       "walk": nseg * H * B, "du_sum": -(-H * hd // 256)},
+            "resident": {"fold": res[0], "carry": res[1], "walk": res[2]}}
+
+
+def _bwd_launch(r, k, v, w, u, states, dy, ds_end, parts=15):
+    """(dr, dk, dv, dw, du, ds0): one call of ``csrc/wkv6_bwd.cu``'s entry
+    on checked CUDA tensors, with the launches whose bits are in ``parts``
+    (1 the fold, 2 the carry scan, 4 the walk, 8 du's sum; one alone times
+    that launch, on fresh scratch)."""
+    B, S, H, hd = r.shape
+    nseg = bwd_plan(B, S, H, hd, r.device)["segments"]
+    f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du = torch.empty(H, hd, dtype=torch.float32, device=r.device)
-    ds0 = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
-    du_part = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
+    du = torch.empty(H, hd, **f32)
+    ds0 = torch.empty(B, H, hd, hd, **f32)
+    fold_l = torch.empty(B, H, nseg, hd, hd, **f32)
+    fold_d = torch.empty(B, H, nseg, hd, **f32)
+    carry = torch.empty(B, H, nseg, hd, hd, **f32)
+    du_part = torch.empty(B, nseg, H, hd, **f32)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    rc = _lib("wkv6_bwd_launch", "wkv6_bwd", 15, 5)(
+    rc = _lib("wkv6_bwd_launch", "wkv6_bwd", 18, 7)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         states.data_ptr(), dy.data_ptr(),
         None if ds_end is None else ds_end.data_ptr(), dr.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-        du.data_ptr(), ds0.data_ptr(), B, S, H, hd, r.device.index or 0,
-        stream)
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), fold_l.data_ptr(), fold_d.data_ptr(),
+        carry.data_ptr(), du_part.data_ptr(), B, S, H, hd, nseg, parts,
+        r.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_bwd kernel failed to launch: CUDA error "
                            f"{rc}")
-    LAUNCHES_BWD += 1
     return dr, dk, dv, dw, du, ds0
 
 

@@ -448,6 +448,56 @@ def test_a_refused_body_is_skipped_up_to_64_kib(gw, size, kept):
     assert after == (200 if kept else b"")
 
 
+TURN_ROWS = ((4.0, 15.0, 0.02), (6.0, 15.0, 0.02), (8.0, 20.0, 0.02),
+             (2.0, 10.0, 0.02))
+
+
+def test_one_turns_reads_are_parsed_and_its_answers_written_together(gw):
+    """Four requests on four connections, sent in one turn: the host
+    parses them in one pass and, their lane batch answered, writes the
+    four answers in one flush, each the in-process envelope's bytes; a
+    ``connection: close`` answer closes its connection after its bytes."""
+    bodies = [encode(PredictRequest("grep", "m5.xlarge", (row,)))
+              .encode("ascii") for row in TURN_ROWS]
+
+    async def drive():
+        app, server = await serve_edge(gw, tick_s=0.05)
+        parsed, flushed = [], []
+        parse_all, flush = server._parse_all, server._flush
+
+        def count_parsed():
+            parsed.append(len(server._unparsed))
+            parse_all()
+
+        def count_flushed():
+            flushed.append(len(server._ready))
+            flush()
+
+        server._parse_all, server._flush = count_parsed, count_flushed
+        try:
+            conns = [await _conn(server) for _ in bodies]
+            for k, ((_, w), body) in enumerate(zip(conns, bodies)):
+                close = b"connection: close\r\n" if k == 3 else b""
+                w.write(b"POST /v1/predict HTTP/1.1\r\n" + close
+                        + b"content-length: " + str(len(body)).encode()
+                        + b"\r\n\r\n" + body)
+            out = [await _read_response(r) for r, _ in conns]
+            tail = await conns[3][0].read()
+            for _, w in conns:
+                w.close()
+            return out, tail, parsed, flushed
+        finally:
+            await server.stop()
+
+    out, tail, parsed, flushed = asyncio.run(drive())
+    expected = [encode(gw.handle(decode(b.decode("ascii")))).encode("ascii")
+                for b in bodies]
+    assert [s for s, _, _ in out] == [200] * 4
+    assert [p for _, _, p in out] == expected
+    assert b"connection: close" in out[3][1] and tail == b""
+    assert parsed[0] == 4 and flushed[0] == 4
+
+
 # --------------------------------------------------------------------------
 # closed-loop load generator
 # --------------------------------------------------------------------------

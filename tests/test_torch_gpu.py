@@ -928,10 +928,24 @@ def _wkv_bwd_inputs(seed, B, S, H, hd, device, ds_end=True):
     return r, k, v, w, u, s0, dy, dse
 
 
+# shapes whose segment plan (wkv6.bwd_segments on the card's SMs) must
+# split the chunks unevenly, or keep them in one segment
+WKV_BWD_PLANS = {(2, 1008, 8, 64): "ragged", (2, 784, 5, 32): "ragged",
+                 (1, 16, 3, 64): "one", (8, 32, 40, 64): "one"}
+
+
 @pytest.mark.parametrize("B,S,H,hd,ds_end", [
     (1, 64, 2, 16, True), (2, 96, 3, 32, False), (2, 256, 4, 64, True),
-    (1, 512, 40, 64, False)])
+    (1, 512, 40, 64, False), (2, 1008, 8, 64, True), (2, 784, 5, 32, False),
+    (1, 16, 3, 64, True), (8, 32, 40, 64, False)])
 def test_wkv6_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, ds_end):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    segs = WK.bwd_segments(B, S, H, sms, per_sm=WK.bwd_resident(hd)[2])
+    plan = WKV_BWD_PLANS.get((B, S, H, hd))
+    if plan == "ragged":
+        assert segs > 1 and (S // 16) % segs, segs
+    elif plan == "one":
+        assert segs == 1, segs
     ins = _wkv_bwd_inputs(B + S + hd, B, S, H, hd, cuda_device, ds_end)
     w = ins[3]
     states = WK.wkv6_with_states(*ins[:6])[2]
@@ -952,7 +966,8 @@ def test_wkv6_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, ds_end):
 
 @pytest.mark.parametrize("B,S,D,N,dh_end", [
     (1, 100, 200, 4, True), (2, 128, 256, 8, False), (1, 256, 1000, 16, True),
-    (1, 64, 64, 16, False)])
+    (1, 64, 64, 16, False), (2, 70, 520, 4, True), (2, 200, 300, 8, False),
+    (1, 130, 129, 16, True)])
 def test_mamba_scan_bwd_kernel_matches_plain(cuda_device, B, S, D, N,
                                              dh_end):
     u, dt, A, Bi, Ci, h0 = _scan_inputs(B + S + D, B, S, D, N, cuda_device)

@@ -5,7 +5,12 @@ oracle ``repro.kernels.ref.wkv6_chunked_ref``, with and without s0 and
 the gradient of the final state, at hd 16, 32 and 64, with decays on the
 three sides of the clamp of log w at -9 in every case (below it, exactly
 at it, above it).  The kernel is held against ``wkv6_bwd_plain`` on the
-card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.  The kernel
+splits each (b, h)'s chunks into segments whose dS comes from the later
+segments' folds: ``wkv6_bwd_plain(..., segments=n)`` walks them that way
+and is held to the same references, with segment counts that do not
+divide the chunks, one segment, slow decays (so the carry matters) and
+decay products that underflow to 0.
 
 Inputs are made from a seed with numpy and handed to both frameworks.
 Tolerance: float32 on all sides with sums in another order, so 1e-5
@@ -155,3 +160,82 @@ def test_chunk_states_are_the_forward_states():
     y2, s2 = K.wkv6_plain(*(a[:, :32] for a in t[:4]), t[4], t[5])
     torch.testing.assert_close(st[:, :, 2], s2, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(y, K.wkv6_plain(*t)[0], rtol=0, atol=0)
+
+
+def _slow_decays(seed, shape, mean):
+    """w = exp(-exp(x)), x ~ N(mean, 1) clipped to [-8, 2.5] (w > 0, where
+    jax.grad of the clamp is finite): at mean -3, w near 0.95, so dS
+    carries across many chunks; at mean 1.1, log w near -3 and a chunk's
+    e^last near e^-48, whose product over 3 chunks underflows to 0."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(mean + rng.standard_normal(shape), -8.0, 2.5)
+    return np.exp(-np.exp(x)).astype(np.float32)
+
+
+SEGMENT_CASES = [   # B, chunks, H, hd, segments, s0, ds_end, decay mean
+    (2, 5, 2, 16, 2, True, True, -3.0),      # 5 chunks over 2 segments
+    (1, 7, 2, 32, 3, False, True, -3.0),     # 7 over 3
+    (2, 4, 1, 64, 4, True, False, -3.0),     # one chunk a segment
+    (1, 3, 2, 16, 1, True, True, -3.0),      # one segment
+    (1, 9, 1, 16, 3, False, True, 1.1),      # decay products underflow
+]
+
+
+@pytest.mark.parametrize("B,n,H,hd,segs,s0,ds_end,mean", SEGMENT_CASES)
+def test_segmented_walk_matches_jax_and_the_sequential_walk(
+        B, n, H, hd, segs, s0, ds_end, mean):
+    ins = list(_inputs(B * 31 + n * 7 + segs, B, 16 * n, H, hd, s0, ds_end))
+    ins[3] = _slow_decays(n + segs, ins[3].shape, mean)
+    t = [None if a is None else torch.tensor(a) for a in ins]
+    got = [g.numpy() for g in K.wkv6_bwd_plain(*t, segments=segs)]
+    assert all(np.isfinite(g).all() for g in got)
+    seq = [g.numpy() for g in K.wkv6_bwd_plain(*t)]
+    _check(got, seq, ins[3], "sequential walk")
+    _check(got, _jax_grads(*ins), ins[3], "jax.grad")
+    if mean > 0:    # the products of 3 chunks' decays are exactly 0
+        D, _ = K.segment_folds_plain(t[0], t[3], t[6], segs)
+        assert (D[:, :, 1:] == 0).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("n,segs", [(5, 2), (7, 3), (4, 4), (6, 1)])
+def test_segment_carry_is_the_sequential_ds(n, segs):
+    """X_s from the later segments' folds equals the dS the sequential walk
+    carries into segment s's last chunk: the walk's dS over a prefix of
+    chunks ends at the next segment's start."""
+    B, H, hd = 1, 2, 16
+    r, k, v, w, u, s0, dy, dse = _inputs(n * 10 + segs, B, 16 * n, H, hd,
+                                         True, True)
+    w = _slow_decays(n, w.shape, -3.0)
+    t = [torch.tensor(a) for a in (r, k, v, w, u, s0, dy, dse)]
+    carry = K.segment_carry_plain(
+        *K.segment_folds_plain(t[0], t[3], t[6], segs), t[7])
+    bounds = K.segment_bounds(n, segs)
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(c1 > c0 for c0, c1 in bounds)
+    torch.testing.assert_close(carry[:, :, -1], t[7], rtol=0, atol=0)
+    for q in range(segs - 1):
+        c1 = bounds[q][1]       # segment q ends where q + 1 begins
+        tail = [a[:, 16 * c1:] for a in (t[0], t[1], t[2], t[3])]
+        st = K.chunk_states_plain(*t[:4], t[5])[:, :, c1]
+        want = K.wkv6_bwd_plain(*tail, t[4], st, t[6][:, 16 * c1:],
+                                t[7])[5]
+        torch.testing.assert_close(carry[:, :, q], want, rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_bwd_segments_plan():
+    """The segments of rwkv6-3b's shapes on 132 SMs, two blocks an SM:
+    13 at the training microbatch (B 1, S 4096, H 40: 520 blocks, 2
+    waves), 4 at B 8, S 2048; never more than the chunks, one for one
+    chunk; and no count with a shorter makespan."""
+    assert K.bwd_segments(1, 4096, 40, 132) == 13
+    assert K.bwd_segments(8, 2048, 40, 132) == 4
+    assert K.bwd_segments(1, 16, 40, 132) == 1
+    for B, S, H in [(1, 4096, 40), (2, 1008, 8), (8, 32, 40), (1, 48, 1)]:
+        n, got = S // 16, K.bwd_segments(B, S, H, 132)
+        assert 1 <= got <= min(n, K.BWD_MAX_SEGMENTS)
+
+        def span(s):
+            return -(-B * H * s // 264) * (-(-n // s) + 1)
+        assert span(got) == min(span(s) for s in range(
+            1, min(n, K.BWD_MAX_SEGMENTS) + 1))
