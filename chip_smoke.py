@@ -104,6 +104,24 @@ Phases:
                 prompt 256, 8 decode steps: card in float32 and in bf16
                 vs CPU (float32, plain) logits, greedy tokens and MoE
                 routing
+  mla_kernel    minicpm3-4b's two kernels vs their plain versions in
+                bfloat16 (also held to a relative bound, with two controls
+                that must exceed it) and float32, every call repeated bit
+                for bit: flash attention at q/k head 96 and v head 64 (40
+                heads; B 8 x S 2048, S = 1, S = 129, ragged S) and the MLA
+                decode over the latent caches (B 8, L 2,120 at pos 0,
+                1100 and 2080; B 1); CUDA-event (flash) and profiler
+                device (decode) times, bounds and SDPA's times
+  mla_serve     minicpm3-4b at full width and depth (62 layers, d 2560)
+                through repro_torch.launch.serve.run: batch 8, prompt
+                2048, 64 new tokens; init s, prefill ms, decode ms/token,
+                tokens/s, peak memory, the runtime-log line; launches:
+                flash 62 (prefill only), MLA decode 62 x 63, dense decode 0
+  mla_profile   device busy time and top kernels of one full-width
+                minicpm3-4b prefill and 8 decode steps (torch.profiler)
+  mla_parity    the same model cut to 4 layers, prompt 512, 8 decode
+                steps: card in float32 and in bf16 vs CPU (float32,
+                plain) logits and greedy tokens
   train_kernel  the flash-attention backward (flash_bwd_delta, _dkdv,
                 _dkdv_sum, _dq; bf16 on the wgmma/TMA kernels, float32 on
                 SIMT) vs flash_attention_bwd_plain on the forward kernel's
@@ -180,16 +198,18 @@ Phases:
            beats the global mean, transfer_source stamped); wall time,
            gbm_predict launches and engine fits per checkpoint and part
 
-Nine main paths: the phases fit, serve and loop (the paper's loop,
+Ten main paths: the phases fit, serve and loop (the paper's loop,
 through the GBM kernel), edge (the hub's public surface over a socket,
 through the GBM kernel), eval (the evaluation plane, through the GBM
-kernel), lm_serve (gemma3-1b serving, through the two
-attention kernels), rwkv_serve (rwkv6-3b serving, through the WKV6
-kernel), jamba_serve (jamba-1.5-large serving, through the scan and
-the attention kernels), train (gemma3-1b training, through the flash
-forward and the four backward launches), rwkv_train (through the WKV6
-kernel and wkv6_bwd) and jamba_train (through the scan kernel,
-mamba_scan_bwd and the flash kernels).  Each path's kernel launch counts are set to 0
+kernel), lm_serve (gemma3-1b serving, through the two attention
+kernels), rwkv_serve (rwkv6-3b serving, through the WKV6 kernel),
+jamba_serve (jamba-1.5-large serving, through the scan and the attention
+kernels), mla_serve (minicpm3-4b serving, through the flash kernel's
+(96, 64) instance and the MLA decode kernel), train (gemma3-1b training,
+through the flash forward and the four backward launches), rwkv_train
+(through the WKV6 kernel and wkv6_bwd) and jamba_train (through the scan
+kernel, mamba_scan_bwd and the flash kernels).  Each path's kernel
+launch counts are set to 0
 just before it and read just after it.  Before the last line it prints the ``kernels``
 line and the nvidia-smi line; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero.  Without a
@@ -1376,10 +1396,13 @@ def attn_bound_ms(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bound_ms(B, S, H, KV, hd, causal, window, dtype):
+def flash_bound_ms(B, S, H, KV, hd, causal, window, dtype, hdv=None):
+    """q and k's head dim ``hd``, v's and the output's ``hdv`` (default
+    ``hd``)."""
+    hdv = hd if hdv is None else hdv
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * B * S * hd * (2 * H + 2 * KV)      # q, k, v in; o out
-    flops = 4 * B * H * hd * kept_pairs(S, causal, window)
+    nbytes = item * B * S * (hd + hdv) * (H + KV)     # q, k, v in; o out
+    flops = 2 * B * H * (hd + hdv) * kept_pairs(S, causal, window)
     return attn_bound_ms(nbytes, flops, dtype)
 
 
@@ -1392,12 +1415,13 @@ def decode_bound_ms(B, H, KV, hd, n_kept, n_slots_map, dtype):
     return attn_bound_ms(nbytes, 4 * B * H * hd * n_kept, dtype)
 
 
-def _qkv(seed, B, S, H, KV, hd, dtype, L=None):
+def _qkv(seed, B, S, H, KV, hd, dtype, L=None, hdv=None):
     import torch
     g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
     L = S if L is None else L
+    hdv = hd if hdv is None else hdv
     return [torch.randn(s, generator=g, device=LM_DEVICE).to(_tdtype(dtype))
-            for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+            for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hdv))]
 
 
 def _excess(got, want, dtype):
@@ -1441,7 +1465,7 @@ def _coarse_p_attention(q, k, v, causal, window, cap, p_type):
         p = torch.exp(s - s.amax(-1, keepdim=True))
         o = torch.einsum("kgqs,skh->kgqh", p.to(p_type).float(), v[b].float())
         o = o / p.sum(-1, keepdim=True)
-        out.append(o.permute(2, 0, 1, 3).reshape(S, H, hd))
+        out.append(o.permute(2, 0, 1, 3).reshape(S, H, v.shape[-1]))
     return torch.stack(out).to(q.dtype)
 
 
@@ -1553,7 +1577,8 @@ def _route_call(kind, a):
     """(the call whose kernels a route trace records, the test that a
     trace has seen the route's kernels): the bf16 flash_attention
     (``kind`` "flash") or decode_attention ("decode") on ``_qkv``'s seeded
-    inputs, ``a`` the shape's arguments; or ("bwd") flash_attention_bwd in
+    inputs, or mla_decode_attention ("mla") on ``_mla_inputs``', ``a``
+    the shape's arguments; or ("bwd") flash_attention_bwd in
     ``a["dtype"]`` at the training microbatch (4 query heads over 1 of
     256), ``a["window"]`` its window."""
     from repro_torch.kernels import decode_attention as DA
@@ -1561,9 +1586,13 @@ def _route_call(kind, a):
     from repro_torch.modeling.attention import ring_positions
     if kind == "flash":
         q, k, v = _qkv(a["seed"], a["B"], a["S"], a["H"], a["KV"], a["hd"],
-                       "bfloat16")
+                       "bfloat16", hdv=a.get("hdv"))
         return (lambda: FA.flash_attention(q, k, v, window=a["window"]),
                 lambda names: any("flash_fwd_wgmma" in n for n in names))
+    if kind == "mla":
+        ins = _mla_inputs(a["seed"], a["B"], a["L"], "bfloat16")
+        return (lambda: DA.mla_decode_attention(*ins, a["pos"], MLA_SCALE),
+                lambda names: any("mla_decode_kernel" in n for n in names))
     if kind == "bwd":
         B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
         q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
@@ -1615,19 +1644,20 @@ def route_trace(kind, **args):
     return json.loads(p.stdout.strip().splitlines()[-1]), "a child process"
 
 
-def flash_times(seed, B, S, H, KV, hd, window):
+def flash_times(seed, B, S, H, KV, hd, window, hdv=None):
     """Kernel, plain and SDPA times of one causal bf16 flash_attention call
-    at [B, S, H over KV, hd], and its bound.  The times are CUDA events,
+    at [B, S, H over KV, hd] (v heads of ``hdv``, default hd), and its
+    bound.  The times are CUDA events,
     the kernel's and SDPA's over the same 20 calls; beside them the
     profiler's device times, and for each reading of the kernel and SDPA
     its achieved TFLOP/s (the operations of ``flash_bound_ms`` over the
     time).  Fails on a reading above the bf16 peak, and unless a trace
     (``route_trace``) shows the tensor-core kernel."""
     from repro_torch.kernels import flash_attention as FA
-    q, k, v = _qkv(seed, B, S, H, KV, hd, "bfloat16")
+    q, k, v = _qkv(seed, B, S, H, KV, hd, "bfloat16", hdv=hdv)
     kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
     traced, traced_in = route_trace("flash", seed=seed, B=B, S=S, H=H,
-                                    KV=KV, hd=hd, window=window)
+                                    KV=KV, hd=hd, window=window, hdv=hdv)
     assert any("flash_fwd_wgmma" in n for n in traced), traced
     plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
                                                      window=window), 5)
@@ -1637,8 +1667,9 @@ def flash_times(seed, B, S, H, KV, hd, window):
         (lib().transpose(1, 2).float()
          - FA.flash_attention_plain(q, k, v, window=window).float())
         .abs().max())
-    bnd, by = flash_bound_ms(B, S, H, KV, hd, True, window, "bfloat16")
-    flops = 4 * B * H * hd * kept_pairs(S, True, window)
+    bnd, by = flash_bound_ms(B, S, H, KV, hd, True, window, "bfloat16",
+                             hdv)
+    flops = 2 * B * H * (hd + v.shape[-1]) * kept_pairs(S, True, window)
     tflops = {f"{who}_{how}": flops / t[f"{how}_ms"] * 1e-9
               for who, t in (("kernel", kern), ("library", lib_t))
               if t is not None for how in ("events", "device")
@@ -1761,26 +1792,33 @@ def check_decode_bf16_rel(label, q, kc, vc, pos, window, cap, k_pos, got,
 
 def check_attention(flash_cases, decode_cases, seed=0):
     """Each case of both attention kernels against its plain version on
-    the card, in bfloat16 and float32, within LM_TOL, bf16 flash within
-    FLASH_BF16_REL (``check_flash_bf16_rel``) and bf16 decode within
-    DECODE_BF16_REL (``check_decode_bf16_rel``): the largest abs error by
-    kernel and type, the cases checked, and the relative errors of bf16
-    flash and decode and their controls by kernel and case."""
+    the card, in bfloat16 and float32, within LM_TOL, each call repeated
+    bit for bit, bf16 flash within FLASH_BF16_REL
+    (``check_flash_bf16_rel``) and bf16 decode within DECODE_BF16_REL
+    (``check_decode_bf16_rel``): the largest abs error by kernel and type,
+    the cases checked, and the relative errors of bf16 flash and decode
+    and their controls by kernel and case.  A flash case may end with v's
+    head dim, where it differs from q and k's."""
+    import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.modeling.attention import ring_positions
     worst = {"flash_attention": {}, "decode_attention": {}}
     checked = {"flash_attention": [], "decode_attention": []}
     rel = {"flash_attention": {}, "decode_attention": {}}
-    for i, (label, b, S, H, KV, hd, causal, window, cap) in \
+    for i, (label, b, S, H, KV, hd, causal, window, cap, *hdv) in \
             enumerate(flash_cases):
         for dt in ("bfloat16", "float32"):
-            q, k, v = _qkv(seed + i, b, S, H, KV, hd, dt)
-            got = FA.flash_attention(q, k, v, causal=causal, window=window,
-                                     softcap=cap)
+            q, k, v = _qkv(seed + i, b, S, H, KV, hd, dt,
+                           hdv=hdv[0] if hdv else None)
+            got, again = (FA.flash_attention(q, k, v, causal=causal,
+                                             window=window, softcap=cap)
+                          for _ in range(2))
             want = FA.flash_attention_plain(q, k, v, causal=causal,
                                             window=window, softcap=cap)
             sync()
+            assert torch.equal(got, again), f"flash_attention {label} " \
+                f"{dt}: a repeated call gives other bits"
             excess, err = _excess(got, want, dt)
             assert excess <= 0, f"flash_attention {label} {dt}: " \
                 f"{excess} beyond tolerance"
@@ -1796,11 +1834,14 @@ def check_attention(flash_cases, decode_cases, seed=0):
             q, kc, vc = _qkv(seed + 100 + i, b, 1, H, KV, hd, dt, L=Lc)
             q = q[:, 0].contiguous()
             k_pos = ring_positions(Lc, pos, LM_DEVICE) if ring else None
-            got = DA.decode_attention(q, kc, vc, pos, window=window,
-                                      softcap=cap, k_pos=k_pos)
+            got, again = (DA.decode_attention(q, kc, vc, pos, window=window,
+                                              softcap=cap, k_pos=k_pos)
+                          for _ in range(2))
             want = DA.decode_attention_plain(q, kc, vc, pos, window=window,
                                              softcap=cap, k_pos=k_pos)
             sync()
+            assert torch.equal(got, again), f"decode_attention {label} " \
+                f"{dt}: a repeated call gives other bits"
             excess, err = _excess(got, want, dt)
             assert excess <= 0, f"decode_attention {label} {dt}: " \
                 f"{excess} beyond tolerance"
@@ -1815,15 +1856,17 @@ def check_attention(flash_cases, decode_cases, seed=0):
 
 def _flash_instance(mangled):
     """The label of a mangled kernel name of flash_attention.cu, such as
-    'bf16 wgmma hd 128' (the serving instance) or 'bf16 wgmma hd 128 lse'
-    (training's, which also writes the log-sum-exp), or None for another
-    function."""
-    m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
-    if m:
-        return f"bf16 wgmma hd {m.group(1)}" + " lse" * (m.group(2) == "1")
-    m = re.search(r"flash_fwd_kernelIfLi(\d+)ELb([01])E", mangled)
-    return (f"float32 simt hd {m.group(1)}" + " lse" * (m.group(2) == "1")
-            if m else None)
+    'bf16 wgmma hd 128' (the serving instance), 'bf16 wgmma hd 128 lse'
+    (training's, which also writes the log-sum-exp) or 'bf16 wgmma hd
+    96/64' (MLA's q/k and v head dims), or None for another function."""
+    for route, pat in (("bf16 wgmma", r"flash_fwd_wgmma_kernelI"),
+                       ("float32 simt", r"flash_fwd_kernelIf")):
+        m = re.search(pat + r"Li(\d+)ELi(\d+)ELb([01])E", mangled)
+        if m:
+            dims = m.group(1) if m.group(1) == m.group(2) else \
+                f"{m.group(1)}/{m.group(2)}"
+            return f"{route} hd {dims}" + " lse" * (m.group(3) == "1")
+    return None
 
 
 def ptxas_by_instance(log, label):
@@ -1890,7 +1933,7 @@ def flash_build_phase(build, so_path):
                             _flash_instance)
     for name, info in per.items():
         if name.startswith("bf16"):
-            cfg = FA.tile_config(int(name.split()[3]))
+            cfg = FA.tile_config(*map(int, name.split()[3].split("/")))
             info.update(BK=cfg["BK"], stages=cfg["NS"],
                         dynamic_smem_bytes=cfg["SMEM"])
     counts, total = tensor_core_sass(build, so_path, _flash_instance)
@@ -1900,11 +1943,13 @@ def flash_build_phase(build, so_path):
         if name.startswith("bf16"):
             assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
                 (name, info)
-    # the serving instances and training's (with the lse output)
+    # the serving instances and training's (with the lse output): head
+    # dims 64, 128, 256 and MLA's 96/64
     assert sum(n.startswith("bf16") and not n.endswith("lse")
-               for n in per) == 3, per
-    assert sum(n.startswith("bf16") and n.endswith("lse") for n in per) == 3, \
+               for n in per) == 4, per
+    assert sum(n.startswith("bf16") and n.endswith("lse") for n in per) == 4, \
         per
+    assert "bf16 wgmma hd 96/64" in per, per
     emit("flash_build", t0, instances=per, sass_total=total)
 
 
@@ -1915,7 +1960,11 @@ def _instance(mangled):
     hd 64 states' (the training one), 'gbm d 3 depth 3' (depth 0: the
     generic instance for 5-10), 'wkv6_bwd hd 64' (the walk; 'wkv6_bwd fold
     hd 64' and 'wkv6_bwd carry hd 64' its first two launches) or
-    'mamba_scan_bwd N 16', else None."""
+    'mamba_scan_bwd N 16', or 'mla_decode bf16' ('mla_merge bf16' its
+    merge of the parts), else None."""
+    m = re.search(r"mla_(decode|merge)_kernelI(f|13__nv_bfloat16)E", mangled)
+    if m:
+        return f"mla_{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}"
     m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
                   mangled)
     if m:
@@ -1992,10 +2041,17 @@ def kernel_build_phase(build, built):
     t0 = time.perf_counter()
     per = {}
     for name in ("decode_attention", "wkv6", "gbm_predict", "wkv6_bwd",
-                 "mamba_scan_bwd"):
+                 "mamba_scan_bwd", "mla_decode"):
         per.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
                                      _instance))
     for name, info in per.items():
+        if name.startswith("mla_decode"):
+            cfg = DA.mla_tile_config(
+                torch.bfloat16 if name.endswith("bf16") else torch.float32,
+                0)
+            info.update(slots_a_tile=cfg["TS"], warps=cfg["W"],
+                        dynamic_smem_bytes=cfg["SMEM"],
+                        blocks_per_sm=cfg["blocks_per_sm"])
         if name.startswith("decode"):
             dt = torch.bfloat16 if " bf16 " in name else torch.float32
             words = name.split()
@@ -2007,6 +2063,7 @@ def kernel_build_phase(build, built):
     assert sum(n.startswith("gbm") for n in per) == 30, sorted(per)
     assert sum(n.startswith(("wkv6_bwd", "mamba_scan_bwd"))
                for n in per) == 12, sorted(per)
+    assert sum(n.startswith("mla_") for n in per) == 4, sorted(per)
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
               > (WKV6_SPILL_BYTES if n.startswith("wkv6 ") else 0)
@@ -2572,6 +2629,14 @@ def serve_bounds_ms(cfg, B, S):
         if cfg.layer_kind(i) == "mamba":
             macs += T * (d * 2 * din + din * (dtr + 2 * n) + dtr * din
                          + din * d)
+        elif cfg.use_mla:        # each MLA weight once a token
+            nr, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+            macs += T * (d * cfg.q_lora_rank
+                         + cfg.q_lora_rank * cfg.n_heads * nr
+                         + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                         + cfg.kv_lora_rank * cfg.n_heads
+                         * (cfg.qk_nope_dim + vd) + cfg.n_heads * vd * d)
+            macs += B * cfg.n_heads * (nr + vd) * kept_pairs(S, True, 0)
         else:
             macs += T * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
             macs += 2 * B * cfg.n_heads * hd * kept_pairs(S, True, 0)
@@ -2947,6 +3012,354 @@ def jamba_parity_phase():
          tolerance={"float32": JAMBA_F32_TOL, "bfloat16": PARITY_REL_TOL},
          moe_tokens_prefill=S, **report)
     return report["float32"]["max_logits_rel_err"]
+
+
+# --------------------------------------------------------------- MLA slice
+
+MLA_ARCH = "minicpm3-4b"
+# minicpm3-4b's attention: 40 heads; prefill's per-head q and k of 96
+# (nope 64 + rope 32) and v of 64; decode's latent caches ckv 256 and
+# krope 32, the scale (nope + rope)**-0.5 in both
+MLA_H, MLA_HDQK, MLA_HDV, MLA_C, MLA_R = 40, 96, 64, 256, 32
+MLA_SCALE = MLA_HDQK ** -0.5
+# mla_parity: the same 4-layer cut at full width, float32 on both sides
+# (the card's kernels, TF32 off, against the CPU's plain versions), is
+# held to jamba_parity's float32 limit, JAMBA_F32_TOL
+MLA_PARITY_LAYERS, MLA_PARITY_PROMPT, MLA_PARITY_STEPS = 4, 512, 8
+
+
+def _mla_inputs(seed, B, L, dtype):
+    """Seeded q_lat [B, 40, 256], q_rope [B, 40, 32], ckv [B, L, 256] and
+    krope [B, L, 32] on the card, N(0, 1)."""
+    import torch
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=LM_DEVICE).to(_tdtype(dtype))
+            for s in ((B, MLA_H, MLA_C), (B, MLA_H, MLA_R), (B, L, MLA_C),
+                      (B, L, MLA_R))]
+
+
+def mla_decode_bound_ms(B, pos, dtype):
+    """The latent slots 0 .. pos of both caches read once, q_lat and q_rope
+    read and the output written once, against 2 (288 + 256) flops a kept
+    slot and head."""
+    item = 2 if dtype == "bfloat16" else 4
+    n = pos + 1
+    nbytes = item * B * (n * (MLA_C + MLA_R)
+                         + MLA_H * (MLA_C + MLA_R) + MLA_H * MLA_C)
+    flops = 2 * B * MLA_H * n * (MLA_C + MLA_R + MLA_C)
+    return attn_bound_ms(nbytes, flops, dtype)
+
+
+def _coarse_p_mla(ins, pos, p_type):
+    """A control for the bf16 MLA decode check: the unnormalised P =
+    exp(s - max) rounded to ``p_type`` before P.ckv, the sums taken
+    before the rounding."""
+    import torch
+    ql, qr, ckv, kr = (t.float() for t in ins)
+    s = (torch.einsum("bhc,blc->bhl", ql, ckv)
+         + torch.einsum("bhr,blr->bhl", qr, kr)) * MLA_SCALE
+    ok = torch.arange(ckv.shape[1], device=ckv.device) <= pos
+    s = torch.where(ok, s, torch.tensor(-2.0e38, device=s.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhl,blc->bhc", p.to(p_type).float(), ckv)
+    return (o / p.sum(-1, keepdim=True)).to(ins[0].dtype)
+
+
+def check_mla_decode(label, B, L, pos, seed):
+    """mla_decode_attention against its plain version on the card in
+    bfloat16 and float32, within LM_TOL, each call repeated bit for bit;
+    bf16 also within DECODE_BF16_REL, with two controls (P rounded to fp8,
+    the scale off by 10%) that must exceed it where more than one slot is
+    kept.  Returns {dtype: largest abs error} and the bf16 readings."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    errs, rel = {}, None
+    for dt in ("bfloat16", "float32"):
+        ins = _mla_inputs(seed, B, L, dt)
+        got = DA.mla_decode_attention(*ins, pos, MLA_SCALE)
+        again = DA.mla_decode_attention(*ins, pos, MLA_SCALE)
+        want = DA.mla_decode_attention_plain(*ins, pos, MLA_SCALE)
+        sync()
+        assert torch.equal(got, again), f"mla_decode {label} {dt}: a " \
+            f"repeated call gives other bits"
+        excess, errs[dt] = _excess(got, want, dt)
+        assert excess <= 0, f"mla_decode {label} {dt}: {excess} beyond " \
+            f"tolerance"
+        if dt == "bfloat16":
+            rel = {"kernel": _rel_err(got, want)}
+            assert rel["kernel"] <= DECODE_BF16_REL, \
+                f"mla_decode {label} bfloat16: relative error " \
+                f"{rel['kernel']} beyond {DECODE_BF16_REL}"
+            rel["control_p_fp8"] = _rel_err(
+                _coarse_p_mla(ins, pos, torch.float8_e4m3fn), want)
+            rel["control_scale_1.1"] = _rel_err(
+                DA.mla_decode_attention_plain(*ins, pos, 1.1 * MLA_SCALE),
+                want)
+            if pos > 0:
+                for name in ("control_p_fp8", "control_scale_1.1"):
+                    assert rel[name] > DECODE_BF16_REL, \
+                        f"mla_decode {label}: the bf16 check passes its " \
+                        f"{name} ({rel[name]})"
+        del ins, got, again, want
+    return errs, rel
+
+
+def mla_decode_times(seed, B, L, pos):
+    """Kernel, plain and SDPA times of one bf16 mla_decode_attention call
+    (its main launch and, with more than one part, the merge) at batch B
+    over L-slot caches at ``pos``, and its bound.  The kernel's time is
+    its profiler device time over both launches (the mean recorded
+    duration of each, times its launches a call), as decode_times takes
+    decode_attention's; SDPA computes the same function on [q_lat | q_rope]
+    against one latent head [ckv | krope] with ckv as the values, made
+    outside the call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    ins = _mla_inputs(seed, B, L, "bfloat16")
+    cfg = DA.mla_tile_config(torch.bfloat16, 0)
+    per_part, n_parts = DA.decode_plan(pos + 1, B, 1, 1,
+                                       cfg["blocks_per_sm"], cfg["sms"])
+    kern = lm_time(lambda: DA.mla_decode_attention(*ins, pos, MLA_SCALE),
+                   200, kernels_per_call=1 + (n_parts > 1))
+    traced, traced_in = route_trace("mla", seed=seed, B=B, L=L, pos=pos)
+    assert any("mla_decode_kernel" in n for n in traced), traced
+    plain = lm_time(lambda: DA.mla_decode_attention_plain(*ins, pos,
+                                                          MLA_SCALE), 50)
+    lib_t = None
+    if sdpa_has_gqa():
+        ql, qr, ckv, kr = ins
+        qt = torch.cat([ql, qr], -1)[:, :, None]             # [B, H, 1, 288]
+        kt = torch.cat([ckv, kr], -1)[:, None]               # [B, 1, L, 288]
+        vt = ckv[:, None]                                    # [B, 1, L, 256]
+        mask = (torch.arange(L, device=ckv.device) <= pos)[None, None, None]
+        lib_t = lm_time(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True),
+            200)
+    bnd, by = mla_decode_bound_ms(B, pos, "bfloat16")
+    dev = kern["device_ms"] is not None
+    return {"ms": kern["device_ms"] if dev else kern["events_ms"],
+            "ms_from": "profiler device time" if dev else "cuda events",
+            "route_traced_in": traced_in, "plain_ms": plain["ms"],
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_t and lib_t["ms"], "pos": pos,
+            "parts": n_parts, "slots_a_part": per_part,
+            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+
+
+def mla_kernel_phase():
+    """Both kernels of minicpm3-4b's path against their plain versions on
+    the card, in bfloat16 and float32, every call repeated bit for bit:
+    flash attention at q/k head 96 and v head 64 (40 heads; the serving
+    prompt B 8 x S 2048, S = 1, S = 129 and a ragged S) and the MLA decode
+    (B 8 over the 2,120-slot caches at pos 0, at 2080 and at 1100, where
+    every part's run ends inside a 64-slot tile; B 1, where 131 parts of
+    16 slots merge).  Then times, bounds and SDPA's times at the serving
+    shapes."""
+    t0 = time.perf_counter()
+    B, S, L = SERVE_B, SERVE_PROMPT, SERVE_L
+    flash_cases = [   # label, B, S; 40 heads of q/k 96 and v 64, causal
+        ("serve", B, S), ("S=1", B, 1), ("S=129", 2, 129),
+        ("ragged S=1000", 2, 1000)]
+    decode_cases = [("serve pos 2080", B, L, 2080), ("pos 0", B, L, 0),
+                    ("pos 1100, runs end inside a tile", B, L, 1100),
+                    ("B=1 pos 2080", 1, L, 2080)]
+    f_worst, _, f_rel = check_attention(
+        [(label, b, s, MLA_H, MLA_H, MLA_HDQK, True, 0, 0.0, MLA_HDV)
+         for label, b, s in flash_cases], [], seed=300)
+    _free_card()
+    worst = {"flash_attention_mla": f_worst["flash_attention"],
+             "mla_decode": {}}
+    rel = {"flash_attention_mla": f_rel["flash_attention"], "mla_decode": {}}
+    for i, (label, b, Lc, pos) in enumerate(decode_cases):
+        errs, rel["mla_decode"][label] = check_mla_decode(label, b, Lc, pos,
+                                                          310 + i)
+        for dt, e in errs.items():
+            worst["mla_decode"][dt] = max(worst["mla_decode"].get(dt, 0.0),
+                                          e)
+        _free_card()
+    times = {"flash_attention_mla": flash_times(
+                 307, B, S, MLA_H, MLA_H, MLA_HDQK, 0, hdv=MLA_HDV),
+             "mla_decode": mla_decode_times(
+                 308, B, L, SERVE_PROMPT + SERVE_NEW // 2)}
+    _free_card()
+    emit("mla_kernel", t0,
+         cases={k: [c[0] for c in v] for k, v in (
+             ("flash_attention_mla", flash_cases),
+             ("mla_decode", decode_cases))},
+         max_abs_err=worst, tolerances=LM_TOL, bf16_rel_err=rel,
+         flash_bf16_rel_limit=FLASH_BF16_REL,
+         decode_bf16_rel_limit=DECODE_BF16_REL, times=times)
+    return worst, times, rel
+
+
+def mla_serve_phase():
+    """minicpm3-4b at full width and depth (62 layers, d 2560) through
+    ``repro_torch.launch.serve.run``: batch 8, prompt 2048, 64 new tokens,
+    weights drawn on the card, after a warm-up serve of 4 tokens.  The
+    counts are set to 0 just before the measured run and read just after
+    it: the prefill launches the flash kernel's (96, 64) instance once a
+    layer, each of the 63 decode steps the MLA decode kernel once a layer
+    and the dense decode kernel never."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    cfg = serve.card_config(MLA_ARCH)
+    _free_card()
+    serve.run(MLA_ARCH, SERVE_B, SERVE_PROMPT, 4, smoke=False, seed=0,
+              device=LM_DEVICE)                                # warm-up
+    sync()
+    _free_card()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        FA.LAUNCHES = DA.LAUNCHES = DA.MLA_LAUNCHES = 0
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            toks = serve.run(MLA_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW,
+                             smoke=False, runtime_log=log, seed=0,
+                             device=LM_DEVICE)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = {"flash_attention": FA.LAUNCHES,
+                    "mla_decode": DA.MLA_LAUNCHES,
+                    "decode_attention": DA.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+    line = out.getvalue().strip()
+    print(line, file=sys.stderr, flush=True)
+    init_s = float(line.split("init ")[1].split("s;")[0])
+    _free_card()
+    steps = SERVE_NEW - 1
+    assert cfg.n_layers == 62 and cfg.d_model == 2560, cfg
+    assert rec["arch"] == MLA_ARCH and rec["batch"] == SERVE_B
+    assert rec["prompt_len"] == SERVE_PROMPT and "n_layers" not in rec, rec
+    assert rec["prefill_s"] > 0 and rec["decode_median_s"] > 0
+    assert tuple(toks.shape) == (SERVE_B, SERVE_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert launches == {"flash_attention": cfg.n_layers,
+                        "mla_decode": steps * cfg.n_layers,
+                        "decode_attention": 0}, launches
+    slots = SERVE_PROMPT + SERVE_NEW // 2
+    latent_bytes = 2 * cfg.n_layers * SERVE_B * slots * (MLA_C + MLA_R)
+    emit("mla_serve", t0, arch=MLA_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=cfg.param_counts()["total"],
+         batch=SERVE_B, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+         init_s=init_s, prefill_ms=rec["prefill_s"] * 1e3,
+         prefill_tokens_per_s=SERVE_B * SERVE_PROMPT / rec["prefill_s"],
+         decode_median_ms_per_token=rec["decode_median_s"] * 1e3,
+         decode_tokens_per_s=SERVE_B / rec["decode_median_s"],
+         run_wall_s=wall, peak_device_bytes=peak, launches=launches,
+         bounds=dict(serve_bounds_ms(cfg, SERVE_B, SERVE_PROMPT),
+                     decode_latent_cache_read_ms_mid=latent_bytes
+                     / HBM_BYTES_PER_S * 1e3),
+         runtime_log_line=rec)
+    return launches
+
+
+def mla_profile_phase():
+    """profile_serving for minicpm3-4b at full width and depth: the flash
+    kernel's (96, 64) instance in prefill, the MLA decode kernel and its
+    merge in decode."""
+    t0 = time.perf_counter()
+    _free_card()
+    emit("mla_profile", t0, **profile_serving(MLA_ARCH,
+                                              ("flash_fwd", "mla_")))
+    _free_card()
+
+
+def mla_parity_phase():
+    """minicpm3-4b at full width cut to 4 layers (0.44 B parameters),
+    batch 1, prompt 512, 8 decode steps.  One set of float32 weights drawn
+    on the card; the CPU (float32, plain versions) runs first, greedily,
+    and the card's decode steps take the CPU's tokens.  The card in
+    float32 (kernels, TF32 off) is held to JAMBA_F32_TOL relative on the
+    last-position logits, the card in bf16 (the same weights rounded) to
+    PARITY_REL_TOL; both to the CPU's greedy token at every step whose
+    top-2 margin exceeds twice the card's error there (where the error
+    cannot flip it), and each disagreement is recorded with its step."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import card_config
+    from repro_torch.modeling.model import Model, init_params
+    t0 = time.perf_counter()
+    _free_card()
+    cfg = card_config(MLA_ARCH, n_layers=MLA_PARITY_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg32, 1, LM_DEVICE, gen_device=LM_DEVICE)
+    S, steps = MLA_PARITY_PROMPT, MLA_PARITY_STEPS
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)))
+
+    def drive(model, toks=None):
+        """Prefill, then ``steps`` decode steps on ``toks`` (or greedy):
+        the last position's logits a step (float64, CPU), and the tokens
+        fed."""
+        dev = model.device
+        logits, fed = [], []
+        with torch.inference_mode():
+            cache = model.init_cache(1, S + steps)
+            out, _ = model(prompt.to(dev), mode="prefill", cache=cache)
+            for step in range(steps + 1):
+                logits.append(out[0, -1].double().cpu())
+                if step == steps:
+                    break
+                tok = (logits[-1].argmax() if toks is None
+                       else toks[step]).reshape(1, 1)
+                fed.append(tok)
+                out, _ = model(tok.to(dev), mode="decode", pos0=S + step,
+                               cache=cache)
+        return logits, fed
+
+    want, toks = drive(Model(cfg32, _cpu_f32(params)))
+    gc.collect()
+    report = {}
+    makers = {"float32": lambda: Model(cfg32, params),
+              "bfloat16": lambda: Model(cfg, _map_tree(
+                  lambda t: t.to(_tdtype("bfloat16")), params))}
+    limits = {"float32": JAMBA_F32_TOL, "bfloat16": PARITY_REL_TOL}
+    for name, make in makers.items():
+        model = make()
+        got, _ = drive(model, toks)
+        del model
+        _free_card()
+        rel, agree, decided, margins, differ = [], 0, 0, [], []
+        for step, (g, w) in enumerate(zip(got, want)):
+            err = (g - w).abs().max().item()
+            rel.append(((g - w).norm() / w.norm()).item())
+            top2 = torch.topk(w, 2).values
+            margins.append((top2[0] - top2[1]).item())
+            same = int(g.argmax()) == int(w.argmax())
+            agree += same
+            if not same:
+                differ.append({"step": step, "card": int(g.argmax()),
+                               "cpu": int(w.argmax()), "margin": margins[-1],
+                               "max_abs_err": err})
+            if margins[-1] > 2 * err:
+                decided += 1
+                assert same, f"{name} step {step}: greedy token differs"
+        assert max(rel) <= limits[name], (name, rel)
+        report[name] = {"logits_rel_err": rel,
+                        "max_logits_rel_err": max(rel),
+                        "greedy_tokens_agree": f"{agree}/{steps + 1}",
+                        "steps_where_margin_exceeds_twice_error": decided,
+                        "greedy_tokens_differing": differ,
+                        "top2_margins": margins}
+    del params
+    _free_card()
+    emit("mla_parity", t0, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=cfg.param_counts()["total"], prompt_len=S,
+         decode_steps=steps,
+         cuts=f"depth 62 -> {cfg.n_layers} layers; batch 1, prompt {S}",
+         tolerance=limits, **report)
+    return report
 
 
 # ------------------------------------------------------------------ main
@@ -4358,6 +4771,14 @@ def main():
     jamba_launches = jamba_serve_phase()
     jamba_parity_phase()
 
+    # ---- main path of slice 14: minicpm3-4b serving (mla_serve sets its
+    # counts to 0 itself and reads them after)
+    _free_card()
+    mla_err, mla_times, mla_rel = mla_kernel_phase()
+    mla_profile_phase()
+    mla_launches = mla_serve_phase()
+    mla_parity_phase()
+
     # ---- main path of slice 10: training (train_phase sets the flash
     # counts to 0 itself and reads them after)
     _free_card()
@@ -4383,6 +4804,7 @@ def main():
     dg, dl = lm_times["decode_global"], lm_times["decode_local"]
     fj, dj = (jamba_attn["times"][k]
               for k in ("flash_attention", "decode_attention"))
+    fm, dm = (mla_times[k] for k in ("flash_attention_mla", "mla_decode"))
     errs = {k: {dt: max(lm_worst[k][dt], jamba_attn["max_abs_err"][k][dt])
                 for dt in lm_worst[k]} for k in lm_worst}
     rels = {k: list(lm_rel[k].values())
@@ -4463,6 +4885,40 @@ def main():
         "plain_ms_jamba": dj["plain_ms"],
         "bound_ms_jamba": dj["bound_ms"], "bound_by_jamba": dj["bound_by"],
         "library_ms_jamba": dj["library_ms"]}, {
+        "name": "flash_attention_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:72",
+        "instance": "q/k head 96, v head 64 (tc::Cfg<96, 64>)",
+        "launches": mla_launches["flash_attention"],
+        "max_abs_err": max(mla_err["flash_attention_mla"].values()),
+        "max_abs_err_by_dtype": mla_err["flash_attention_mla"],
+        "rel_err_bf16": max(r["kernel"] for r in
+                            mla_rel["flash_attention_mla"].values()),
+        "rel_err_bf16_limit": FLASH_BF16_REL,
+        "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+        "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+        "library_ms": fm["library_ms"], "ms_from": "cuda events",
+        "tflops": fm["tflops"],
+        "shape": f"minicpm3-4b prefill B={SERVE_B} S={SERVE_PROMPT} "
+                 f"H=KV={MLA_H} q/k hd={MLA_HDQK} v hd={MLA_HDV} causal "
+                 "bf16"}, {
+        "name": "mla_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": "src/repro/modeling/attention.py:457 (MLA's absorbed "
+                    "decode, in jnp: no Pallas kernel computes it)",
+        "launches": mla_launches["mla_decode"],
+        "max_abs_err": max(mla_err["mla_decode"].values()),
+        "max_abs_err_by_dtype": mla_err["mla_decode"],
+        "rel_err_bf16": max(r["kernel"] for r in
+                            mla_rel["mla_decode"].values()),
+        "rel_err_bf16_limit": DECODE_BF16_REL,
+        "ms": dm["ms"], "plain_ms": dm["plain_ms"],
+        "bound_ms": dm["bound_ms"], "bound_by": dm["bound_by"],
+        "library_ms": dm["library_ms"], "ms_from": dm["ms_from"],
+        "parts": dm["parts"],
+        "shape": f"minicpm3-4b decode B={SERVE_B} L={SERVE_L} H={MLA_H} "
+                 f"C={MLA_C} R={MLA_R} pos={dm['pos']} bf16, the main "
+                 "launch and the merge of its parts"}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:66",

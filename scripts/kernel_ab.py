@@ -142,9 +142,10 @@ FLASH_SHAPES = {   # B, S, H, KV, hd, window
 
 
 # the serving instances whose SASS two trees compare: a kernel without a
-# training template argument, or its instance with that argument false
+# training template argument, or its instance with that argument false (the
+# flash forward's head dim, or since MLA's (96, 64) its q/k and v head dims)
 SERVING_INSTANCES = {
-    "flash_attention": r"flash_fwd_wgmma_kernelILi(\d+)E(Lb0E)?EEv",
+    "flash_attention": r"flash_fwd_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?(Lb0E)?EEv",
     "wkv6": r"wkv6_kernelILi(\d+)E(Lb0E)?EEv",
     "mamba_scan": r"mamba_scan_kernelILi(\d+)E(f|13__nv_bfloat16)(Lb0E)?EEv"}
 
@@ -166,8 +167,14 @@ def serving_sass(so_path, kernel="flash_attention"):
         if m:
             ops = [op.strip() for op in
                    re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
-            key = f"hd {m.group(1)}" if kernel != "mamba_scan" else \
-                f"N {m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} u"
+            if kernel == "mamba_scan":
+                key = f"N {m.group(1)} " \
+                    f"{'f32' if m.group(2) == 'f' else 'bf16'} u"
+            elif kernel == "flash_attention" and m.group(2) \
+                    and m.group(2) != m.group(1):
+                key = f"hd {m.group(1)}/{m.group(2)}"
+            else:
+                key = f"hd {m.group(1)}"
             out[key] = {
                 "instructions": len(ops),
                 "sha256": hashlib.sha256("\n".join(ops).encode())

@@ -50,7 +50,9 @@
 // inside, does not make; it stays inside the bf16 tolerance of the tests.
 // Tiles (BK keys a stage, NS stages; dynamic shared memory with 1 KB of
 // alignment slack): hd 64 BK 128 NS 3, 113 KB; hd 128 BK 128 NS 2, 161 KB;
-// hd 256 BK 64 NS 2, 193 KB.  ptxas: 168 registers at launch (40 for the
+// hd 256 BK 64 NS 2, 193 KB; MLA's q.k head 96 and v head 64 (minicpm3's
+// prefill: the per-head keys [k_nope | shared k_rope] and values) BK 128
+// NS 3, 177 KB.  ptxas: 168 registers at launch (40 for the
 // producer, 232 for the consumers after setmaxnreg), no spills.
 //
 // float32, the parity route (namespace simt): the first design, kept as it
@@ -91,10 +93,10 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(HD) * kBQ + 2 * HD * kBK +
-                          kBK * kBQ);
+  return sizeof(float) * (static_cast<size_t>(HDQK) * kBQ + HDQK * kBK +
+                          HDV * kBK + kBK * kBQ);
 }
 
 // Rows row0 .. row0+63 of src (row r at src + r * stride) into dst
@@ -143,18 +145,19 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int HD, bool LSE>
+// HDQK: q and k's head dim; HDV: v's and the output's.
+template <typename T, int HDQK, int HDV, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
                  int KV, float scale, int causal, int window, float softcap,
                  float* __restrict__ lse) {
-  constexpr int NC4 = HD / 64;  // float4 column groups of the output per thread
+  constexpr int NC4 = HDV / 64;  // float4 column groups of the output per thread
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][64], q * scale
-  float* Kt = Qt + HD * kBQ;                     // [HD][64]
-  float* Vs = Kt + HD * kBK;                     // [64][HD]
-  float* Pt = Vs + kBK * HD;                     // [64 keys][64 rows]
+  float* Qt = reinterpret_cast<float*>(smem4);  // [HDQK][64], q * scale
+  float* Kt = Qt + HDQK * kBQ;                   // [HDQK][64]
+  float* Vs = Kt + HDQK * kBK;                   // [64][HDV]
+  float* Pt = Vs + kBK * HDV;                    // [64 keys][64 rows]
 
   const int tid = threadIdx.x;
   const int tr = tid >> 4;   // rows tr*4 .. tr*4+3 of the q tile
@@ -162,13 +165,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KV);
-  const T* qb = q + (static_cast<size_t>(b) * S * H + h) * HD;
-  const T* kb = k + (static_cast<size_t>(b) * S * KV + kh) * HD;
-  const T* vb = v + (static_cast<size_t>(b) * S * KV + kh) * HD;
-  const size_t q_stride = static_cast<size_t>(H) * HD;
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const T* qb = q + (static_cast<size_t>(b) * S * H + h) * HDQK;
+  const T* kb = k + (static_cast<size_t>(b) * S * KV + kh) * HDQK;
+  const T* vb = v + (static_cast<size_t>(b) * S * KV + kh) * HDV;
+  const size_t q_stride = static_cast<size_t>(H) * HDQK;
+  const size_t k_stride = static_cast<size_t>(KV) * HDQK;
+  const size_t v_stride = static_cast<size_t>(KV) * HDV;
+  const size_t o_stride = static_cast<size_t>(H) * HDV;
 
-  stage_transposed<T, HD>(Qt, qb, q0, S, q_stride, scale);
+  stage_transposed<T, HDQK>(Qt, qb, q0, S, q_stride, scale);
 
   float m[4], l[4], acc[4][NC4 * 4];
 #pragma unroll
@@ -187,8 +192,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile is consumed; Qt is visible
-    stage_transposed<T, HD>(Kt, kb, k0, S, kv_stride, 1.f);
-    stage_rows<T, HD>(Vs, vb, k0, S, kv_stride);
+    stage_transposed<T, HDQK>(Kt, kb, k0, S, k_stride, 1.f);
+    stage_rows<T, HDV>(Vs, vb, k0, S, v_stride);
     __syncthreads();
 
     float s[4][4];
@@ -197,7 +202,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < HDQK; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(Qt + d * kBQ + tr * 4);
       const float4 c = *reinterpret_cast<const float4*>(Kt + d * kBK + tc * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
@@ -249,7 +254,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
       for (int g = 0; g < NC4; ++g) {
-        const float4 w = *reinterpret_cast<const float4*>(Vs + j * HD + g * 64 + tc * 4);
+        const float4 w = *reinterpret_cast<const float4*>(Vs + j * HDV + g * 64 + tc * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][g * 4 + 0] = fmaf(pv[i], w.x, acc[i][g * 4 + 0]);
@@ -266,8 +271,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + tr * 4 + i;
     if (qi >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (static_cast<size_t>(b) * S + qi) * q_stride +
-              static_cast<size_t>(h) * HD;
+    T* orow = o + (static_cast<size_t>(b) * S + qi) * o_stride +
+              static_cast<size_t>(h) * HDV;
 #pragma unroll
     for (int g = 0; g < NC4; ++g)
       store4(orow + g * 64 + tc * 4,
@@ -294,16 +299,24 @@ constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int HD>
+// HDQK: q and k's head dim, HDV: v's; equal but for MLA's (96, 64), whose
+// q and k rows are 1.5 chunks of 64 columns: they take two chunks, the
+// second's columns 96-127 outside the tensor map (TMA writes zeros there
+// and reads no bytes for them), and the product runs only the 6 k16 steps
+// that hold data.
+template <int HDQK, int HDV>
 struct Cfg {
-  static constexpr int BK = HD == 256 ? 64 : 128;  // keys per stage
-  static constexpr int NS = HD == 64 ? 3 : 2;      // stages of the K/V ring
-  static constexpr int CHUNKS = HD / 64;           // 128-byte column chunks
-  static constexpr int Q_BYTES = kBQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;     // one K or one V stage
+  static constexpr int BK = HDQK == 256 ? 64 : 128;       // keys per stage
+  static constexpr int NS = HDQK + HDV <= 160 ? 3 : 2;    // stages of the ring
+  static constexpr int QK_CHUNKS = (HDQK + 63) / 64;      // 128-byte column chunks
+  static constexpr int V_CHUNKS = HDV / 64;
+  static constexpr int Q_BYTES = kBQ * QK_CHUNKS * 128;
+  static constexpr int K_BYTES = BK * QK_CHUNKS * 128;    // one K stage
+  static constexpr int V_BYTES = BK * HDV * 2;            // one V stage
+  static constexpr int KV_BYTES = K_BYTES;                // the larger of the two
   static constexpr int BAR_BYTES = 8 * (1 + 2 * NS);
   // 1024 bytes of slack: the swizzled tiles start on 1024-byte boundaries
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * NS * KV_BYTES + BAR_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + NS * (K_BYTES + V_BYTES) + BAR_BYTES;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -538,7 +551,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // thread t (warp w = t / 32, lane l) holds rows ra = 16 w + l / 4 and
 // ra + 8 of its 64; accumulator register 4 j + e of an m64nN product holds
 // column 8 j + 2 (l % 4) + (e & 1) of row ra (e < 2) or ra + 8 (e >= 2).
-template <int HD, bool LSE>
+template <int HDQK, int HDV, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -546,13 +559,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        __nv_bfloat16* __restrict__ o, int B, int S, int H,
                        int KV, float scale, int causal, int window,
                        float softcap, float* __restrict__ lse) {
-  using C = Cfg<HD>;
+  using C = Cfg<HDQK, HDV>;
   constexpr int BK = C::BK, NS = C::NS;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + C::Q_BYTES;             // NS stages
-  const uint32_t sV = sK + NS * C::KV_BYTES;       // NS stages
-  const uint32_t q_full = sV + NS * C::KV_BYTES;   // then full[NS], empty[NS]
+  const uint32_t sV = sK + NS * C::K_BYTES;        // NS stages
+  const uint32_t q_full = sV + NS * C::V_BYTES;    // then full[NS], empty[NS]
   const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * NS;
 
   // q tiles slowest and in reverse, so the longest causal rows start first
@@ -584,20 +597,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < C::CHUNKS; ++c)
+      for (int c = 0; c < C::QK_CHUNKS; ++c)
         tma_load(sQ + c * kBQ * 128, &tq, q_full, c * 64, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % NS;
         mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
         const uint32_t bar = full0 + 8 * s;
-        mbar_expect_tx(bar, 2 * C::KV_BYTES);
+        mbar_expect_tx(bar, C::K_BYTES + C::V_BYTES);
         const int k0 = (t_lo + i) * BK;
 #pragma unroll
-        for (int c = 0; c < C::CHUNKS; ++c) {
-          tma_load(sK + s * C::KV_BYTES + c * BK * 128, &tk, bar, c * 64, kh,
+        for (int c = 0; c < C::QK_CHUNKS; ++c) {
+          tma_load(sK + s * C::K_BYTES + c * BK * 128, &tk, bar, c * 64, kh,
                    k0, b);
-          tma_load(sV + s * C::KV_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
-                   k0, b);
+          if (c < C::V_CHUNKS)
+            tma_load(sV + s * C::V_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
+                     k0, b);
         }
       }
     }
@@ -613,9 +627,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // Q rows of this warpgroup: chunk c at sQ + c * 128 rows * 128 B
     const uint32_t sQw = sQ + (wg - 1) * 64 * 128;
 
-    float acc[HD / 2];
+    float acc[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
     float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
     mbar_wait(q_full, 0);
@@ -630,10 +644,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         float sc[BK / 2];
 #pragma unroll
         for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
-        const uint32_t kst = sK + s * C::KV_BYTES;
+        const uint32_t kst = sK + s * C::K_BYTES;
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
+        for (int ks = 0; ks < HDQK / 16; ++ks) {
           const uint32_t off = (ks % 4) * 32;  // 16 columns of a chunk
           wgmma_ss(sc,
                    sw128_desc(sQw + (ks / 4) * kBQ * 128 + off, 16, 1024),
@@ -683,9 +697,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l_a = l_a * corr_a + sum_a;
         l_b = l_b * corr_b + sum_b;
 #pragma unroll
-        for (int j = 0; j < HD / 2; ++j) acc[j] *= (j & 2) ? corr_b : corr_a;
+        for (int j = 0; j < HDV / 2; ++j) acc[j] *= (j & 2) ? corr_b : corr_a;
 
-        const uint32_t vst = sV + s * C::KV_BYTES;
+        const uint32_t vst = sV + s * C::V_BYTES;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
@@ -705,12 +719,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // epilogue: the quad's partial sums, then out = acc / max(l, 1e-30)
     const float den_a = fmaxf(quad_sum(l_a), 1e-30f);
     const float den_b = fmaxf(quad_sum(l_b), 1e-30f);
-    const size_t q_stride = static_cast<size_t>(H) * HD;
+    const size_t o_stride = static_cast<size_t>(H) * HDV;
     __nv_bfloat16* oa =
-        o + (static_cast<size_t>(b) * S + qa) * q_stride + h * HD + col0;
-    __nv_bfloat16* ob = oa + 8 * q_stride;
+        o + (static_cast<size_t>(b) * S + qa) * o_stride + h * HDV + col0;
+    __nv_bfloat16* ob = oa + 8 * o_stride;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HDV / 8; ++j) {
       if (qa < S)
         *reinterpret_cast<uint32_t*>(oa + 8 * j) =
             pack_bf16(acc[4 * j] / den_a, acc[4 * j + 1] / den_a);
@@ -782,21 +796,21 @@ CUresult make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int S, int H, int KV, float scale,
               int causal, int window, float softcap, cudaStream_t stream) {
-  using C = tc::Cfg<HD>;
+  using C = tc::Cfg<HDQK, HDV>;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, B, S, H, HD, tc::kBQ);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, B, S, KV, HD, C::BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, B, S, KV, HD, C::BK);
+  CUresult r = make_map(enc, &tq, q, B, S, H, HDQK, tc::kBQ);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, B, S, KV, HDQK, C::BK);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, B, S, KV, HDV, C::BK);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   // the serving instance (no lse) is the kernel as it was before training
-  auto kernel = lse != nullptr ? tc::flash_fwd_wgmma_kernel<HD, true>
-                               : tc::flash_fwd_wgmma_kernel<HD, false>;
+  auto kernel = lse != nullptr ? tc::flash_fwd_wgmma_kernel<HDQK, HDV, true>
+                               : tc::flash_fwd_wgmma_kernel<HDQK, HDV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -807,13 +821,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int H, int KV, float scale,
                 int causal, int window, float softcap, cudaStream_t stream) {
-  const size_t smem = simt::smem_bytes<HD>();
-  auto kernel = lse != nullptr ? simt::flash_fwd_kernel<float, HD, true>
-                               : simt::flash_fwd_kernel<float, HD, false>;
+  const size_t smem = simt::smem_bytes<HDQK, HDV>();
+  auto kernel = lse != nullptr ? simt::flash_fwd_kernel<float, HDQK, HDV, true>
+                               : simt::flash_fwd_kernel<float, HDQK, HDV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -826,45 +840,51 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, int B, int S, int H, int KV, float scale, int causal,
            int window, float softcap, cudaStream_t s) {
   if (dtype == 0)
-    return launch_simt<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal,
-                           window, softcap, s);
+    return launch_simt<HDQK, HDV>(q, k, v, o, lse, B, S, H, KV, scale, causal,
+                                  window, softcap, s);
   if (dtype == 1)
-    return launch_tc<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal, window,
-                         softcap, s);
+    return launch_tc<HDQK, HDV>(q, k, v, o, lse, B, S, H, KV, scale, causal,
+                                window, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  q, o: [B, S, H, hd]; k, v:
-// [B, S, KV, hd]; all contiguous device pointers of one type (dtype 0:
+// Plain C entry point, loaded with ctypes.  q: [B, S, H, hd]; k: [B, S, KV,
+// hd]; v: [B, S, KV, hdv]; o: [B, S, H, hdv]; (hd, hdv) one of (64, 64),
+// (128, 128), (256, 256) and MLA's (96, 64); all contiguous device
+// pointers of one type (dtype 0:
 // float32, the SIMT route; 1: bfloat16, the wgmma/TMA route), 16-byte
 // aligned.  lse: null (serving), or float32 [B, H, S] that receives each
 // row's natural log-sum-exp of its masked, softcapped scores, for the
 // backward; the output is the same either way.  Launches on ``stream`` of ``device``, does not synchronise and
 // allocates nothing.  Returns the CUDA error of the attribute call or of the
 // launch (0 on success); cudaErrorNotSupported when the driver has no
-// cuTensorMapEncodeTiled, cudaErrorInvalidValue when it refuses a map.  The caller checks shapes, H % KV == 0, hd in
-// {64, 128, 256} and the grid's size.
+// cuTensorMapEncodeTiled, cudaErrorInvalidValue when it refuses a map or
+// there is no instance for (hd, hdv).  The caller checks shapes, H % KV ==
+// 0, (hd, hdv) and the grid's size.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int S, int H, int KV, int hd,
-                                      int dtype, float scale, int causal,
-                                      int window, float softcap, int device,
-                                      void* stream) {
+                                      int hdv, int dtype, float scale,
+                                      int causal, int window, float softcap,
+                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  if (hd == 96 && hdv == 64)
+    return launch<96, 64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+  if (hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
-    case 256: return launch<256>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    case 64: return launch<64, 64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    case 128: return launch<128, 128>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    case 256: return launch<256, 256>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,15 @@ scored on tensor cores in bf16, the parts of the cache merged inside the
 launch) and raises on what it does not take; a CPU tensor uses
 ``decode_attention_plain``.  There is no fallback from one to the other.
 ``LAUNCHES`` counts kernel launches.
+
+``mla_decode_attention(q_lat, q_rope, ckv, krope, pos, scale)`` is the
+decode step of multi-head latent attention in absorbed form (MLA,
+minicpm3-4b; ``repro/modeling/attention.py:_mla_apply``, lines 457-475),
+which no Pallas kernel computes: scores ``(q_lat . ckv + q_rope . krope)
+* scale`` in float32 over the two latent caches, slots ``<= pos``, softmax,
+times ckv itself.  A CUDA tensor launches ``csrc/mla_decode.cu`` (the
+parts of the cache merged by a second small launch), a CPU tensor takes
+``mla_decode_attention_plain``.  ``MLA_LAUNCHES`` counts its calls.
 """
 from __future__ import annotations
 
@@ -36,6 +45,10 @@ MAX_PARTS = 1024                 # parts of one (batch, kv head)
 
 LAUNCHES = 0
 _COUNTERS = {}                   # device -> int32 ticket counters, kept zero
+# MLA decode: (heads, latent width, rope width) of its one instance,
+# minicpm3-4b's
+MLA_SHAPE = (40, 256, 32)
+MLA_LAUNCHES = 0
 
 
 def _mask(k_pos, L, pos, window, device):
@@ -212,4 +225,119 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=0, softcap=0.0,
         raise RuntimeError(f"decode_attention kernel failed to launch: CUDA "
                            f"error {rc}")
     LAUNCHES += 1
+    return out
+
+
+# ------------------------------------------------------- MLA (absorbed) decode
+
+def mla_decode_attention_plain(q_lat, q_rope, ckv, krope, pos, scale):
+    """MLA decode in plain PyTorch, float32 inside, out in q_lat's type:
+    q_lat [B, H, C], q_rope [B, H, R], caches ckv [B, L, C] and krope [B,
+    L, R] -> [B, H, C]."""
+    s = (torch.einsum("bhc,blc->bhl", q_lat.float(), ckv.float())
+         + torch.einsum("bhr,blr->bhl", q_rope.float(), krope.float())) \
+        * scale
+    ok = torch.arange(ckv.shape[1], device=ckv.device) <= pos
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blc->bhc", p, ckv.float()).to(q_lat.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def mla_tile_config(dtype, device_index) -> dict:
+    """The MLA kernel's tiling at ``dtype`` on CUDA device
+    ``device_index``, as its library reports it (``mla_decode_config``):
+    TS slots a tile, W warps a block, SMEM bytes of dynamic shared memory
+    a block, ``blocks_per_sm`` resident blocks an SM, and ``sms``."""
+    cfg = (ctypes.c_int * 4)()
+    rc = _mla_lib().mla_decode_config(DTYPES[dtype], device_index, cfg)
+    if rc != 0 or cfg[3] < 1:
+        raise RuntimeError(f"mla_decode has no resident block in {dtype}: "
+                           f"CUDA error {rc}")
+    props = torch.cuda.get_device_properties(device_index)
+    return {"TS": cfg[0], "W": cfg[1], "SMEM": cfg[2],
+            "blocks_per_sm": cfg[3], "sms": props.multi_processor_count}
+
+
+def _mla_lib():
+    from repro_torch.kernels.build import load
+    lib = load("mla_decode")
+    if lib.mla_decode_launch.argtypes is None:
+        fn = lib.mla_decode_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        cfg = lib.mla_decode_config
+        cfg.restype = ctypes.c_int
+        cfg.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def _mla_check(q_lat, q_rope, ckv, krope, pos):
+    ts = (("q_lat", q_lat), ("q_rope", q_rope), ("ckv", ckv),
+          ("krope", krope))
+    for name, t in ts:
+        if t.device != q_lat.device:
+            raise ValueError(f"{name} is on {t.device}, q_lat on "
+                             f"{q_lat.device}")
+        if t.dtype != q_lat.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q_lat is {q_lat.dtype}")
+        if t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"3-D tensor, got {tuple(t.shape)}")
+    if q_lat.dtype not in DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got "
+                        f"{q_lat.dtype}")
+    B, H, C = q_lat.shape
+    L, R = ckv.shape[1], krope.shape[2]
+    if tuple(q_rope.shape) != (B, H, R) or tuple(ckv.shape) != (B, L, C) \
+            or tuple(krope.shape) != (B, L, R):
+        raise ValueError(f"shapes disagree: q_lat {tuple(q_lat.shape)}, "
+                         f"q_rope {tuple(q_rope.shape)}, ckv "
+                         f"{tuple(ckv.shape)}, krope {tuple(krope.shape)}")
+    if (H, C, R) != MLA_SHAPE:
+        raise ValueError(f"(heads, latent, rope) ({H}, {C}, {R}): the "
+                         f"kernel takes {MLA_SHAPE}")
+    if B > 65535 or B * L * C >= 2 ** 62:
+        raise ValueError(f"cache shape {tuple(ckv.shape)} not taken")
+    if isinstance(pos, torch.Tensor) or not 0 <= int(pos) < L:
+        raise ValueError(f"pos must be a host int in [0, {L}), got {pos!r}")
+    return B, L
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, krope, pos: int,
+                         scale: float) -> torch.Tensor:
+    """MLA decode attention [B, H, C] in q_lat's type.  On CUDA tensors
+    this launches the kernel (and its merge) on the current stream; on CPU
+    tensors it is ``mla_decode_attention_plain``."""
+    global MLA_LAUNCHES
+    if q_lat.device.type == "cpu":
+        return mla_decode_attention_plain(q_lat, q_rope, ckv, krope, pos,
+                                          scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"no mla_decode_attention for device "
+                         f"{q_lat.device}")
+    B, L = _mla_check(q_lat, q_rope, ckv, krope, pos)
+    H, C, R = MLA_SHAPE
+    out = torch.empty_like(q_lat)
+    if B == 0:
+        return out
+    hi = int(pos) + 1
+    dev = q_lat.device.index or 0
+    cfg = mla_tile_config(q_lat.dtype, dev)
+    # a part is decode_plan's run of a one-warp block over one kv head
+    per_part, n_parts = decode_plan(hi, B, 1, 1, cfg["blocks_per_sm"],
+                                    cfg["sms"])
+    part = torch.empty((B * n_parts * H * (C + 2),) if n_parts > 1 else (1,),
+                       dtype=torch.float32, device=q_lat.device)
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    rc = _mla_lib().mla_decode_launch(
+        q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+        krope.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, L, C, R,
+        DTYPES[q_lat.dtype], float(scale), hi, per_part, n_parts, dev,
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"mla_decode kernel failed to launch: CUDA "
+                           f"error {rc}")
+    MLA_LAUNCHES += 1
     return out

@@ -1,12 +1,17 @@
 """Forward flash attention: the CUDA kernel's wrapper and its plain PyTorch
 version.
 
-``flash_attention(q, k, v)`` with q [B, S, H, hd] and k, v [B, S, KV, hd]
-returns [B, S, H, hd] in q's type: softmax attention computed in float32,
+``flash_attention(q, k, v)`` with q [B, S, H, hd], k [B, S, KV, hd] and
+v [B, S, KV, hdv] returns [B, S, H, hdv] in q's type: softmax attention
+computed in float32,
 scores ``(q * scale) . k`` (scale hd**-0.5 by default), an optional logit
 softcap ``cap * tanh(s / cap)``, a causal mask (k <= q), a sliding window
 (k > q - window) and grouped KV heads (the kv head of query head h is
-h // (H // KV)).  Masked scores take the finite NEG_INF = -2e38.  It is the
+h // (H // KV)).  Masked scores take the finite NEG_INF = -2e38.  hdv is
+hd (64, 128 or 256) but for MLA's prefill (minicpm3: q and k heads of 96,
+the rope part shared by every head, v heads of 64), the pair the kernel
+also instantiates (``HEAD_DIM_PAIRS``); its backward is not written yet,
+so the backward refuses it.  It is the
 port of ``repro/kernels/flash_attention.py`` (the Pallas kernel), whose
 oracle is ``repro/kernels/ref.py:attention_ref``.
 
@@ -62,7 +67,9 @@ from pathlib import Path
 import torch
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (64, 128, 256)      # the kernel's instantiations
+HEAD_DIMS = (64, 128, 256)      # the kernel's instantiations at hdv = hd
+# (q/k head dim, v head dim) of every forward instantiation: equal, or MLA's
+HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((96, 64),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 H100_SMS = 132                  # bwd_schedule places blocks on these
 
@@ -327,14 +334,15 @@ def bwd_schedule(S, hd, causal, window, B, H, KV, dtype) -> dict:
     return out
 
 
-def tile_config(hd) -> dict:
-    """The bf16 kernel's tiling at head dim ``hd``, read from its source:
-    ``tc::Cfg<hd>``'s constants (BK keys per stage, NS stages, SMEM bytes
-    of dynamic shared memory a block, ...) with HD and kBQ, the query rows
+def tile_config(hd, hdv=None) -> dict:
+    """The bf16 kernel's tiling at q/k head dim ``hd`` and v head dim
+    ``hdv`` (default ``hd``), read from its source: ``tc::Cfg<hd, hdv>``'s
+    constants (BK keys per stage, NS stages, SMEM bytes of dynamic shared
+    memory a block, ...) with HD (= hd), HDQK, HDV and kBQ, the query rows
     of a block."""
     src = (Path(__file__).parent / "csrc" / "flash_attention.cu").read_text()
     tc = src[src.index("namespace tc {"):]
-    env = {"HD": hd,
+    env = {"HD": hd, "HDQK": hd, "HDV": hd if hdv is None else hdv,
            "kBQ": int(re.search(r"constexpr int kBQ = (\d+);", tc)[1])}
     return _constexprs(re.search(r"struct Cfg \{(.*?)\n\};", tc, re.S)[1],
                        env)
@@ -355,12 +363,14 @@ def _check(q, k, v, window):
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != tuple(k.shape):
+    KV, hdv = k.shape[2], v.shape[-1]
+    if tuple(k.shape) != (B, S, KV, hd) or \
+            tuple(v.shape) != (B, S, KV, hdv):
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if (hd, hdv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {hd}, v {hdv}) not among the "
+                         f"kernel's {HEAD_DIM_PAIRS}")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if B > 65535 or H > 65535 or S >= 2 ** 31 - 128 \
@@ -376,7 +386,7 @@ def _lib():
     fn = load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p]
     return fn
@@ -415,15 +425,16 @@ def _forward(q, k, v, causal, window, softcap, scale, with_lse):
     """One launch of the forward kernel: (out, lse or None)."""
     global LAUNCHES
     B, S, H, KV, hd = _check(q, k, v, window)
+    hdv = v.shape[-1]
     scale = hd ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = q.new_empty(B, S, H, hdv)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if B * S == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if with_lse else None, B, S, H, KV, hd,
+                lse.data_ptr() if with_lse else None, B, S, H, KV, hd, hdv,
                 DTYPES[q.dtype], float(scale), int(causal), int(window),
                 float(softcap), q.device.index or 0, stream)
     _raise_on(rc, "flash_attention")
@@ -444,7 +455,16 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
     return _forward(q, k, v, causal, window, softcap, scale, True)
 
 
+def _one_head_dim(q, v):
+    """The backward kernels take one head dim for q, k and v."""
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"the flash backward takes one head dim for q, k "
+                         f"and v; (q/k {q.shape[-1]}, v {v.shape[-1]}) is "
+                         f"MLA training's, not written yet (ROADMAP.md §1)")
+
+
 def _check_bwd(q, k, v, do, lse, delta, window):
+    _one_head_dim(q, v)
     B, S, H, KV, hd = _check(q, k, v, window)
     if do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape) \
             or not do.is_contiguous() or do.device != q.device:
@@ -600,6 +620,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    _one_head_dim(q, v)
     delta = flash_bwd_delta(o, do)
     dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)

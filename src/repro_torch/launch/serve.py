@@ -1,14 +1,17 @@
 """Batched serving driver: prefill a batch of prompts, then decode greedily.
 
 Port of ``repro/launch/serve.py`` for the dense attention families,
-RWKV6 and the Mamba + attention + MoE hybrid.  It serves a reduced
-(``--smoke``, the default) or full (``--full``) architecture with seeded
-weights, reports prefill time and the median per-token decode time, and
-appends them to the C3O runtime log that the configurator predicts from.
-In an attention layer prefill runs the flash-attention kernel and each
-decode step the flash-decode kernels; in an RWKV6 layer prefill runs the
-WKV6 kernel, in a Mamba layer the selective-scan kernel, and their state
-caches do not depend on the cache length.  A full-width model draws its
+multi-head latent attention (minicpm3-4b), RWKV6 and the Mamba +
+attention + MoE hybrid.  It serves a reduced (``--smoke``, the default)
+or full (``--full``) architecture with seeded weights, reports prefill
+time and the median per-token decode time, and appends them to the C3O
+runtime log that the configurator predicts from.  In an attention layer
+prefill runs the flash-attention kernel and each decode step the
+flash-decode kernels; in an MLA layer prefill runs the flash-attention
+kernel at q/k head 96 and v head 64 and each decode step the MLA decode
+kernel over the latent caches; in an RWKV6 layer prefill runs the WKV6
+kernel, in a Mamba layer the selective-scan kernel, and their state caches
+do not depend on the cache length.  A full-width model draws its
 weights on the run's device (a reduced one on the CPU, as the tests do).
 
 Usage (on the card, full width):
@@ -16,6 +19,8 @@ Usage (on the card, full width):
       --batch 8 --prompt-len 2048 --max-new 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full \\
       --batch 8 --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
+      --full --batch 8 --prompt-len 2048 --max-new 64
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --full --batch 8 --prompt-len 2048 \\
       --max-new 64

@@ -1,9 +1,17 @@
-"""Attention layers of the dense decoder: GQA/MQA/MHA, sliding windows and
-KV caches.
+"""Attention layers of the dense decoder: GQA/MQA/MHA, sliding windows,
+multi-head latent attention (MLA) and KV caches.
 
-Port of the non-MLA path of ``repro/modeling/attention.py``.  Parameters
-keep the JAX layouts: wq [d, H, hd], wk/wv [d, KV, hd], wo [H, hd, d];
-caches are [B, L, KV, hd].
+Port of ``repro/modeling/attention.py``.  Parameters keep the JAX layouts:
+wq [d, H, hd], wk/wv [d, KV, hd], wo [H, hd, d]; caches are [B, L, KV,
+hd].  MLA (minicpm3-4b, ``_mla_apply``) keeps its seven leaves
+(``mla_defs``) and its two latent caches, ckv [B, L, kv_lora] and krope
+[B, L, rope]: train and prefill expand the latents into per-head keys
+(q/k head nope + rope, the rope part shared by every head) and values (v
+head) for ``kernels.flash_attention``; decode stays in the absorbed form,
+q_nope . wk_b against ckv, through ``kernels.decode_attention.
+mla_decode_attention``, and applies wv_b to its output.  The absorption
+products and the projections are einsums, as the JAX package leaves them
+to XLA.
 
 ``attention_impl`` selects nothing here.  The JAX package's four variants
 (reference, blocked, blocked_tri, banded) compute one function; in the
@@ -22,9 +30,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  mla_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.modeling.layers import apply_rope, rope_freqs
+from repro_torch.modeling.layers import apply_rope, rms_norm, rope_freqs
 
 EMPTY_SLOT = 2 ** 30     # position of a ring slot no token has filled yet
 
@@ -116,3 +125,80 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kind: str,
                 cache["v"].copy_(torch.roll(v[:, -buf:], shift, dims=1))
         o = flash_attention(q, k, v, causal=True, window=window, softcap=cap)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+# ------------------------------------------------------------------- MLA
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    """The MLA layer's leaves (``attn_defs`` with ``use_mla``): name ->
+    (shape, init, scale), with ``materialize``'s kinds."""
+    d, H = cfg.d_model, cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ((d, cfg.q_lora_rank), "normal", 1.0),
+        "q_norm": ((cfg.q_lora_rank,), "zeros", 1.0),
+        "wq_b": ((cfg.q_lora_rank, H, nd + rd), "normal", 1.0),
+        "wkv_a": ((d, cfg.kv_lora_rank + rd), "normal", 1.0),
+        "kv_norm": ((cfg.kv_lora_rank,), "zeros", 1.0),
+        "wkv_b": ((cfg.kv_lora_rank, H, nd + vd), "normal", 1.0),
+        "wo": ((H, vd, d), "normal", 1.0),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device) -> dict:
+    """The latent caches (``attn_cache_defs`` with ``use_mla``): ckv [B, L,
+    kv_lora] and krope [B, L, rope], zeroed."""
+    return {"ckv": torch.zeros(batch, max_seq, cfg.kv_lora_rank,
+                               dtype=dtype, device=device),
+            "krope": torch.zeros(batch, max_seq, cfg.qk_rope_dim,
+                                 dtype=dtype, device=device)}
+
+
+def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str,
+              pos0: int, cache: Optional[dict]) -> torch.Tensor:
+    """One MLA layer (``_mla_apply``).  mode: train | prefill | decode.
+
+    Train and prefill attend through per-head keys [k_nope | k_rope]
+    (q/k head nope + rope) and values (v head) made from the latent; a
+    prefill writes ckv and the roped krope into the caches.  A decode
+    step writes slot ``pos0`` of both caches and attends in absorbed form:
+    q_lat = q_nope . wk_b against ckv, the output through wv_b."""
+    B, S, _ = x.shape
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    C, H = cfg.kv_lora_rank, cfg.n_heads
+    scale = (nd + rd) ** -0.5
+    cq = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    ckv_full = x @ p["wkv_a"].to(x.dtype)
+    ckv = rms_norm(ckv_full[..., :C], p["kv_norm"], cfg.norm_eps)
+    q_pos = torch.arange(S, device=x.device) + pos0
+    sin, cos = rope_freqs(q_pos, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(ckv_full[..., C:][:, :, None, :], sin, cos)[:, :, 0]
+    wkv_b = p["wkv_b"].to(x.dtype)
+    wk_b, wv_b = wkv_b[..., :nd], wkv_b[..., nd:]
+
+    if mode == "decode":
+        if S != 1:
+            raise ValueError(f"decode takes one token per row, got {S}")
+        cache["ckv"][:, pos0] = ckv[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, pos0] = k_rope[:, 0].to(cache["krope"].dtype)
+        q_lat = torch.einsum("bhk,chk->bhc", q_nope[:, 0], wk_b)
+        o_lat = mla_decode_attention(q_lat.contiguous(),
+                                     q_rope[:, 0].contiguous(), cache["ckv"],
+                                     cache["krope"], pos0, scale)
+        o = torch.einsum("bhc,chv->bhv", o_lat, wv_b)[:, None]
+    else:
+        if pos0 != 0:
+            raise ValueError("train and prefill start at position 0")
+        if cache is not None:
+            cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+            cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+        k = torch.cat([torch.einsum("bsc,chk->bshk", ckv, wk_b),
+                       k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+        v = torch.einsum("bsc,chv->bshv", ckv, wv_b).contiguous()
+        o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True, scale=scale)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype))

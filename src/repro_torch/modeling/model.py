@@ -2,12 +2,14 @@
 the tied head.
 
 Port of ``repro/modeling/model.py`` for the dense attention families
-(gemma3, gemma2, deepseek-7b), RWKV6 (rwkv6-3b), the Mamba + attention
+(gemma3, gemma2, deepseek-7b), multi-head latent attention (minicpm3-4b,
+served but not trained yet), RWKV6 (rwkv6-3b), the Mamba + attention
 hybrid (jamba-1.5-large) and attention + MoE (olmoe-1b-7b).  The JAX
 package scans over pattern periods to keep its compiled graph small;
 PyTorch runs eagerly, so the blocks and the tail are one loop over
-``cfg.n_layers`` layers, each an attention, Mamba or RWKV layer by
-``cfg.layer_kind(i)``, whose FFN is an MoE where ``cfg.is_moe_layer(i)``.
+``cfg.n_layers`` layers, each an attention (MLA where ``cfg.use_mla``),
+Mamba or RWKV layer by ``cfg.layer_kind(i)``, whose FFN is an MoE where
+``cfg.is_moe_layer(i)``.
 ``modeling.convert`` carries a JAX parameter tree into this model;
 ``Model.from_seed`` draws weights with ``materialize``'s distributions.
 
@@ -51,8 +53,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM slice does not
     cover yet."""
     missing = []
-    if cfg.use_mla:
-        missing.append("MLA attention")
+    if cfg.use_mla and cfg.attn_logit_softcap:
+        missing.append("MLA with a logit softcap")
     if cfg.n_encoder_layers or cfg.frontend != "none":
         missing.append("encoders and frontends")
     if cfg.kv_cache_dtype:
@@ -64,9 +66,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can train ``cfg``:
-    every family it serves trains (attention, MoE, RWKV and Mamba
-    layers), so this refuses what ``check_supported`` refuses."""
+    what ``check_supported`` refuses, and MLA, which the port serves but
+    whose flash backward (q/k head 96, v head 64) is not written yet."""
     check_supported(cfg)
+    if cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: training MLA attention "
+                                  f"(the flash backward at q/k head "
+                                  f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, v "
+                                  f"head {cfg.v_head_dim}): {_WAITS}")
 
 
 # the matrix products whose outputs remat="dots" keeps (the JAX package's
@@ -153,6 +160,21 @@ class MambaLayer(DecoderLayer):
                                  cache=cache)
 
 
+class MlaLayer(DecoderLayer):
+    """One pre-norm MLA layer, then its FFN or MoE (``attn_apply`` with
+    ``use_mla``).  ``p`` holds attn with MLA's leaves (``attention.
+    mla_defs``); its cache {"ckv", "krope"} is written in place."""
+
+    def init_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+        return attention.init_mla_cache(self.cfg, batch, max_seq, dtype,
+                                        device)
+
+    def mix(self, h, *, mode: str, pos0: int, cache: Optional[dict],
+            ring_pos=None):
+        return attention.mla_apply(self.cfg, self.attn, h, mode=mode,
+                                   pos0=pos0, cache=cache)
+
+
 class RwkvLayer(nn.Module):
     """One pre-norm RWKV6 layer: time mix, then channel mix (the RWKV
     branch of ``layer_apply``).  ``p`` holds ln1, tm (``rwkv.tm_defs``),
@@ -212,8 +234,9 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else _frozen(params["lm_head"]))
         kinds = {RWKV: RwkvLayer, MAMBA: MambaLayer}
+        attn = MlaLayer if cfg.use_mla else DecoderLayer
         self.layers = nn.ModuleList(
-            kinds.get(cfg.layer_kind(i), DecoderLayer)(cfg, i, p)
+            kinds.get(cfg.layer_kind(i), attn)(cfg, i, p)
             for i, p in enumerate(params["layers"]))
 
     @classmethod
@@ -234,6 +257,7 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_seq: int) -> List[dict]:
         """Zeroed caches, one per layer, in the activation type: {"k", "v"}
         [batch, max_seq or the window, KV, hd] for an attention layer,
+        {"ckv", "krope"} [batch, max_seq, kv_lora or rope] for an MLA one,
         {"s", "x_tm", "x_cm"} for an RWKV layer and {"h", "conv"} for a
         Mamba layer, whose sizes do not depend on ``max_seq``."""
         return [layer.init_cache(batch, max_seq, self.dtype, self.device)
@@ -353,6 +377,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
         else:
             if kind == MAMBA:
                 layer["mamba"] = leaves(mamba.mamba_defs(cfg))
+            elif cfg.use_mla:
+                layer["attn"] = leaves(attention.mla_defs(cfg))
             else:
                 layer["attn"] = normals(attention.attn_shapes(cfg))
             if cfg.is_moe_layer(i):

@@ -16,7 +16,11 @@ full-width gemma3 on the card against the same step on the CPU; the WKV6
 and selective-scan backward kernels against their plain versions (bit
 for bit on repeat, through their autograd Functions, and the wrappers'
 refusals), and one train step of a reduced rwkv6 and jamba on the card
-against the CPU.  They skip without a card.  This file imports no JAX, so it also runs where only
+against the CPU; minicpm3's MLA kernels (the flash forward at q/k head
+96 and v head 64, the MLA decode over the latent caches) against their
+plain versions, bit for bit on repeat, the refusals of MLA training, and a
+reduced minicpm3 at its attention widths served through them.  They skip
+without a card.  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -293,6 +297,134 @@ def test_small_model_serves_through_the_kernels(cuda_device):
     assert FA.LAUNCHES - before[0] == cfg.n_layers
     assert DA.LAUNCHES - before[1] == 5 * cfg.n_layers
     want = greedy_generate(cpu, prompt, 6, 48)
+    assert torch.equal(got.cpu(), want)
+    with torch.inference_mode():
+        lc, _ = card(prompt.to(cuda_device), mode="train")
+        lp, _ = cpu(prompt, mode="train")
+    np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
+# -------------------------------------------------------------------- MLA
+
+MLA_SCALE = 96 ** -0.5
+MLA_FLASH_CASES = [(2, 300), (1, 1), (2, 129), (1, 128), (8, 2048)]  # B, S
+
+
+@pytest.mark.parametrize("B,S", MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_instance_matches_plain(cuda_device, B, S,
+                                                    dtype):
+    """The (96, 64) instance: 40 heads, causal, q/k heads of 96 and v heads
+    of 64, within TOL (bf16 also FLASH_BF16_REL), a repeat bit for bit."""
+    rng = np.random.default_rng(S)
+    q, k = (torch.as_tensor(rng.standard_normal((B, S, 40, 96)).astype(
+        np.float32), device=cuda_device).to(dtype) for _ in range(2))
+    v = torch.as_tensor(rng.standard_normal((B, S, 40, 64)).astype(
+        np.float32), device=cuda_device).to(dtype)
+    before = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, scale=MLA_SCALE)
+    again = FA.flash_attention(q, k, v, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 2
+    assert got.shape == (B, S, 40, 64) and got.dtype == dtype
+    assert torch.equal(got, again)
+    want = FA.flash_attention_plain(q, k, v, scale=MLA_SCALE)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype] * 10)
+    if dtype == torch.bfloat16 and S > 1:
+        g, w = got.double(), want.double()
+        assert float((g - w).norm() / w.norm()) <= FLASH_BF16_REL
+
+
+MLA_DECODE_CASES = [   # B, L, pos
+    (8, 2120, 2080), (8, 2120, 0), (8, 2120, 1100), (1, 2120, 2080),
+    (2, 300, 77), (3, 64, 63)]
+
+
+def _mla_inputs(seed, B, L, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                            device=device).to(dtype)
+            for s in ((B, 40, 256), (B, 40, 32), (B, L, 256), (B, L, 32))]
+
+
+@pytest.mark.parametrize("B,L,pos", MLA_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_kernel_matches_plain(cuda_device, B, L, pos, dtype):
+    ins = _mla_inputs(L + pos, B, L, dtype, cuda_device)
+    before = DA.MLA_LAUNCHES
+    got = DA.mla_decode_attention(*ins, pos, MLA_SCALE)
+    again = DA.mla_decode_attention(*ins, pos, MLA_SCALE)
+    torch.cuda.synchronize()
+    assert DA.MLA_LAUNCHES == before + 2
+    assert got.shape == (B, 40, 256) and got.dtype == dtype
+    assert torch.equal(got, again)
+    want = DA.mla_decode_attention_plain(*ins, pos, MLA_SCALE)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype] * 10)
+    if dtype == torch.bfloat16:
+        g, w = got.double(), want.double()
+        assert float((g - w).norm() / w.norm()) <= DECODE_BF16_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_tiling_reported_by_the_library(cuda_device, dtype):
+    cfg = DA.mla_tile_config(dtype, cuda_device.index or 0)
+    assert cfg["TS"] == (64 if dtype == torch.bfloat16 else 32)
+    assert cfg["W"] == 4 and 0 < cfg["SMEM"] <= 227 * 1024
+    assert cfg["blocks_per_sm"] >= 1
+    per, n = DA.decode_plan(2081, 8, 1, 1, cfg["blocks_per_sm"], cfg["sms"])
+    assert 8 * n <= cfg["sms"] * cfg["blocks_per_sm"]
+
+
+def test_mla_training_and_other_shapes_are_refused(cuda_device):
+    """The flash backward refuses (96, 64) before it launches anything;
+    the model refuses to train MLA; the MLA decode takes only minicpm3's
+    (40, 256, 32) and a pos inside the cache."""
+    from repro_torch.modeling.model import check_trainable
+    q = torch.zeros(1, 64, 4, 96, device=cuda_device)
+    v = torch.zeros(1, 64, 4, 64, device=cuda_device)
+    o, lse = FA.flash_attention_lse(q, q, v)
+    before = (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    with pytest.raises(ValueError, match="MLA training"):
+        FA.flash_attention_bwd(q, q, v, o, lse, torch.zeros_like(o))
+    assert (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == before
+    with pytest.raises(NotImplementedError, match="MLA"):
+        check_trainable(smoke_config("minicpm3-4b"))
+    ins = _mla_inputs(0, 2, 100, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        DA.mla_decode_attention(*ins, 100, MLA_SCALE)
+    with pytest.raises(ValueError):
+        DA.mla_decode_attention(ins[0][:, :32].contiguous(),
+                                ins[1][:, :32].contiguous(), *ins[2:], 3,
+                                MLA_SCALE)
+    with pytest.raises(TypeError):
+        DA.mla_decode_attention(*ins[:3], ins[3].bfloat16(), 3, MLA_SCALE)
+
+
+def test_small_minicpm3_serves_through_the_mla_kernels(cuda_device):
+    """A reduced minicpm3 (2 layers, d 256) at its attention widths (40
+    heads, kv_lora 256, nope 64, rope 32, v 64) on the card in float32,
+    against the same seeded weights on the CPU: one flash launch a layer
+    in prefill, one MLA decode launch a layer and step, the greedy tokens
+    and the logits the same."""
+    cfg = smoke_config("minicpm3-4b", n_layers=2, d_model=256, n_heads=40,
+                       n_kv_heads=40, q_lora_rank=128, kv_lora_rank=256,
+                       qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64)
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 70)))
+    cpu = Model.from_seed(cfg, 0, "cpu")
+    card = Model.from_seed(cfg, 0, cuda_device)
+    before = (FA.LAUNCHES, DA.MLA_LAUNCHES, DA.LAUNCHES)
+    got = greedy_generate(card, prompt.to(cuda_device), 6, 80)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES - before[0] == cfg.n_layers
+    assert DA.MLA_LAUNCHES - before[1] == 5 * cfg.n_layers
+    assert DA.LAUNCHES == before[2]
+    want = greedy_generate(cpu, prompt, 6, 80)
     assert torch.equal(got.cpu(), want)
     with torch.inference_mode():
         lc, _ = card(prompt.to(cuda_device), mode="train")

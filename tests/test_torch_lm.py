@@ -1,8 +1,9 @@
 """The port's LM serving slice against the JAX package on the CPU: weights
 carried from a JAX parameter tree, the forward pass in train and prefill
 mode, teacher-forced decode through the KV caches (the ring buffer of the
-local layers included), greedy generation, the seeded init's distributions,
-and the serve driver's runtime-log line.
+local layers included, and minicpm3's MLA latent caches), greedy
+generation, the seeded init's distributions, and the serve driver's
+runtime-log line.
 
 Reduced same-family configs (``smoke_config``: float32, a few layers,
 narrow widths) run on both sides with the same weights: the JAX tree from
@@ -35,6 +36,7 @@ VARIANTS = {                   # id -> (arch, overrides)
     "gemma3-1b-softcap": ("gemma3-1b", {"attn_logit_softcap": 50.0}),
     "gemma2-2b": ("gemma2-2b", {}),
     "deepseek-7b": ("deepseek-7b", {}),
+    "minicpm3-4b": ("minicpm3-4b", {}),
 }
 
 
@@ -96,16 +98,17 @@ def test_forward_train_matches_jax(pair):
 
 
 def _jax_cache_layers(jcfg, cache):
-    """The JAX cache tree as one {"k", "v"} per layer."""
+    """The JAX cache tree as one dict per layer: {"k", "v"}, or MLA's
+    {"ckv", "krope"}."""
     period, nb = jcfg.pattern_period, jcfg.n_scan_blocks
     out = []
     for i in range(jcfg.n_layers):
         if i < nb * period:
             c = cache["blocks"][f"l{i % period}"]["attn"]
-            out.append({n: np.asarray(c[n])[i // period] for n in "kv"})
+            out.append({n: np.asarray(c[n])[i // period] for n in c})
         else:
             c = cache["tail"][f"l{i - nb * period}"]["attn"]
-            out.append({n: np.asarray(c[n]) for n in "kv"})
+            out.append({n: np.asarray(c[n]) for n in c})
     return out
 
 
@@ -126,7 +129,8 @@ def test_prefill_logits_and_caches_match_jax(pair, prompt):
     _close(got[:, -1], want)
     for i, (pc, jc) in enumerate(zip(pcache, _jax_cache_layers(jcfg,
                                                                 cache))):
-        for n in "kv":
+        assert set(pc) == set(jc), i
+        for n in jc:
             assert pc[n].shape == jc[n].shape, (i, n)
             _close(pc[n], jc[n])
 
@@ -208,8 +212,8 @@ def test_seeded_init_has_materialize_distributions():
 
 
 @pytest.mark.parametrize("arch,kw", [
-    ("minicpm3-4b", {}), ("seamless-m4t-medium", {}),
-    ("internvl2-2b", {}), ("gemma3-1b", {"kv_cache_dtype": "int8"})])
+    ("seamless-m4t-medium", {}), ("internvl2-2b", {}),
+    ("gemma3-1b", {"kv_cache_dtype": "int8"})])
 def test_what_the_slice_does_not_cover_raises(arch, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Model.from_seed(smoke_config(arch, **kw), 0, "cpu")
