@@ -9,12 +9,16 @@ and prints one JSON line per phase.
 Phases:
   device   card name and power limit, torch version, kernel build time
   flash_build  per instantiation of the flash-attention kernels: ptxas's
-               registers and spills, dynamic shared memory, and the HGMMA
-               and UTMALDG instructions in the library's SASS
+               registers and spills (and any wgmma serialisation it
+               reports), dynamic shared memory, and the HGMMA and UTMALDG
+               instructions in the library's SASS; for MLA's (96, 64)
+               kernel its item rows, warpgroups and register split
   kernel_build per instantiation of the decode, WKV6 (serving and
-               training), GBM and RWKV / Mamba backward kernels: ptxas's
-               registers, spills, stack and shared memory; the loops of
-               the GBM instance at d 3, depth 3 in its SASS
+               training), GBM, RWKV / Mamba backward and MLA decode
+               kernels: ptxas's registers, spills, stack and shared
+               memory; the MLA decode's tiling, largest cluster, HGMMA
+               and UTMALDG; the loops of the GBM instance at d 3, depth 3
+               in its SASS
   kernel   GBM-ensemble kernel vs its plain version (bit for bit at
            y_scale != 0) at the serving shape, edge cases (non-finite
            inputs, n = 1, ragged n, T = 1, 203 and 2000, depth 1, 4 and
@@ -108,10 +112,12 @@ Phases:
                 bfloat16 (also held to a relative bound, with two controls
                 that must exceed it) and float32, every call repeated bit
                 for bit: flash attention at q/k head 96 and v head 64 (40
-                heads; B 8 x S 2048, S = 1, S = 129, ragged S) and the MLA
-                decode over the latent caches (B 8, L 2,120 at pos 0,
-                1100 and 2080; B 1); CUDA-event (flash) and profiler
-                device (decode) times, bounds and SDPA's times
+                heads; B 8 x S 2048, S = 1, S = 129, ragged S, a window
+                with a softcap over 8 kv heads) and the MLA decode over
+                the latent caches (B 8, L 2,120 at pos 0, 191, 192, 1100
+                and 2080; B 1; B 16); CUDA-event (flash) and profiler
+                device (decode) times, the decode's walk and in-launch
+                merge apart, bounds and SDPA's times
   mla_serve     minicpm3-4b at full width and depth (62 layers, d 2560)
                 through repro_torch.launch.serve.run: batch 8, prompt
                 2048, 64 new tokens; init s, prefill ms, decode ms/token,
@@ -1573,6 +1579,15 @@ def _bwd_kernels_seen(names):
     return {w for n in names for w in re.findall(r"flash_bwd_\w+_kernel", n)}
 
 
+# the bf16 flash forward's tensor-core kernels: the equal-dim one and, for
+# MLA's (96, 64), its own (PR 25)
+FLASH_TC_KERNELS = ("flash_fwd_wgmma", "flash_fwd_mla")
+
+
+def _flash_tc_traced(names):
+    return any(k in n for n in names for k in FLASH_TC_KERNELS)
+
+
 def _route_call(kind, a):
     """(the call whose kernels a route trace records, the test that a
     trace has seen the route's kernels): the bf16 flash_attention
@@ -1588,11 +1603,11 @@ def _route_call(kind, a):
         q, k, v = _qkv(a["seed"], a["B"], a["S"], a["H"], a["KV"], a["hd"],
                        "bfloat16", hdv=a.get("hdv"))
         return (lambda: FA.flash_attention(q, k, v, window=a["window"]),
-                lambda names: any("flash_fwd_wgmma" in n for n in names))
+                _flash_tc_traced)
     if kind == "mla":
         ins = _mla_inputs(a["seed"], a["B"], a["L"], "bfloat16")
         return (lambda: DA.mla_decode_attention(*ins, a["pos"], MLA_SCALE),
-                lambda names: any("mla_decode_kernel" in n for n in names))
+                lambda names: any("mla_decode_wgmma_kernel" in n for n in names))
     if kind == "bwd":
         B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
         q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
@@ -1658,7 +1673,7 @@ def flash_times(seed, B, S, H, KV, hd, window, hdv=None):
     kern = lm_time(lambda: FA.flash_attention(q, k, v, window=window), 20)
     traced, traced_in = route_trace("flash", seed=seed, B=B, S=S, H=H,
                                     KV=KV, hd=hd, window=window, hdv=hdv)
-    assert any("flash_fwd_wgmma" in n for n in traced), traced
+    assert _flash_tc_traced(traced), traced
     plain = lm_time(lambda: FA.flash_attention_plain(q, k, v,
                                                      window=window), 5)
     lib = sdpa_flash(q, k, v, True, window)
@@ -1858,7 +1873,11 @@ def _flash_instance(mangled):
     """The label of a mangled kernel name of flash_attention.cu, such as
     'bf16 wgmma hd 128' (the serving instance), 'bf16 wgmma hd 128 lse'
     (training's, which also writes the log-sum-exp) or 'bf16 wgmma hd
-    96/64' (MLA's q/k and v head dims), or None for another function."""
+    96/64' (MLA's q/k and v head dims: its own kernel, flash_fwd_mla_kernel,
+    since PR 25), or None for another function."""
+    m = re.search(r"flash_fwd_mla_kernelILb([01])E", mangled)
+    if m:
+        return "bf16 wgmma hd 96/64" + " lse" * (m.group(1) == "1")
     for route, pat in (("bf16 wgmma", r"flash_fwd_wgmma_kernelI"),
                        ("float32 simt", r"flash_fwd_kernelIf")):
         m = re.search(pat + r"Li(\d+)ELi(\d+)ELb([01])E", mangled)
@@ -1897,6 +1916,11 @@ def ptxas_by_instance(log, label):
         m = re.search(r"(\d+) bytes smem", ln)
         if m:
             per[cur]["static_smem_bytes"] = int(m.group(1))
+    for m in re.finditer(r"wgmma\.mma_async instructions are serialized"
+                         r"[^\n]*?function '([^']+)'", log):
+        name = label(m.group(1))
+        if name in per:
+            per[name]["wgmma_serialized"] = True
     return per
 
 
@@ -1936,6 +1960,10 @@ def flash_build_phase(build, so_path):
             cfg = FA.tile_config(*map(int, name.split()[3].split("/")))
             info.update(BK=cfg["BK"], stages=cfg["NS"],
                         dynamic_smem_bytes=cfg["SMEM"])
+            if "BQ" in cfg:      # MLA's (96, 64): tc::MlaCfg
+                info.update(BQ=cfg["BQ"], consumer_warpgroups=cfg["NWG"],
+                            setmaxnreg=(cfg["PRODUCER_REGS"],
+                                        cfg["CONSUMER_REGS"]))
     counts, total = tensor_core_sass(build, so_path, _flash_instance)
     for name, info in per.items():
         info.update(counts.get(name, {}))
@@ -1960,11 +1988,12 @@ def _instance(mangled):
     hd 64 states' (the training one), 'gbm d 3 depth 3' (depth 0: the
     generic instance for 5-10), 'wkv6_bwd hd 64' (the walk; 'wkv6_bwd fold
     hd 64' and 'wkv6_bwd carry hd 64' its first two launches) or
-    'mamba_scan_bwd N 16', or 'mla_decode bf16' ('mla_merge bf16' its
-    merge of the parts), else None."""
-    m = re.search(r"mla_(decode|merge)_kernelI(f|13__nv_bfloat16)E", mangled)
+    'mamba_scan_bwd N 16', or 'mla_decode bf16' (its wgmma kernel, which
+    merges the parts in its cluster; 'mla_decode f32' and 'mla_merge f32'
+    the float32 route's two launches), else None."""
+    m = re.search(r"mla_(decode|merge)_(wgmma_)?kernel", mangled)
     if m:
-        return f"mla_{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}"
+        return f"mla_{m.group(1)} {'bf16' if m.group(2) else 'f32'}"
     m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
                   mangled)
     if m:
@@ -2044,6 +2073,7 @@ def kernel_build_phase(build, built):
                  "mamba_scan_bwd", "mla_decode"):
         per.update(ptxas_by_instance(build.BUILD_INFO[name]["log"],
                                      _instance))
+    mla_sass, _ = tensor_core_sass(build, built["mla_decode"], _instance)
     for name, info in per.items():
         if name.startswith("mla_decode"):
             cfg = DA.mla_tile_config(
@@ -2051,7 +2081,10 @@ def kernel_build_phase(build, built):
                 0)
             info.update(slots_a_tile=cfg["TS"], warps=cfg["W"],
                         dynamic_smem_bytes=cfg["SMEM"],
-                        blocks_per_sm=cfg["blocks_per_sm"])
+                        blocks_per_sm=cfg["blocks_per_sm"],
+                        max_parts=cfg["max_parts"],
+                        clusters_resident=cfg["clusters"],
+                        **mla_sass.get(name, {}))
         if name.startswith("decode"):
             dt = torch.bfloat16 if " bf16 " in name else torch.float32
             words = name.split()
@@ -2063,7 +2096,9 @@ def kernel_build_phase(build, built):
     assert sum(n.startswith("gbm") for n in per) == 30, sorted(per)
     assert sum(n.startswith(("wkv6_bwd", "mamba_scan_bwd"))
                for n in per) == 12, sorted(per)
-    assert sum(n.startswith("mla_") for n in per) == 4, sorted(per)
+    assert sum(n.startswith("mla_") for n in per) == 3, sorted(per)
+    assert per["mla_decode bf16"].get("HGMMA", 0) > 0 and \
+        per["mla_decode bf16"].get("UTMALDG", 0) > 0, per["mla_decode bf16"]
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1))
               > (WKV6_SPILL_BYTES if n.startswith("wkv6 ") else 0)
@@ -3106,24 +3141,25 @@ def check_mla_decode(label, B, L, pos, seed):
 
 def mla_decode_times(seed, B, L, pos):
     """Kernel, plain and SDPA times of one bf16 mla_decode_attention call
-    (its main launch and, with more than one part, the merge) at batch B
-    over L-slot caches at ``pos``, and its bound.  The kernel's time is
-    its profiler device time over both launches (the mean recorded
-    duration of each, times its launches a call), as decode_times takes
-    decode_attention's; SDPA computes the same function on [q_lat | q_rope]
-    against one latent head [ckv | krope] with ckv as the values, made
-    outside the call."""
+    at batch B over L-slot caches at ``pos``, and its bound.  The kernel's
+    time is its profiler device time (the mean recorded duration of each
+    kernel, times its launches a call), as decode_times takes
+    decode_attention's.  The bf16 kernel merges its parts inside the
+    launch (a cluster a batch row): ``walk_ms`` is the same launch with
+    the merge skipped, ``merge_ms`` the difference.  SDPA computes the
+    same function on [q_lat | q_rope] against one latent head [ckv |
+    krope] with ckv as the values, made outside the call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
     ins = _mla_inputs(seed, B, L, "bfloat16")
-    cfg = DA.mla_tile_config(torch.bfloat16, 0)
-    per_part, n_parts = DA.decode_plan(pos + 1, B, 1, 1,
-                                       cfg["blocks_per_sm"], cfg["sms"])
+    per_part, n_parts = DA.mla_launch_plan(torch.bfloat16, 0, pos + 1, B)
     kern = lm_time(lambda: DA.mla_decode_attention(*ins, pos, MLA_SCALE),
-                   200, kernels_per_call=1 + (n_parts > 1))
+                   200)
+    walk = lm_time(lambda: DA._mla_launch(*ins, pos, MLA_SCALE, flags=1),
+                   200)
     traced, traced_in = route_trace("mla", seed=seed, B=B, L=L, pos=pos)
-    assert any("mla_decode_kernel" in n for n in traced), traced
+    assert any("mla_decode_wgmma_kernel" in n for n in traced), traced
     plain = lm_time(lambda: DA.mla_decode_attention_plain(*ins, pos,
                                                           MLA_SCALE), 50)
     lib_t = None
@@ -3138,35 +3174,48 @@ def mla_decode_times(seed, B, L, pos):
             200)
     bnd, by = mla_decode_bound_ms(B, pos, "bfloat16")
     dev = kern["device_ms"] is not None
-    return {"ms": kern["device_ms"] if dev else kern["events_ms"],
+    ms = kern["device_ms"] if dev else kern["events_ms"]
+    walk_ms = walk["device_ms"] if walk["device_ms"] is not None \
+        else walk["events_ms"]
+    return {"ms": ms,
             "ms_from": "profiler device time" if dev else "cuda events",
+            "walk_ms": walk_ms, "merge_ms": ms - walk_ms,
             "route_traced_in": traced_in, "plain_ms": plain["ms"],
             "bound_ms": bnd, "bound_by": by,
             "library_ms": lib_t and lib_t["ms"], "pos": pos,
             "parts": n_parts, "slots_a_part": per_part,
-            "timings": {"kernel": kern, "plain": plain, "library": lib_t}}
+            "timings": {"kernel": kern, "walk": walk, "plain": plain,
+                        "library": lib_t}}
 
 
 def mla_kernel_phase():
     """Both kernels of minicpm3-4b's path against their plain versions on
     the card, in bfloat16 and float32, every call repeated bit for bit:
     flash attention at q/k head 96 and v head 64 (40 heads; the serving
-    prompt B 8 x S 2048, S = 1, S = 129 and a ragged S) and the MLA decode
-    (B 8 over the 2,120-slot caches at pos 0, at 2080 and at 1100, where
-    every part's run ends inside a 64-slot tile; B 1, where 131 parts of
-    16 slots merge).  Then times, bounds and SDPA's times at the serving
-    shapes."""
+    prompt B 8 x S 2048, S = 1, S = 129, a ragged S, and a window with a
+    softcap over 8 kv heads) and the MLA decode (B 8 over the 2,120-slot
+    caches at pos 0, at 2080 and at 1100, where the last part's run ends
+    inside a 64-slot tile, at 191 and 192 on a part's edge; B 1; B 16).
+    Then times, bounds and SDPA's times at the serving shapes, the
+    decode's walk and merge apart."""
     t0 = time.perf_counter()
     B, S, L = SERVE_B, SERVE_PROMPT, SERVE_L
-    flash_cases = [   # label, B, S; 40 heads of q/k 96 and v 64, causal
-        ("serve", B, S), ("S=1", B, 1), ("S=129", 2, 129),
-        ("ragged S=1000", 2, 1000)]
+    flash_cases = [   # label, B, S, KV, window, softcap; 40 heads of q/k
+        # 96 and v 64, causal
+        ("serve", B, S, MLA_H, 0, 0.0), ("S=1", B, 1, MLA_H, 0, 0.0),
+        ("S=129", 2, 129, MLA_H, 0, 0.0),
+        ("ragged S=1000", 2, 1000, MLA_H, 0, 0.0),
+        ("window 100 softcap 30 KV=8", 2, 700, 8, 100, 30.0)]
     decode_cases = [("serve pos 2080", B, L, 2080), ("pos 0", B, L, 0),
-                    ("pos 1100, runs end inside a tile", B, L, 1100),
-                    ("B=1 pos 2080", 1, L, 2080)]
+                    ("pos 1100, the last run ends inside a tile", B, L,
+                     1100),
+                    ("pos 191, a part's edge", B, L, 191),
+                    ("pos 192, one slot past it", B, L, 192),
+                    ("B=1 pos 2080", 1, L, 2080),
+                    ("B=16 pos 2080", 16, L, 2080)]
     f_worst, _, f_rel = check_attention(
-        [(label, b, s, MLA_H, MLA_H, MLA_HDQK, True, 0, 0.0, MLA_HDV)
-         for label, b, s in flash_cases], [], seed=300)
+        [(label, b, s, MLA_H, kv, MLA_HDQK, True, w, cap, MLA_HDV)
+         for label, b, s, kv, w, cap in flash_cases], [], seed=300)
     _free_card()
     worst = {"flash_attention_mla": f_worst["flash_attention"],
              "mla_decode": {}}
@@ -4888,7 +4937,9 @@ def main():
         "name": "flash_attention_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:72",
-        "instance": "q/k head 96, v head 64 (tc::Cfg<96, 64>)",
+        "instance": "q/k head 96, v head 64 (flash_fwd_mla_kernel, "
+                    "tc::MlaCfg: 192-row items on three consumer "
+                    "warpgroups, 64 keys a stage, a persistent grid)",
         "launches": mla_launches["flash_attention"],
         "max_abs_err": max(mla_err["flash_attention_mla"].values()),
         "max_abs_err_by_dtype": mla_err["flash_attention_mla"],
@@ -4915,10 +4966,12 @@ def main():
         "ms": dm["ms"], "plain_ms": dm["plain_ms"],
         "bound_ms": dm["bound_ms"], "bound_by": dm["bound_by"],
         "library_ms": dm["library_ms"], "ms_from": dm["ms_from"],
-        "parts": dm["parts"],
+        "parts": dm["parts"], "slots_a_part": dm["slots_a_part"],
+        "walk_ms": dm["walk_ms"], "merge_ms": dm["merge_ms"],
         "shape": f"minicpm3-4b decode B={SERVE_B} L={SERVE_L} H={MLA_H} "
-                 f"C={MLA_C} R={MLA_R} pos={dm['pos']} bf16, the main "
-                 "launch and the merge of its parts"}, {
+                 f"C={MLA_C} R={MLA_R} pos={dm['pos']} bf16, one launch: "
+                 "each batch row's parts in a thread-block cluster that "
+                 "merges them (walk_ms the launch without the merge)"}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:66",

@@ -54,8 +54,18 @@ training microbatch (B 1, S 4096).  The steps "rwkv_train" and
 and jamba's 3.66 B cut as ``chip_smoke.py`` does (4 steps of 8 x 4096),
 giving the median step and each step's wall and CPU seconds with the
 card's samples.  ``--only``
-takes steps from gbm, kernels, flash, train, recurrences, rwkv_train,
-jamba_train and the archs.  Needs a CUDA card.
+takes steps from gbm, kernels, flash, train, recurrences, mla,
+rwkv_train, jamba_train and the archs (minicpm3-4b among them, though the
+default run leaves it out).  The step "mla" (run only when ``--only``
+names it) times MLA's two kernels at minicpm3-4b's serving shapes: the
+flash attention at q/k head 96 and v head 64 (B 8, S 2048, 40 heads) by
+CUDA events beside SDPA's, and mla_decode (B 8, L 2,120, pos 2080) by
+profiler device time, each kernel of the call apart and, where the tree
+has it, the launch without its merge; and it hashes the SASS of every
+other kernel function of every library (``all_sass``), so that two
+trees show that only MLA's kernels changed, and apart those of MLA's
+kernels (``mla_sass``), which two trees share where only the sources'
+layout changed.  Needs a CUDA card.
 """
 import hashlib
 import json
@@ -179,6 +189,99 @@ def serving_sass(so_path, kernel="flash_attention"):
                 "instructions": len(ops),
                 "sha256": hashlib.sha256("\n".join(ops).encode())
                 .hexdigest()[:16]}
+    return out
+
+
+# MLA's two kernels at minicpm3-4b's serving shapes: the prefill's flash
+# attention (B, S, heads, q/k head dim, v head dim) and the decode (B,
+# cache slots, pos)
+MLA_FLASH = (8, 2048, 40, 96, 64)
+MLA_DECODE = (8, 2120, 2080)
+# kernel functions that differ between trees by design in the mla step:
+# MLA's flash instance (its wgmma kernel, whatever its name) and decode
+MLA_FUNCTIONS = re.compile(r"flash_fwd_mla_kernel|flash_fwd_wgmma_kernelILi96ELi64E"
+                           r"|mla_(decode|merge)")
+
+
+def all_sass(built):
+    """({library: {function: a hash of its instructions}} of every built
+    library, MLA's kernels left out; the same of MLA's kernels alone), the
+    functions keyed without the anonymous namespace's per-file tag, which
+    differs between trees."""
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    other, mla = {}, {}
+    for lib, so_path in sorted(built.items()):
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=600).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                          part.split()[0])
+            ops = [op.strip() for op in
+                   re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
+            to = mla if MLA_FUNCTIONS.search(name) else other
+            to.setdefault(lib, {})[name] = hashlib.sha256(
+                "\n".join(ops).encode()).hexdigest()[:16]
+    return other, mla
+
+
+def device_ms_by_kernel(fn, reps):
+    """{kernel name: mean profiler device ms of one launch, launches a
+    call} over ``reps`` calls of ``fn`` after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by.setdefault(e.name[:80], []).append(e.time_range.elapsed_us())
+    return {n: [sum(d) / len(d) / 1e3, len(d) / reps] for n, d in by.items()}
+
+
+def mla(label):
+    """MLA's two kernels, as ``chip_smoke.py`` times them: flash attention
+    at q/k head 96 and v head 64 by CUDA events beside SDPA's (the same
+    seeded inputs), and mla_decode by profiler device time, each kernel
+    of a call by name (the first design's main launch and merge of its
+    parts apart; since PR 25 one launch, and ``walk_ms`` the same launch
+    without its in-cluster merge); then a hash of the SASS of every other
+    kernel function of every library, which two trees must share."""
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    built = build.build_all()
+    out = {"label": label, "card": CS.nvidia_smi()}
+    B, S, H, hd, hdv = MLA_FLASH
+    q, k, v = CS._qkv(307, B, S, H, H, hd, "bfloat16", hdv=hdv)
+    out["flash_96_64_events_ms"] = CS.cuda_ms(
+        lambda: FA.flash_attention(q, k, v), 50)
+    lib = CS.sdpa_flash(q, k, v, True, 0)
+    out["flash_96_64_sdpa_events_ms"] = lib and CS.cuda_ms(lib, 50)
+    del q, k, v
+    torch.cuda.empty_cache()
+    B, L, pos = MLA_DECODE
+    ins = CS._mla_inputs(308, B, L, "bfloat16")
+    t = CS.lm_time(lambda: DA.mla_decode_attention(*ins, pos, CS.MLA_SCALE),
+                   200)
+    out["mla_decode_device_ms"] = t["device_ms"]
+    out["mla_decode_kernels"] = t["kernel_names"]
+    out["mla_decode_device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: DA.mla_decode_attention(*ins, pos, CS.MLA_SCALE), 200)
+    if hasattr(DA, "_mla_launch"):
+        out["mla_decode_walk_device_ms"] = CS.lm_time(
+            lambda: DA._mla_launch(*ins, pos, CS.MLA_SCALE, flags=1),
+            200)["device_ms"]
+    out["sass"], out["mla_sass"] = all_sass(built)
     return out
 
 
@@ -395,7 +498,7 @@ def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
     step = {"gbm": gbm, "kernels": kernels, "flash": flash,
-            "train": train, "recurrences": recurrences}.get(what)
+            "train": train, "recurrences": recurrences, "mla": mla}.get(what)
     if what in SSM_TRAIN:
         res = ssm_train(label, what)
     else:

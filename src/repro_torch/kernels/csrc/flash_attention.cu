@@ -50,10 +50,11 @@
 // inside, does not make; it stays inside the bf16 tolerance of the tests.
 // Tiles (BK keys a stage, NS stages; dynamic shared memory with 1 KB of
 // alignment slack): hd 64 BK 128 NS 3, 113 KB; hd 128 BK 128 NS 2, 161 KB;
-// hd 256 BK 64 NS 2, 193 KB; MLA's q.k head 96 and v head 64 (minicpm3's
-// prefill: the per-head keys [k_nope | shared k_rope] and values) BK 128
-// NS 3, 177 KB.  ptxas: 168 registers at launch (40 for the
-// producer, 232 for the consumers after setmaxnreg), no spills.
+// hd 256 BK 64 NS 2, 193 KB; ptxas: 168 registers at launch (40 for the
+// producer, 232 for the consumers after setmaxnreg), no spills.  MLA's q.k
+// head 96 and v head 64 (minicpm3's prefill: the per-head keys [k_nope |
+// shared k_rope] and values) has a kernel of its own, flash_fwd_mla_kernel
+// below (192-row items, BK 64, NS 4, 117 KB, a persistent grid).
 //
 // float32, the parity route (namespace simt): the first design, kept as it
 // was.  wgmma would take float32 only as TF32, about three decimal digits,
@@ -73,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -299,11 +302,8 @@ constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// HDQK: q and k's head dim, HDV: v's; equal but for MLA's (96, 64), whose
-// q and k rows are 1.5 chunks of 64 columns: they take two chunks, the
-// second's columns 96-127 outside the tensor map (TMA writes zeros there
-// and reads no bytes for them), and the product runs only the 6 k16 steps
-// that hold data.
+// HDQK: q and k's head dim, HDV: v's (equal in every instance; MLA's
+// unequal pair has its own kernel, flash_fwd_mla_kernel).
 template <int HDQK, int HDV>
 struct Cfg {
   static constexpr int BK = HDQK == 256 ? 64 : 128;       // keys per stage
@@ -319,232 +319,6 @@ struct Cfg {
   static constexpr int SMEM = 1024 + Q_BYTES + NS * (K_BYTES + V_BYTES) + BAR_BYTES;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the barrier's phase differs from ``parity``.  A wait of 10 s
-// means a load that never lands: trap, so that the call fails instead of
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-
-// One box of a 4-D tensor map ({64 columns, 1 head, rows, 1 batch}) into
-// shared memory, completing ``bytes`` on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor for a 128-byte-swizzled tile whose
-// rows are 128 bytes: start address, leading and stride byte offsets (in
-// 16-byte units), layout type 1 (128B swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins the registers of an accumulator in program order around the
-// asynchronous wgmma, so that no read of them moves above the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory, both
-// K-major (B^T stored row by row), float32 accumulators.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B in shared memory, both
-// K-major (B^T stored row by row), float32 accumulators.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (four bf16x2 a
-// thread), B in shared memory MN-major (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (four bf16x2 a
-// thread), B in shared memory MN-major (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (four bf16x2 a
-// thread), B in shared memory MN-major (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Block layout: thread 0 (warpgroup 0) loads, warpgroups 1 and 2 compute
 // query rows q0 .. q0+63 and q0+64 .. q0+127.  In a consumer warpgroup,
@@ -654,7 +428,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    sw128_desc(kst + (ks / 4) * BK * 128 + off, 16, 1024), 1);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(sc);
 
         // scores in log2 units, softcap, masks
@@ -710,7 +484,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_rs(acc, a, sw128_desc(vst + kk * 16 * 128, BK * 128, 1024));
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(acc);
       }
       if (t == 0) mbar_arrive(empty0 + 8 * s);
@@ -745,53 +519,427 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------- MLA's prefill: q.k 96, v 64
+//
+// minicpm3-4b's prefill attends per head with q and k rows of 96 columns
+// (nope 64 | rope 32) and v rows of 64.  At its serving shape (B 8, S 2048,
+// 40 heads, causal) the products take 0.217 ms at the bf16 peak, and the
+// exponentials (671 M kept scores at 16 a clock on each SM) about 0.16 ms:
+// 0.74 of the product time, where at hd 256 they are 0.23.  A score here
+// carries 160 multiply-adds, so the softmax's handful of instructions a
+// score (max, FFMA, EX2, sum, pack, rescale) takes the SM's four issue
+// slots about as long as the tensor cores take the products.  The design:
+//   - three consumer warpgroups of 64 query rows (a 192-row q item, BQ)
+//     share each staged K/V tile: the tensor cores see three chains of
+//     products, and a staged key serves 1.5x the rows of a 128-row tile;
+//   - inside a warpgroup, tile i's S = Q . K^T and tile i-1's O += P . V
+//     are issued together; the softmax of tile i runs on S as soon as S
+//     lands (wgmma.wait_group 1), O is rescaled after (wait_group 0).
+//     ptxas places most exponentials after that second wait; pinning them
+//     ahead of it measured no faster;
+//   - the scale and log2 e fold into the exponent, p = ex2(x c - m c), one
+//     FFMA before a bare MUFU.EX2 (ex2.approx.ftz); the running max is kept
+//     over the raw scores (max commutes with a positive scale; a negative
+//     one takes the max of -x), in four chains a row.  Tiles that cross a
+//     mask edge, and any tile with a softcap, take a general path that
+//     scores, caps and masks element by element;
+//   - q's and k's 96 columns come in as a 64-column box with 128-byte
+//     swizzle and a 32-column box with 64-byte swizzle (two tensor maps on
+//     each tensor), not two zero-padded 128-byte boxes: Q takes 36 KB, a
+//     stage of 64 keys 20 KB (117 KB in all);
+//   - the grid is persistent: one block an SM walks every gridDim.x-th
+//     (batch, head, q tile) item (``mla_item``: the items in flight at once
+//     share their heads' K and V through L2), and the producer loads the
+//     next item's Q and K/V while the consumers finish the last tiles and
+//     the epilogue of the one before.  The Q buffer has its own empty
+//     barrier; the ring's stage and phase count on across items.
+// Registers: the producer gives back to 32 (setmaxnreg), the consumers take
+// 160 (S 32, O 32, P 16 a thread at 64 keys a stage).
+// Measured on an H100 (PERF.md, PR 25): 128 keys a stage (S 64 registers)
+// spills and runs 5% slower; two consumer warpgroups, 10-20% slower; the
+// warpgroups taking turns to issue their products (named barriers), a
+// second Q buffer, warpgroups staggered at the start, skipping the rescale
+// where no max moved, or a share of the exponentials as an FMA polynomial,
+// each slower; q tiles as the
+// slowest index of the items (132 heads' K and V in flight, read from
+// device memory by every q tile) 0.79 against 0.70 ms at 128 keys, and the
+// (batch, head)-major order without the rotation 1.01 (a block always
+// draws the same q tile); clock stamps put about half of a warpgroup's
+// time in its softmax and most of the rest in issuing and queueing its
+// products, 7% in waiting for data.
+struct MlaCfg {
+  static constexpr int NWG = 3;                    // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;              // query rows an item
+  static constexpr int BK = 64;                    // keys a stage
+  static constexpr int NS = 4;                     // stages of the ring
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int PRODUCER_REGS = NWG == 3 ? 32 : 40;
+  static constexpr int CONSUMER_REGS = NWG == 3 ? 160 : 232;
+  static constexpr int QA_BYTES = BQ * 128;        // q columns 0-63
+  static constexpr int QB_BYTES = BQ * 64;         // q columns 64-95
+  static constexpr int KA_BYTES = BK * 128;        // k columns 0-63
+  static constexpr int KB_BYTES = BK * 64;         // k columns 64-95
+  static constexpr int V_BYTES = BK * 128;
+  static constexpr int STAGE_BYTES = KA_BYTES + KB_BYTES + V_BYTES;
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * NS);
+  static constexpr int SMEM = 1024 + QA_BYTES + QB_BYTES + NS * STAGE_BYTES + BAR_BYTES;
+};
+
+// One item of the persistent grid: a q tile of one (batch, head), and the
+// kv tiles [t_lo, t_lo + n_tiles) that some row of it may attend.  The
+// (batch, head) is the item's slowest index, so that the ~132 items in
+// flight at once share the K and V of about 12 heads through L2 (with q
+// tiles slowest they would be 132 heads, whose K and V, read again by each
+// of 11 q tiles, come from device memory every time: 1.3 GB at minicpm3's
+// prefill).  Inside a (batch, head) the q tiles run longest causal rows
+// first, rotated by the (batch, head)'s index, so that a block, which
+// takes every gridDim.x-th item, meets every length in turn.
+struct MlaItem {
+  int q0, b, h, kh, t_lo, n_tiles;
+};
+
+__device__ __forceinline__ MlaItem mla_item(int item, int nq, int S, int H,
+                                            int KV, int causal, int window) {
+  using C = MlaCfg;
+  MlaItem it;
+  const int bh = item / nq;
+  it.q0 = (nq - 1 - (item % nq + bh) % nq) * C::BQ;
+  it.b = bh / H;
+  it.h = bh % H;
+  it.kh = it.h / (H / KV);
+  const int kv_hi = causal ? min(S, it.q0 + C::BQ) : S;
+  const int kv_lo = window ? max(0, it.q0 - window + 1) : 0;
+  it.t_lo = kv_lo / C::BK;
+  it.n_tiles = (kv_hi + C::BK - 1) / C::BK - it.t_lo;
+  return it;
+}
+
+// S = Q . K^T for a warpgroup's 64 rows and a stage's BK keys: 4 k16
+// steps in the 128-byte-swizzled columns 0-63, 2 in the 64-byte-swizzled
+// columns 64-95.
+__device__ __forceinline__ void mla_issue_s(float (&sc)[MlaCfg::BK / 2],
+                                            uint32_t qa, uint32_t qb,
+                                            uint32_t st) {
+  // a k16 step is 32 bytes further along the rows: 2 in the descriptors'
+  // 16-byte address field
+  const uint64_t da = sw128_desc(qa, 16, 1024), dk = sw128_desc(st, 16, 1024);
+  const uint64_t db = sw64_desc(qb, 512);
+  const uint64_t dkb = sw64_desc(st + MlaCfg::KA_BYTES, 512);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_ss(sc, da + 2 * ks, dk + 2 * ks, ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) wgmma_ss(sc, db + 2 * ks, dkb + 2 * ks, 1);
+}
+
+// O += P . V over a stage's BK keys, V the MN-major B operand.
+__device__ __forceinline__ void mla_issue_pv(float (&acc)[32],
+                                             const uint32_t (&p)[MlaCfg::BK / 4],
+                                             uint32_t st) {
+  // 16 keys are 16 rows of 128 bytes further: 128 in the address field
+  const uint64_t dv = sw128_desc(st + MlaCfg::KA_BYTES + MlaCfg::KB_BYTES,
+                                 MlaCfg::BK * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < MlaCfg::BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs(acc, a, dv + 128 * kk);
+  }
+}
+
+// The online-softmax update of one tile's scores, in log2 units: sc holds
+// rows qa (j & 2 == 0) and qb of this thread; on return it holds p =
+// 2^(score - m_new), m and l are updated (l per thread; the quad's partial
+// sums add up in the epilogue) and corr_* = 2^(m_old - m_new).  ``general``
+// (a mask edge or a softcap) scores, caps and masks element by element as
+// the equal-dim kernel does; otherwise the scale folds into the exponent.
+__device__ __forceinline__ void mla_softmax(
+    float (&sc)[MlaCfg::BK / 2], float& m_a, float& m_b, float& l_a,
+    float& l_b, float& corr_a, float& corr_b, bool general, int k0, int qa,
+    int qb, int col0, int S, int causal, int window, float scale, float c,
+    float softcap) {
+  constexpr int N = MlaCfg::BK / 2;
+  // four running maxima and sums a row (j / 4 % 4), so that no chain of
+  // dependent FMNMX or FADD runs the length of the tile; each starts from
+  // its first element (j < 16, j even), which saves 16 instructions a tile
+  float mx[2][4], sm[2][4];
+  auto first = [](int j) { return j < 16 && !(j & 1); };
+  if (general) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float x = sc[j];
+      if (softcap != 0.f)
+        x = softcap * tanhf(x * scale / softcap) * kLog2e;
+      else
+        x *= c;
+      const int kj = k0 + 8 * (j / 4) + col0 + (j & 1);
+      const int qi = (j & 2) ? qb : qa;
+      bool ok = kj < S;
+      if (causal) ok = ok && kj <= qi;
+      if (window) ok = ok && kj > qi - window;
+      x = ok ? x : kNegInf;
+      sc[j] = x;
+      float& m = mx[(j >> 1) & 1][(j >> 2) & 3];
+      m = first(j) ? x : fmaxf(m, x);
+    }
+  } else {
+    // max over the raw scores: c x is largest where x is (c >= 0) or -x is
+    if (c >= 0.f) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float& m = mx[(j >> 1) & 1][(j >> 2) & 3];
+        m = first(j) ? sc[j] : fmaxf(m, sc[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float& m = mx[(j >> 1) & 1][(j >> 2) & 3];
+        m = first(j) ? -sc[j] : fmaxf(m, -sc[j]);
+      }
+    }
+  }
+  const float s_a = general ? 1.f : fabsf(c);
+  const float mn_a = fmaxf(m_a, s_a * quad_max(fmaxf(fmaxf(mx[0][0], mx[0][1]),
+                                                     fmaxf(mx[0][2], mx[0][3]))));
+  const float mn_b = fmaxf(m_b, s_a * quad_max(fmaxf(fmaxf(mx[1][0], mx[1][1]),
+                                                     fmaxf(mx[1][2], mx[1][3]))));
+  corr_a = ex2(m_a - mn_a);
+  corr_b = ex2(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  // general: p = 2^(y - m); else p = 2^(x c - m), one FFMA
+  const float cc = general ? 1.f : c;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float e = ex2(fmaf(sc[j], cc, (j & 2) ? -mn_b : -mn_a));
+    float& l = sm[(j >> 1) & 1][(j >> 2) & 3];
+    l = first(j) ? e : l + e;
+    sc[j] = e;
+  }
+  l_a = l_a * corr_a + ((sm[0][0] + sm[0][1]) + (sm[0][2] + sm[0][3]));
+  l_b = l_b * corr_b + ((sm[1][0] + sm[1][1]) + (sm[1][2] + sm[1][3]));
+}
+
+__device__ __forceinline__ void mla_pack(uint32_t (&p)[MlaCfg::BK / 4],
+                                         const float (&sc)[MlaCfg::BK / 2]) {
+#pragma unroll
+  for (int j = 0; j < MlaCfg::BK / 4; ++j)
+    p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+}
+
+// Block layout: thread 0 (warpgroup 0) loads; consumer warpgroup w = 1 ..
+// NWG computes rows q0 + 64 (w - 1) .. + 63 of each item, with the thread
+// and register layout of the equal-dim kernel.  Every consumer warp
+// arrives once on each empty barrier (count 4 NWG), after its own wgmma
+// wait.
+template <bool LSE>
+__global__ void __launch_bounds__(MlaCfg::THREADS, 1)
+flash_fwd_mla_kernel(const __grid_constant__ CUtensorMap tqa,
+                     const __grid_constant__ CUtensorMap tqb,
+                     const __grid_constant__ CUtensorMap tka,
+                     const __grid_constant__ CUtensorMap tkb,
+                     const __grid_constant__ CUtensorMap tv,
+                     __nv_bfloat16* __restrict__ o, int B, int S, int H,
+                     int KV, float scale, int causal, int window,
+                     float softcap, float* __restrict__ lse) {
+  using C = MlaCfg;
+  constexpr int BK = C::BK, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQA = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQB = sQA + C::QA_BYTES;
+  const uint32_t sK = sQB + C::QB_BYTES;           // NS stages [KA | KB | V]
+  const uint32_t q_full = sK + NS * C::STAGE_BYTES;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full0 = q_empty + 8, empty0 = full0 + 8 * NS;
+  const int nq = (S + C::BQ - 1) / C::BQ;
+  const int n_items = nq * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * C::NWG);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(C::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int g = 0, j = 0;   // kv stages filled, items begun
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+        const MlaItem it = mla_item(item, nq, S, H, KV, causal, window);
+        mbar_wait(q_empty, (j & 1) ^ 1);
+        mbar_expect_tx(q_full, C::QA_BYTES + C::QB_BYTES);
+        tma_load(sQA, &tqa, q_full, 0, it.h, it.q0, it.b);
+        tma_load(sQB, &tqb, q_full, 64, it.h, it.q0, it.b);
+        for (int i = 0; i < it.n_tiles; ++i, ++g) {
+          const int s = g % NS;
+          mbar_wait(empty0 + 8 * s, ((g / NS) & 1) ^ 1);
+          const uint32_t bar = full0 + 8 * s, st = sK + s * C::STAGE_BYTES;
+          const int k0 = (it.t_lo + i) * BK;
+          mbar_expect_tx(bar, C::STAGE_BYTES);
+          tma_load(st, &tka, bar, 0, it.kh, k0, it.b);
+          tma_load(st + C::KA_BYTES, &tkb, bar, 64, it.kh, k0, it.b);
+          tma_load(st + C::KA_BYTES + C::KB_BYTES, &tv, bar, 0, it.kh, k0,
+                   it.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int col0 = 2 * (lane % 4);
+  const float c = scale * kLog2e;
+  const uint32_t sQAw = sQA + (wg - 1) * 64 * 128;
+  const uint32_t sQBw = sQB + (wg - 1) * 64 * 64;
+  const size_t o_stride = static_cast<size_t>(H) * 64;
+  int g = 0, j = 0;   // kv stages consumed, items begun
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+    const MlaItem it = mla_item(item, nq, S, H, KV, causal, window);
+    const int row_lo = it.q0 + (wg - 1) * 64;      // this warpgroup's rows
+    const int qa = row_lo + (t / 32) * 16 + lane / 4, qb = qa + 8;
+    // the tiles with a row of this warpgroup to add: [a, e); the window
+    // empties a prefix, the causal mask a suffix
+    int a = 0, e = it.n_tiles;
+    auto dead = [&](int i) {
+      const int k0 = (it.t_lo + i) * BK;
+      return (causal && k0 > row_lo + 63) ||
+             (window && k0 + BK - 1 <= row_lo - window);
+    };
+    while (a < e && dead(a)) ++a;
+    while (e > a && dead(e - 1)) --e;
+    auto stage = [&](int i) { return sK + ((g + i) % NS) * C::STAGE_BYTES; };
+    auto wait_full = [&](int i) {
+      mbar_wait(full0 + 8 * ((g + i) % NS), ((g + i) / NS) & 1);
+    };
+    auto release = [&](int i) {
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((g + i) % NS));
+    };
+    auto general = [&](int i) {
+      const int k0 = (it.t_lo + i) * BK;
+      return softcap != 0.f || k0 + BK > S ||
+             (causal && k0 + BK - 1 > row_lo) ||
+             (window && k0 <= row_lo + 63 - window);
+    };
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    mbar_wait(q_full, j & 1);
+    for (int i = 0; i < a; ++i) {
+      wait_full(i);
+      release(i);
+    }
+    if (a < e) {
+      float sc[BK / 2], corr_a, corr_b;
+      uint32_t p[BK / 4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      wait_full(a);
+      wgmma_fence();
+      mla_issue_s(sc, sQAw, sQBw, stage(a));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (a + 1 == e && lane == 0) mbar_arrive(q_empty);
+      mla_softmax(sc, m_a, m_b, l_a, l_b, corr_a, corr_b, general(a),
+                  (it.t_lo + a) * BK, qa, qb, col0, S, causal, window, scale,
+                  c, softcap);
+      mla_pack(p, sc);
+      for (int i = a + 1; i < e; ++i) {
+        wait_full(i);
+        wgmma_fence();
+        mla_issue_s(sc, sQAw, sQBw, stage(i));
+        wgmma_commit();
+        mla_issue_pv(acc, p, stage(i - 1));
+        wgmma_commit();
+        wgmma_wait<1>();     // S of tile i; P . V of tile i - 1 runs on
+        fence_regs(sc);
+        if (i + 1 == e && lane == 0) mbar_arrive(q_empty);
+        mla_softmax(sc, m_a, m_b, l_a, l_b, corr_a, corr_b, general(i),
+                    (it.t_lo + i) * BK, qa, qb, col0, S, causal, window,
+                    scale, c, softcap);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(i - 1);
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[k] *= (k & 2) ? corr_b : corr_a;
+        mla_pack(p, sc);
+      }
+      wgmma_fence();
+      mla_issue_pv(acc, p, stage(e - 1));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(e - 1);
+    } else if (lane == 0) {
+      mbar_arrive(q_empty);
+    }
+    for (int i = e; i < it.n_tiles; ++i) {
+      wait_full(i);
+      release(i);
+    }
+    g += it.n_tiles;
+
+    // epilogue, while the producer loads the next item: the quad's partial
+    // sums, then out = acc / max(l, 1e-30)
+    const float den_a = fmaxf(quad_sum(l_a), 1e-30f);
+    const float den_b = fmaxf(quad_sum(l_b), 1e-30f);
+    __nv_bfloat16* oa =
+        o + (static_cast<size_t>(it.b) * S + qa) * o_stride + it.h * 64 + col0;
+    __nv_bfloat16* ob = oa + 8 * o_stride;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (qa < S)
+        *reinterpret_cast<uint32_t*>(oa + 8 * k) =
+            pack_bf16(acc[4 * k] / den_a, acc[4 * k + 1] / den_a);
+      if (qb < S)
+        *reinterpret_cast<uint32_t*>(ob + 8 * k) =
+            pack_bf16(acc[4 * k + 2] / den_b, acc[4 * k + 3] / den_b);
+    }
+    if constexpr (LSE) {
+      if ((lane & 3) == 0) {
+        float* lrow = lse + (static_cast<size_t>(it.b) * H + it.h) * S;
+        if (qa < S) lrow[qa] = (m_a + log2f(den_a)) * kLn2;
+        if (qb < S) lrow[qb] = (m_b + log2f(den_b)) * kLn2;
+      }
+    }
+  }
+}
+
 }  // namespace tc
 
 // ------------------------------------------------------------------ launch
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A bf16 [B, S, heads, hd] tensor as a 4-D tensor map, innermost first;
-// boxes of {64 columns (128 bytes), 1 head, rows, 1 batch}, 128-byte
-// swizzle, out-of-range rows read as zero.
+// boxes of {cols columns, 1 head, rows, 1 batch}: 64 columns (128 bytes)
+// with 128-byte swizzle, or 32 (64 bytes) with 64-byte swizzle;
+// out-of-range rows read as zero.
 CUresult make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
-                  int B, int S, int heads, int hd, int rows) {
+                  int B, int S, int heads, int hd, int rows, int cols = 64) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -818,6 +966,39 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   kernel<<<nq * B * H, tc::kThreads, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale,
       causal, window, softcap, lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// MLA's (96, 64) bf16 instance: q and k through a 64-column and a
+// 32-column map each, the persistent grid one block an SM.
+int launch_mla(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, float scale,
+               int causal, int window, float softcap, cudaStream_t stream) {
+  using C = tc::MlaCfg;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tqa, tqb, tka, tkb, tv;
+  CUresult r = make_map(enc, &tqa, q, B, S, H, 96, C::BQ);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tqb, q, B, S, H, 96, C::BQ, 32);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tka, k, B, S, KV, 96, C::BK);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tkb, k, B, S, KV, 96, C::BK, 32);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, B, S, KV, 64, C::BK);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lse != nullptr ? tc::flash_fwd_mla_kernel<true>
+                               : tc::flash_fwd_mla_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items =
+      static_cast<long long>((S + C::BQ - 1) / C::BQ) * B * H;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tqa, tqb, tka, tkb, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV,
+      scale, causal, window, softcap, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -878,8 +1059,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (hd == 96 && hdv == 64)
-    return launch<96, 64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+  if (hd == 96 && hdv == 64) {
+    if (dtype == 0)
+      return launch_simt<96, 64>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    if (dtype == 1)
+      return launch_mla(q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return launch<64, 64>(dtype, q, k, v, o, lse, B, S, H, KV, scale, causal, window, softcap, s);

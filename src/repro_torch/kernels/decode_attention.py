@@ -26,9 +26,12 @@ decode step of multi-head latent attention in absorbed form (MLA,
 minicpm3-4b; ``repro/modeling/attention.py:_mla_apply``, lines 457-475),
 which no Pallas kernel computes: scores ``(q_lat . ckv + q_rope . krope)
 * scale`` in float32 over the two latent caches, slots ``<= pos``, softmax,
-times ckv itself.  A CUDA tensor launches ``csrc/mla_decode.cu`` (the
-parts of the cache merged by a second small launch), a CPU tensor takes
-``mla_decode_attention_plain``.  ``MLA_LAUNCHES`` counts its calls.
+times ckv itself.  A CUDA tensor launches ``csrc/mla_decode.cu`` (bf16:
+wgmma and TMA, the parts of a batch row's cache in one thread-block
+cluster that merges them inside the launch; float32: SIMT, the parts
+merged by a second small launch), a CPU tensor takes
+``mla_decode_attention_plain``.  ``mla_plan`` cuts the cache into parts;
+``MLA_LAUNCHES`` counts its calls.
 """
 from __future__ import annotations
 
@@ -248,15 +251,56 @@ def mla_tile_config(dtype, device_index) -> dict:
     """The MLA kernel's tiling at ``dtype`` on CUDA device
     ``device_index``, as its library reports it (``mla_decode_config``):
     TS slots a tile, W warps a block, SMEM bytes of dynamic shared memory
-    a block, ``blocks_per_sm`` resident blocks an SM, and ``sms``."""
-    cfg = (ctypes.c_int * 4)()
+    a block, ``blocks_per_sm`` resident blocks an SM, ``max_parts`` the
+    most parts a batch row may take (bf16: a thread-block cluster's 16;
+    float32: its merge's 1024), ``clusters`` (bf16) the clusters of n
+    blocks resident at once for n = 1 .. 16, and ``sms``."""
+    cfg = (ctypes.c_int * 21)()
     rc = _mla_lib().mla_decode_config(DTYPES[dtype], device_index, cfg)
     if rc != 0 or cfg[3] < 1:
         raise RuntimeError(f"mla_decode has no resident block in {dtype}: "
                            f"CUDA error {rc}")
     props = torch.cuda.get_device_properties(device_index)
     return {"TS": cfg[0], "W": cfg[1], "SMEM": cfg[2],
-            "blocks_per_sm": cfg[3], "sms": props.multi_processor_count}
+            "blocks_per_sm": cfg[3], "max_parts": cfg[4],
+            "clusters": tuple(cfg[5:21]) if dtype == torch.bfloat16 else (),
+            "sms": props.multi_processor_count}
+
+
+@functools.lru_cache(maxsize=4096)
+def mla_plan(n_slots, B, unit, max_parts, slots_on_card):
+    """(slots a part, parts) of each batch row's ``n_slots`` kept slots:
+    runs of whole ``unit``-slot tiles (the last part's run may end inside
+    one), as many parts as give ``slots_on_card`` resident blocks (SMs
+    times blocks an SM) one wave over the B rows, at most ``max_parts``
+    and at most one a tile.  The bf16 kernel plans with its tile of 64
+    slots and the largest cluster of which B fit on the card at once,
+    float32 with 16-slot units and 1024 parts."""
+    tiles = -(-n_slots // unit)
+    want = max(1, min(max_parts, tiles, slots_on_card // B))
+    per_part = unit * -(-tiles // want)
+    return per_part, -(-n_slots // per_part)
+
+
+def mla_max_parts(clusters, B):
+    """The most parts a bf16 batch row may take: the largest cluster size
+    n (``clusters[n - 1]`` clusters of n blocks resident at once, as
+    ``mla_tile_config`` reports them) of which all B batch rows' clusters
+    fit on the card at once; 1 where none does."""
+    return max([n + 1 for n, c in enumerate(clusters) if c >= B] or [1])
+
+
+def mla_launch_plan(dtype, device_index, n_slots, B):
+    """(slots a part, parts) of the MLA kernel at ``dtype`` on the device:
+    ``mla_plan`` with the library's tiling; bf16 takes at most
+    ``mla_max_parts`` parts."""
+    cfg = mla_tile_config(dtype, device_index)
+    if dtype == torch.bfloat16:
+        unit, max_parts = cfg["TS"], mla_max_parts(cfg["clusters"], B)
+    else:
+        unit, max_parts = 16, cfg["max_parts"]
+    return mla_plan(n_slots, B, unit, max_parts,
+                    cfg["sms"] * cfg["blocks_per_sm"])
 
 
 def _mla_lib():
@@ -266,7 +310,7 @@ def _mla_lib():
         fn = lib.mla_decode_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         cfg = lib.mla_decode_config
         cfg.restype = ctypes.c_int
         cfg.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
@@ -305,18 +349,11 @@ def _mla_check(q_lat, q_rope, ckv, krope, pos):
     return B, L
 
 
-def mla_decode_attention(q_lat, q_rope, ckv, krope, pos: int,
-                         scale: float) -> torch.Tensor:
-    """MLA decode attention [B, H, C] in q_lat's type.  On CUDA tensors
-    this launches the kernel (and its merge) on the current stream; on CPU
-    tensors it is ``mla_decode_attention_plain``."""
-    global MLA_LAUNCHES
-    if q_lat.device.type == "cpu":
-        return mla_decode_attention_plain(q_lat, q_rope, ckv, krope, pos,
-                                          scale)
-    if q_lat.device.type != "cuda":
-        raise ValueError(f"no mla_decode_attention for device "
-                         f"{q_lat.device}")
+def _mla_launch(q_lat, q_rope, ckv, krope, pos, scale, flags=0):
+    """One call of the kernel (and, float32, its merge) on the current
+    stream: the output [B, H, C].  ``flags`` 1 (bf16) skips the merge of
+    the parts, which leaves the output unwritten: for timing the walk of
+    the cache alone."""
     B, L = _mla_check(q_lat, q_rope, ckv, krope, pos)
     H, C, R = MLA_SHAPE
     out = torch.empty_like(q_lat)
@@ -324,20 +361,34 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, pos: int,
         return out
     hi = int(pos) + 1
     dev = q_lat.device.index or 0
-    cfg = mla_tile_config(q_lat.dtype, dev)
-    # a part is decode_plan's run of a one-warp block over one kv head
-    per_part, n_parts = decode_plan(hi, B, 1, 1, cfg["blocks_per_sm"],
-                                    cfg["sms"])
-    part = torch.empty((B * n_parts * H * (C + 2),) if n_parts > 1 else (1,),
+    per_part, n_parts = mla_launch_plan(q_lat.dtype, dev, hi, B)
+    merged = q_lat.dtype == torch.float32 and n_parts > 1
+    part = torch.empty((B * n_parts * H * (C + 2),) if merged else (1,),
                        dtype=torch.float32, device=q_lat.device)
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     rc = _mla_lib().mla_decode_launch(
         q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
         krope.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, L, C, R,
-        DTYPES[q_lat.dtype], float(scale), hi, per_part, n_parts, dev,
-        stream)
+        DTYPES[q_lat.dtype], float(scale), hi, per_part, n_parts, flags,
+        dev, stream)
     if rc != 0:
         raise RuntimeError(f"mla_decode kernel failed to launch: CUDA "
                            f"error {rc}")
+    return out
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, krope, pos: int,
+                         scale: float) -> torch.Tensor:
+    """MLA decode attention [B, H, C] in q_lat's type.  On CUDA tensors
+    this launches the kernel on the current stream; on CPU tensors it is
+    ``mla_decode_attention_plain``."""
+    global MLA_LAUNCHES
+    if q_lat.device.type == "cpu":
+        return mla_decode_attention_plain(q_lat, q_rope, ckv, krope, pos,
+                                          scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"no mla_decode_attention for device "
+                         f"{q_lat.device}")
+    out = _mla_launch(q_lat, q_rope, ckv, krope, pos, scale)
     MLA_LAUNCHES += 1
     return out

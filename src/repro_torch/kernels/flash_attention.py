@@ -9,9 +9,10 @@ softcap ``cap * tanh(s / cap)``, a causal mask (k <= q), a sliding window
 (k > q - window) and grouped KV heads (the kv head of query head h is
 h // (H // KV)).  Masked scores take the finite NEG_INF = -2e38.  hdv is
 hd (64, 128 or 256) but for MLA's prefill (minicpm3: q and k heads of 96,
-the rope part shared by every head, v heads of 64), the pair the kernel
-also instantiates (``HEAD_DIM_PAIRS``); its backward is not written yet,
-so the backward refuses it.  It is the
+the rope part shared by every head, v heads of 64), the pair a bf16
+kernel of its own computes (``HEAD_DIM_PAIRS``; ``tile_config(96, 64)``
+reads its ``tc::MlaCfg``); its backward is not written yet, so the
+backward refuses it.  It is the
 port of ``repro/kernels/flash_attention.py`` (the Pallas kernel), whose
 oracle is ``repro/kernels/ref.py:attention_ref``.
 
@@ -25,6 +26,9 @@ the other.  The dtype picks the kernel:
   two consumer warpgroups running ``wgmma`` for Q.K^T and P.V).  Bound by
   the tensor cores' bf16 rate at the serving shapes.  It rounds P to bf16
   before P.V, a rounding the float32-inside Pallas kernel does not make.
+  MLA's (96, 64) runs ``flash_fwd_mla_kernel``: three consumer warpgroups
+  over 192-row q items, q and k in 64- and 32-column boxes, a persistent
+  grid whose items in flight share their heads' K and V through L2.
 - float32, the parity route: the first SIMT design, float32 FMAs out of
   shared memory, bound by the float32 pipe.  wgmma would take float32 only
   as TF32, which puts the float32 parity limits at risk.
@@ -339,10 +343,15 @@ def tile_config(hd, hdv=None) -> dict:
     ``hdv`` (default ``hd``), read from its source: ``tc::Cfg<hd, hdv>``'s
     constants (BK keys per stage, NS stages, SMEM bytes of dynamic shared
     memory a block, ...) with HD (= hd), HDQK, HDV and kBQ, the query rows
-    of a block."""
+    of a block; for MLA's (96, 64) ``tc::MlaCfg``'s (NWG consumer
+    warpgroups, BQ query rows an item, BK, NS, the box sizes, SMEM, ...)."""
     src = (Path(__file__).parent / "csrc" / "flash_attention.cu").read_text()
     tc = src[src.index("namespace tc {"):]
-    env = {"HD": hd, "HDQK": hd, "HDV": hd if hdv is None else hdv,
+    hdv = hd if hdv is None else hdv
+    if (hd, hdv) == (96, 64):
+        return _constexprs(re.search(r"struct MlaCfg \{(.*?)\n\};", tc,
+                                     re.S)[1], {"HDQK": hd, "HDV": hdv})
+    env = {"HD": hd, "HDQK": hd, "HDV": hdv,
            "kBQ": int(re.search(r"constexpr int kBQ = (\d+);", tc)[1])}
     return _constexprs(re.search(r"struct Cfg \{(.*?)\n\};", tc, re.S)[1],
                        env)

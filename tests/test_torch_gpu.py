@@ -338,9 +338,59 @@ def test_flash_attention_mla_instance_matches_plain(cuda_device, B, S,
         assert float((g - w).norm() / w.norm()) <= FLASH_BF16_REL
 
 
+# the (96, 64) instance with a window, a softcap, grouped kv heads, no
+# causal mask and a negative scale (the max of -x): B, S, H, KV, causal,
+# window, softcap, scale
+MLA_FLASH_MASK_CASES = [
+    (2, 700, 40, 40, True, 100, 0.0, MLA_SCALE),
+    (2, 700, 40, 40, True, 0, 30.0, MLA_SCALE),
+    (2, 333, 40, 8, False, 64, 20.0, MLA_SCALE),
+    (2, 500, 40, 40, False, 0, 0.0, MLA_SCALE),
+    (1, 400, 8, 8, True, 0, 0.0, -0.1)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal,window,cap,scale",
+                         MLA_FLASH_MASK_CASES)
+def test_flash_attention_mla_instance_masks_and_lse(cuda_device, B, S, H,
+                                                    KV, causal, window, cap,
+                                                    scale):
+    """The (96, 64) bf16 instance against its plain version under every
+    mask it takes, within TOL and FLASH_BF16_REL; its lse output (the
+    instance MLA training will call) against flash_attention_lse_plain
+    with the output's bits unchanged; each call repeated bit for bit."""
+    rng = np.random.default_rng(S + H)
+    q = torch.as_tensor(rng.standard_normal((B, S, H, 96)).astype(
+        np.float32), device=cuda_device).bfloat16()
+    k = torch.as_tensor(rng.standard_normal((B, S, KV, 96)).astype(
+        np.float32), device=cuda_device).bfloat16()
+    v = torch.as_tensor(rng.standard_normal((B, S, KV, 64)).astype(
+        np.float32), device=cuda_device).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
+    got = FA.flash_attention(q, k, v, **kw)
+    again = FA.flash_attention(q, k, v, **kw)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    o2, lse2 = FA.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, o)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16] * 10)
+    g, w = got.double(), want.double()
+    assert float((g - w).norm() / w.norm()) <= FLASH_BF16_REL
+    lw = FA.flash_attention_lse_plain(q, k, **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), lw.cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+
+
 MLA_DECODE_CASES = [   # B, L, pos
     (8, 2120, 2080), (8, 2120, 0), (8, 2120, 1100), (1, 2120, 2080),
-    (2, 300, 77), (3, 64, 63)]
+    (2, 300, 77), (3, 64, 63),
+    (8, 2120, 63), (8, 2120, 64),       # the run ends on a tile's edge
+    (8, 2120, 191), (8, 2120, 192),     # ... on a part's edge (192 slots)
+    (16, 2120, 2080), (8, 2120, 2111)]
 
 
 def _mla_inputs(seed, B, L, dtype, device):
@@ -372,12 +422,20 @@ def test_mla_decode_kernel_matches_plain(cuda_device, B, L, pos, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mla_decode_tiling_reported_by_the_library(cuda_device, dtype):
-    cfg = DA.mla_tile_config(dtype, cuda_device.index or 0)
-    assert cfg["TS"] == (64 if dtype == torch.bfloat16 else 32)
-    assert cfg["W"] == 4 and 0 < cfg["SMEM"] <= 227 * 1024
+    """bf16: tiles of 64 slots, a producer and a consumer warpgroup, and
+    the largest cluster of parts that fits; float32: tiles of 32, 4 warps,
+    a merge launch of up to 1024 parts.  The serving call's plan is one
+    wave of blocks."""
+    dev = cuda_device.index or 0
+    cfg = DA.mla_tile_config(dtype, dev)
+    bf16 = dtype == torch.bfloat16
+    assert cfg["TS"] == (64 if bf16 else 32)
+    assert cfg["W"] == (8 if bf16 else 4) and 0 < cfg["SMEM"] <= 227 * 1024
     assert cfg["blocks_per_sm"] >= 1
-    per, n = DA.decode_plan(2081, 8, 1, 1, cfg["blocks_per_sm"], cfg["sms"])
+    assert 8 <= cfg["max_parts"] <= 16 if bf16 else cfg["max_parts"] == 1024
+    per, n = DA.mla_launch_plan(dtype, dev, 2081, 8)
     assert 8 * n <= cfg["sms"] * cfg["blocks_per_sm"]
+    assert n <= cfg["max_parts"] and per % (64 if bf16 else 16) == 0
 
 
 def test_mla_training_and_other_shapes_are_refused(cuda_device):

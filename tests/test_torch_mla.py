@@ -199,24 +199,78 @@ def test_flash_and_mla_wrappers_check_their_shapes():
         DA._mla_check(*good[:3], good[3].double(), 3)
 
 
-@pytest.mark.parametrize("n_slots,B,bps,sms", [
-    (2081, 8, 1, 132), (1, 8, 1, 132), (2081, 1, 1, 132), (300, 8, 2, 132),
-    (5000, 64, 1, 132)])
-def test_mla_decode_plan_covers_the_slots(n_slots, B, bps, sms):
-    """The MLA wrapper's parts: decode_plan's runs of a one-warp block
-    over one kv head."""
-    per_part, n_parts = DA.decode_plan(n_slots, B, 1, 1, bps, sms)
-    assert per_part % 16 == 0 and per_part > 0
+# (slot unit, most parts a batch row) of the two routes' plans: bf16 runs of
+# whole 64-slot tiles, at most one 16-block cluster; float32 16-slot units,
+# at most 1024 parts merged by a second launch
+MLA_ROUTES = {"bf16": (64, 16), "f32": (16, 1024)}
+
+
+@pytest.mark.parametrize("route", sorted(MLA_ROUTES))
+@pytest.mark.parametrize("n_slots,B,slots_on_card", [
+    (2081, 8, 132), (1, 8, 132), (2081, 1, 132), (300, 8, 264),
+    (5000, 64, 132), (2081, 16, 132), (2112, 8, 132), (1101, 8, 132),
+    (64, 3, 132), (65, 1, 132)])
+def test_mla_decode_plan_covers_the_slots(route, n_slots, B, slots_on_card):
+    """``mla_plan``, MLA's own plan: runs of whole tiles that cover the
+    kept slots, the last part's run ending where the slots end (inside a
+    tile where they do), no empty part, at most ``max_parts`` and one a
+    tile, and one wave of blocks over the batch where the card holds it.
+    pos 0 is one slot, one part."""
+    unit, max_parts = MLA_ROUTES[route]
+    per_part, n_parts = DA.mla_plan(n_slots, B, unit, max_parts,
+                                    slots_on_card)
+    assert per_part % unit == 0 and per_part > 0
     assert n_parts * per_part >= n_slots > (n_parts - 1) * per_part
-    assert n_parts <= max(1, sms * bps // B)
+    assert 1 <= n_parts <= min(max_parts, -(-n_slots // unit))
+    assert B * n_parts <= max(B, slots_on_card)
+    if n_slots == 1:
+        assert (per_part, n_parts) == (unit, 1)
+
+
+# The clusters of n = 1 .. 16 blocks of the bf16 MLA kernel that an H100
+# 80GB HBM3 holds at once (``mla_tile_config``'s "clusters" on the card,
+# one block an SM; chip_smoke.py's kernel_build line "clusters_resident")
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+
+@pytest.mark.parametrize("B,want", [(1, 16), (7, 16), (8, 9), (9, 9),
+                                    (10, 8), (16, 6), (17, 6), (18, 5),
+                                    (132, 1), (133, 1)])
+def test_mla_max_parts_from_the_cluster_table(B, want):
+    """The largest cluster of which all B batch rows' clusters are
+    resident at once on an H100, and 1 where not even B single blocks
+    are."""
+    assert DA.mla_max_parts(H100_CLUSTERS, B) == want
+
+
+def test_mla_plan_of_the_serving_call():
+    """minicpm3's decode at pos 2080 on an H100 (132 SMs, one block an
+    SM): bf16 at B 8 takes 9 parts of 256 slots (a cluster of 9 blocks a
+    batch row: 8 clusters of 9 fit at once, of 10 only 7), at B 16 6 of
+    384, at B 1 11 of 192; float32 decode_plan's former answer, 15 parts
+    of 144 slots, unchanged; decode_plan itself, the dense kernel's, as it
+    was."""
+    def bf16(B):
+        return DA.mla_plan(2081, B, 64, DA.mla_max_parts(H100_CLUSTERS, B),
+                           132)
+    assert bf16(8) == (256, 9)
+    assert bf16(16) == (384, 6)
+    assert bf16(1) == (192, 11)
+    assert DA.mla_plan(2081, 8, 16, 1024, 132) == (144, 15)
+    assert DA.decode_plan(2081, 8, 1, 1, 1, 132) == (144, 15)
+    assert DA.mla_plan(2081, 1, 16, 1024, 132) == (16, 131)
 
 
 def _replay(q_lat, q_rope, ckv, krope, pos, scale, per_part, n_parts, ts):
     """The kernel's order of work in float32: each part walks tiles of
-    ``ts`` slots with one online-softmax update per tile, then the parts
-    merge in order p = 0 .. n - 1."""
+    ``ts`` slots with one online-softmax update per tile in log2 units
+    (m = max of s log2 e, p = 2^(s log2 e - m), the correction
+    2^(m_old - m_new)), an empty part keeps m = NEG_INF and l = 0; then
+    the parts merge in the order p = 0 .. n - 1: M = max_p m_p, w_p =
+    2^(m_p - M), out = sum_p acc_p w_p / max(sum_p l_p w_p, 1e-30)."""
     s = (torch.einsum("bhc,blc->bhl", q_lat, ckv)
-         + torch.einsum("bhr,blr->bhl", q_rope, krope)) * scale
+         + torch.einsum("bhr,blr->bhl", q_rope, krope)) * scale \
+        * 1.4426950408889634
     parts = []
     for p in range(n_parts):
         j0, j1 = p * per_part, min(pos + 1, (p + 1) * per_part)
@@ -226,42 +280,68 @@ def _replay(q_lat, q_rope, ckv, krope, pos, scale, per_part, n_parts, ts):
         for t0 in range(j0, j1, ts):
             st = s[..., t0:min(j1, t0 + ts)]
             m_new = torch.maximum(m, st.amax(-1))
-            corr = torch.exp(m - m_new)
-            pr = torch.exp(st - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            pr = torch.exp2(st - m_new[..., None])
             lsum = lsum * corr + pr.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
                 "bhl,blc->bhc", pr, ckv[:, t0:t0 + st.shape[-1]])
             m = m_new
         parts.append((m, lsum, acc))
-    big = torch.stack([m for m, _, _ in parts]).amax(0)
-    w = [torch.exp(m - big) for m, _, _ in parts]
-    den = sum(lsum * wi for (_, lsum, _), wi in zip(parts, w))
-    num = sum(acc * wi[..., None] for (_, _, acc), wi in zip(parts, w))
+    big = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big = torch.maximum(big, m)
+    den = torch.zeros_like(big)
+    num = torch.zeros_like(q_lat)
+    for m, lsum, acc in parts:
+        w = torch.exp2(m - big)
+        den = den + lsum * w
+        num = num + acc * w[..., None]
     return num / den.clamp_min(1e-30)[..., None]
 
 
-@pytest.mark.parametrize("B,L,pos,ts", [(8, 700, 650, 64), (2, 129, 128, 32),
-                                        (1, 64, 0, 64), (3, 300, 200, 32)])
-def test_mla_decode_replay_of_parts_and_merge_matches_plain(B, L, pos, ts):
-    """The kernel's tiles, parts (from ``decode_plan`` on an H100's 132
-    SMs, one block an SM) and merge give the plain version's answer."""
+@pytest.mark.parametrize("route,B,L,pos", [
+    ("bf16", 8, 700, 650), ("f32", 2, 129, 128), ("bf16", 1, 64, 0),
+    ("f32", 3, 300, 200), ("bf16", 8, 2120, 2080), ("bf16", 2, 2120, 191),
+    ("bf16", 16, 2120, 2080), ("bf16", 1, 2120, 2111)])
+def test_mla_decode_replay_of_parts_and_merge_matches_plain(route, B, L,
+                                                            pos):
+    """The kernel's tiles (bf16 64 slots, float32 32), its parts (from
+    ``mla_plan`` on an H100's 132 SMs, one block an SM, bf16 at most
+    ``mla_max_parts`` of the H100's cluster table) and their merge give
+    the plain version's answer."""
     ins = [torch.as_tensor(a) for a in _latents(pos, B, 40, 256, 32, L)]
-    per_part, n_parts = DA.decode_plan(pos + 1, B, 1, 1, 1, 132)
-    got = _replay(*ins, pos, 96 ** -0.5, per_part, n_parts, ts)
+    unit, max_parts = MLA_ROUTES[route]
+    if route == "bf16":
+        max_parts = DA.mla_max_parts(H100_CLUSTERS, B)
+    per_part, n_parts = DA.mla_plan(pos + 1, B, unit, max_parts, 132)
+    got = _replay(*ins, pos, 96 ** -0.5, per_part, n_parts,
+                  64 if route == "bf16" else 32)
     want = DA.mla_decode_attention_plain(*ins, pos, 96 ** -0.5)
     _close(got, want, 1e-5)
 
 
 def test_flash_tile_config_of_the_mla_instance():
-    """tc::Cfg<96, 64>: two 64-column chunks of q and k (the second half
-    outside the tensor map), one of v, and a block within 227 KB."""
+    """tc::MlaCfg, the (96, 64) instance's own tiling: three consumer
+    warpgroups of 64 rows (a 192-row q item), q and k in a 64-column box
+    of 128-byte rows and a 32-column box of 64-byte rows (no padding to
+    128 columns), v in one 64-column box, four stages, a block within 227
+    KB and the register file split by setmaxnreg within 64 K."""
     cfg = FA.tile_config(96, 64)
-    assert (cfg["QK_CHUNKS"], cfg["V_CHUNKS"]) == (2, 1)
-    assert cfg["K_BYTES"] == 2 * cfg["V_BYTES"] == cfg["BK"] * 256
-    assert cfg["SMEM"] == 1024 + cfg["Q_BYTES"] + cfg["NS"] * (
-        cfg["K_BYTES"] + cfg["V_BYTES"]) + cfg["BAR_BYTES"]
+    assert cfg["BQ"] == 64 * cfg["NWG"] and cfg["THREADS"] == 128 * (
+        cfg["NWG"] + 1)
+    assert (cfg["QA_BYTES"], cfg["QB_BYTES"]) == (cfg["BQ"] * 128,
+                                                  cfg["BQ"] * 64)
+    assert (cfg["KA_BYTES"], cfg["KB_BYTES"], cfg["V_BYTES"]) == (
+        cfg["BK"] * 128, cfg["BK"] * 64, cfg["BK"] * 128)
+    assert cfg["STAGE_BYTES"] == cfg["BK"] * (96 + 64) * 2
+    assert cfg["SMEM"] == 1024 + cfg["QA_BYTES"] + cfg["QB_BYTES"] + cfg[
+        "NS"] * cfg["STAGE_BYTES"] + cfg["BAR_BYTES"]
     assert cfg["SMEM"] <= 227 * 1024
+    assert 128 * (cfg["PRODUCER_REGS"] + cfg["NWG"] * cfg[
+        "CONSUMER_REGS"]) <= 65536
     assert (96, 64) in FA.HEAD_DIM_PAIRS
+    # the equal-dim instances keep tc::Cfg
+    assert FA.tile_config(64)["SMEM"] == 115768
 
 
 def test_params_from_jax_carries_the_mla_leaves():
