@@ -142,6 +142,10 @@ Phases:
                 at its microbatch (B 1, S 4096, 64 heads over 8 of 128)
                 and edge cases (softcap,
                 G 1/2/4/8, non-causal, ragged S, S = 1, hd 64 and 128);
+                MLA's (96, 64) instances at minicpm3-4b's microbatch (B 1,
+                S 4096, 40 heads over 40) and at G 4, softcap 30, a window
+                of 100 across tiles, ragged S 1000 and S = 1, with their
+                times there beside SDPA's backward and its backend;
                 ptxas per instantiation (no spills), the wgmma instances'
                 shared memory and HGMMA/UTMALDG counts; CUDA-event times,
                 bounds and SDPA's backward; the kernels profiled calls
@@ -163,6 +167,17 @@ Phases:
                 the backward's delta set to 0; crash-restart at full width
                 with 2 layers, the final loss against the uninterrupted
                 run's at rtol 1e-4
+  mla_train     minicpm3-4b at full width (62 layers unless
+                launch.train.TRAIN_DEPTH cuts them) through
+                repro_torch.launch.train.run: 4 steps of batch 8 x 4096
+                (remat full, AdamW, 8 microbatches); step s, tokens/s, MFU
+                (MLA's attention at q/k 96 and v 64), peak memory, losses
+                (finite, the last below the first), launches a step (flash
+                forward 2 x, delta, dkdv and dq 1 x microbatches x layers;
+                no dkdv sum)
+  mla_train_parity  the same model cut to 4 layers, batch 2 x 512, one
+                AdamW step: card float32 and bf16 vs CPU float32, with
+                train_parity's limits and its delta-0 control
   ssm_train_kernel  wkv6_bwd and mamba_scan_bwd (the backward kernels of
                 WKV6 and the selective scan) vs their plain versions and
                 autograd of the plain forwards (also through the WKV6 and
@@ -224,6 +239,7 @@ non-zero and prints no result.
 """
 import asyncio
 import gc
+import hashlib
 import json
 import math
 import os
@@ -1925,9 +1941,10 @@ def ptxas_by_instance(log, label):
 
 
 def tensor_core_sass(build, so_path, label):
-    """{label(mangled name): {"HGMMA": n, "UTMALDG": m}}: the tensor-core
-    and TMA-load instructions of each labelled function in ``cuobjdump
-    --dump-sass`` of a built library, and the library's totals."""
+    """{label(mangled name): {"HGMMA": n, "UTMALDG": m, "sass_sha256": a
+    hash of its instructions}}: the tensor-core and TMA-load instructions
+    of each labelled function in ``cuobjdump --dump-sass`` of a built
+    library, and the library's totals."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(so_path)],
@@ -1937,8 +1954,12 @@ def tensor_core_sass(build, so_path, label):
     for part in sass.split("Function : ")[1:]:
         name = label(part.split()[0])
         if name:
+            ops = [op.strip() for op in
+                   re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
             per[name] = {"HGMMA": part.count("HGMMA"),
-                         "UTMALDG": part.count("UTMALDG")}
+                         "UTMALDG": part.count("UTMALDG"),
+                         "sass_sha256": hashlib.sha256(
+                             "\n".join(ops).encode()).hexdigest()[:16]}
     return per, {"HGMMA": sass.count("HGMMA"),
                  "UTMALDG": sass.count("UTMALDG")}
 
@@ -3435,6 +3456,12 @@ FLASH_BWD_BF16_REL = 5e-3
 # gemma3-1b's training microbatch: batch 8 over grad_accum 4
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4096, 4
 TRAIN_MICRO_B = 2
+# minicpm3-4b's training microbatch: batch 8 over grad_accum 8; mla_train
+# runs 4 steps of TRAIN_B x TRAIN_S
+MLA_TRAIN_STEPS, MLA_TRAIN_MICRO_B = 4, 1
+# mla_train_parity: minicpm3-4b at full width cut to 4 layers, batch 2,
+# sequence 512, held to train_parity's limits
+MLA_PARITY_TRAIN_LAYERS, MLA_PARITY_TRAIN_B, MLA_PARITY_TRAIN_S = 4, 2, 512
 # train_parity: card against CPU after one AdamW step, one full-width
 # period of gemma3-1b (6 layers), batch 2, sequence 1024.  float32: 1e-3
 # relative on the loss, the grad norm, every gradient leaf and the
@@ -3465,16 +3492,20 @@ BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dkdv_sum",
 
 def _bwd_instance(mangled):
     """A label of a mangled kernel name of flash_attention_bwd.cu, such as
-    'dkdv bf16 wgmma hd 256', 'dq f32 hd 64' (the SIMT route), 'dkdv sum'
-    or 'delta f32', else None."""
-    m = re.search(r"flash_bwd_(dkdv|dq)_wgmma_kernelILi(\d+)E", mangled)
-    if m:
-        return f"{m.group(1)} bf16 wgmma hd {m.group(2)}"
-    m = re.search(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+    'dkdv bf16 wgmma hd 256', 'dq f32 hd 64' (the SIMT route), 'dkdv bf16
+    wgmma hd 96/64' (MLA's q/k and v head dims), 'dkdv sum' or 'delta
+    f32', else None."""
+    def dims(hd, hdv):
+        return hd if hdv in (None, hd) else f"{hd}/{hdv}"
+    m = re.search(r"flash_bwd_(dkdv|dq)_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?",
                   mangled)
     if m:
+        return f"{m.group(1)} bf16 wgmma hd {dims(m.group(2), m.group(3))}"
+    m = re.search(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                  r"(?:Li(\d+)E)?", mangled)
+    if m:
         dt = "f32" if m.group(2) == "f" else "bf16"
-        return f"{m.group(1)} {dt} hd {m.group(3)}"
+        return f"{m.group(1)} {dt} hd {dims(m.group(3), m.group(4))}"
     if "flash_bwd_dkdv_sum_kernel" in mangled:
         return "dkdv sum"
     m = re.search(r"flash_bwd_delta_kernelI(f|13__nv_bfloat16)E", mangled)
@@ -3514,17 +3545,19 @@ def _coarse_ds_bwd(q, k, v, do, lse, delta, kw, scale):
 
 
 def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
-                    seed):
-    """One backward case on the card: the forward's bytes with and without
-    its lse output; the lse against its plain version; the three backward
-    launches against ``flash_attention_bwd_plain`` on the same inputs and
-    against autograd of ``flash_attention_plain``, each repeated bit for
-    bit; in bf16 the controls.  Returns the readings."""
+                    seed, hdv=None):
+    """One backward case on the card (v and dO at head dim ``hdv``, default
+    ``hd``): the forward's bytes with and without its lse output; the lse
+    against its plain version; the three backward launches against
+    ``flash_attention_bwd_plain`` on the same inputs and against autograd
+    of ``flash_attention_plain``, each repeated bit for bit; in bf16 the
+    controls.  Returns the readings."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     kw = dict(causal=causal, window=window, softcap=cap)
+    hdv = hd if hdv is None else hdv
     q, k, v, do = _tensors(seed, ((B, S, H, hd), (B, S, KV, hd),
-                                  (B, S, KV, hd), (B, S, H, hd)), dtype)
+                                  (B, S, KV, hdv), (B, S, H, hdv)), dtype)
     plain_fwd = FA.flash_attention(q, k, v, **kw)
     o, lse = FA.flash_attention_lse(q, k, v, **kw)
     sync()
@@ -3562,8 +3595,10 @@ def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
         sync()
         part_want = FA.flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta,
                                                      **kw)
-        r["partials_rel"] = _rel_err(part, part_want) if S > 1 else None
-        assert _within(part, part_want, limit), (label, r["partials_rel"])
+        r["partials_rel"] = max(_rel_err(a, b) for a, b in
+                                zip(part, part_want)) if S > 1 else None
+        assert all(_within(a, b, limit) for a, b in zip(part, part_want)), \
+            (label, r["partials_rel"])
         plain_sums = FA.flash_bwd_dkdv_sum_plain(part, KV)
         r["sum_bit_equal"] = all(torch.equal(a, b)
                                  for a, b in zip(sums, plain_sums))
@@ -3588,38 +3623,71 @@ def check_flash_bwd(label, B, S, H, KV, hd, causal, window, cap, dtype,
     return r
 
 
-def flash_bwd_bounds(B, S, H, KV, hd, causal, window, dtype):
-    """Bounds of the backward's launches on this run's inputs: bytes (each
+def flash_bwd_bounds(B, S, H, KV, hd, causal, window, dtype, hdv=None):
+    """Bounds of the backward's launches on this run's inputs (q and k at
+    head dim ``hd``, v, dO and O at ``hdv``, default ``hd``): bytes (each
     input read once, each output written once) at the HBM rate against the
-    products of the kept pairs (dkdv: S, dP, dV, dK, 8 hd a pair; dq: S,
-    dP, dQ, 6 hd; delta: 2 hd a row) at the peak of the inputs' type.  In
+    products of the kept pairs (dkdv: S and dK over hd, dP and dV over
+    hdv, 4 (hd + hdv) a pair; dq: S and dQ over hd, dP over hdv,
+    4 hd + 2 hdv; delta: 2 hdv a row) at the peak of the inputs' type.  In
     bf16 with G = H / KV > 1 the dkdv launch writes float32 partials
-    [2, B, S, H, hd], and flash_bwd_dkdv_sum reads them and writes dk and
-    dv (G - 1 float32 adds an element, at the float32 peak)."""
+    ([B, S, H, hd] and [B, S, H, hdv]), and flash_bwd_dkdv_sum reads them
+    and writes dk and dv (G - 1 float32 adds an element, at the float32
+    peak)."""
+    hdv = hd if hdv is None else hdv
     item = 2 if dtype == "bfloat16" else 4
     pairs = B * H * kept_pairs(S, causal, window)
-    q_b, kv_b, rows = item * B * S * H * hd, item * B * S * KV * hd, B * H * S
-    part_b = 2 * 4 * B * S * H * hd
+    q_b, g_b = item * B * S * H * hd, item * B * S * H * hdv
+    k_b, v_b, rows = item * B * S * KV * hd, item * B * S * KV * hdv, \
+        B * H * S
+    part_b = 4 * B * S * H * (hd + hdv)
     split = dtype == "bfloat16" and H > KV
     out = {
-        "flash_bwd_delta": attn_bound_ms(2 * q_b + 4 * rows,
-                                         2 * B * S * H * hd, dtype),
+        "flash_bwd_delta": attn_bound_ms(2 * g_b + 4 * rows,
+                                         2 * B * S * H * hdv, dtype),
         "flash_bwd_dkdv": attn_bound_ms(
-            2 * q_b + 2 * kv_b + (part_b if split else 2 * kv_b) + 8 * rows,
-            8 * hd * pairs, dtype),
-        "flash_bwd_dq": attn_bound_ms(3 * q_b + 2 * kv_b + 8 * rows,
-                                      6 * hd * pairs, dtype)}
+            q_b + g_b + k_b + v_b + (part_b if split else k_b + v_b)
+            + 8 * rows, 4 * (hd + hdv) * pairs, dtype),
+        "flash_bwd_dq": attn_bound_ms(2 * q_b + g_b + k_b + v_b + 8 * rows,
+                                      (4 * hd + 2 * hdv) * pairs, dtype)}
     if split:
         out["flash_bwd_dkdv_sum"] = attn_bound_ms(
-            part_b + 2 * kv_b, 2 * B * S * KV * hd * (H // KV - 1), "float32")
+            part_b + k_b + v_b, B * S * KV * (hd + hdv) * (H // KV - 1),
+            "float32")
     return out
 
 
+def _sdpa_backend(fn):
+    """The SDPA backend that one traced call of ``fn`` ran, by its device
+    kernels' names: "cudnn", "flash", "efficient" (the CUTLASS
+    memory-efficient kernels), "math" (none of those) or "not traced" (the
+    profiler recorded no device event), with the names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    if not names:
+        return "not traced", names
+    low = " ".join(names).lower()
+    for backend, key in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("efficient", "fmha")):
+        if key in low:
+            return backend, names
+    return "math", names
+
+
 def sdpa_backward_times(q, k, v, do, window):
-    """SDPA's backward at the shape of [B, S, heads, hd] q, k, v and do,
-    causal (with a window, through a boolean mask), on [B, heads, S, hd]
-    copies, by CUDA events: forward, forward and backward, and the
-    backward as their difference; None where SDPA has no GQA."""
+    """SDPA's backward at the shape of [B, S, heads, hd] q, k, v and do
+    (v and do may have a head dim of their own), causal (with a window,
+    through a boolean mask), on [B, heads, S, hd] copies, by CUDA events:
+    forward, forward and backward, and the backward as their difference,
+    with the backend that took the call (``_sdpa_backend``); None where
+    SDPA has no GQA."""
     import torch
     import torch.nn.functional as F
     if not sdpa_has_gqa():
@@ -3642,25 +3710,31 @@ def sdpa_backward_times(q, k, v, do, window):
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), dot)
     f_ms, fb_ms = cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10)
+    backend, names = _sdpa_backend(fwd_bwd)
     return {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
-            "backward_ms": fb_ms - f_ms}
+            "backward_ms": fb_ms - f_ms, "backend": backend,
+            "kernels": names[:12]}
 
 
-def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
+def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype, hdv=None,
+                    trace=True):
     """CUDA-event times of each backward launch and of its plain version,
     the bounds, and SDPA's backward at the same shape (forward and
-    backward less the forward, on [B, H, S, hd] copies; bf16 only).  In
+    backward less the forward, on [B, H, S, hd] copies; bf16 only); v and
+    dO at head dim ``hdv`` (default ``hd``).  In
     bf16 with G > 1 the dkdv launch (its partials) and the sum are timed
     apart, the sum beside one ``torch.sum`` over the heads of the same
-    partials (float32 out: without the rounding).  The kernel names that
+    partials (float32 out: without the rounding).  With ``trace``, the
+    kernel names that
     profiled calls of the whole backward show (``route_trace`` "bwd") go
     with the times, and those the traces missed; fails unless the route's
     dkdv and dq kernels were seen, and on any kernel of the other route."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     kw = dict(window=window)
+    hdv = hd if hdv is None else hdv
     q, k, v, do = _tensors(seed, ((B, S, H, hd), (B, S, KV, hd),
-                                  (B, S, KV, hd), (B, S, H, hd)), dtype)
+                                  (B, S, KV, hdv), (B, S, H, hdv)), dtype)
     o, lse = FA.flash_attention_lse(q, k, v, **kw)
     delta = FA.flash_bwd_delta(o, do)
     steps = [("flash_bwd_delta", lambda: FA.flash_bwd_delta(o, do),
@@ -3688,20 +3762,22 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype):
         out[name] = {"ms": cuda_ms(fn, 10, warm=2),
                      "plain_ms": cuda_ms(plain, 3, warm=1)}
     for name, (bnd, by) in flash_bwd_bounds(B, S, H, KV, hd, True, window,
-                                            dtype).items():
+                                            dtype, hdv).items():
         out[name].update(bound_ms=bnd, bound_by=by)
     if split:
-        grouped = part.view(2, B, S, KV, H // KV, hd)
+        grouped = [t.view(B, S, KV, H // KV, -1) for t in part]
         out["flash_bwd_dkdv_sum"]["library_ms"] = cuda_ms(
-            lambda: torch.sum(grouped, dim=4), 10, warm=2)
+            lambda: [torch.sum(t, dim=3) for t in grouped], 10, warm=2)
         del part, grouped
-    traced, traced_in = route_trace("bwd", dtype=dtype, window=window)
-    want, need = bwd_route_kernels(dtype)
-    seen = _bwd_kernels_seen(traced)
-    assert need <= seen <= want, \
-        f"flash backward {dtype} window {window}: the trace shows {seen}"
-    out.update(trace_kernels=sorted(seen), trace_missing=sorted(want - seen),
-               route_traced_in=traced_in)
+    if trace:
+        traced, traced_in = route_trace("bwd", dtype=dtype, window=window)
+        want, need = bwd_route_kernels(dtype)
+        seen = _bwd_kernels_seen(traced)
+        assert need <= seen <= want, \
+            f"flash backward {dtype} window {window}: the trace shows {seen}"
+        out.update(trace_kernels=sorted(seen),
+                   trace_missing=sorted(want - seen),
+                   route_traced_in=traced_in)
     out["forward_ms"] = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)
     out["sdpa"] = sdpa_backward_times(q, k, v, do, window) \
         if dtype == "bfloat16" else None
@@ -3726,13 +3802,15 @@ def bwd_build(build):
     ptxas's registers, spills and stack (none may spill), for the wgmma
     instances their dynamic shared memory and tiles (``bwd_tc_config``)
     and the counts of tensor-core (HGMMA) and TMA-load (UTMALDG)
-    instructions in their SASS.  Exactly 15 instances: delta in both
-    types, dkdv and dq in float32 (SIMT) and bf16 (wgmma) at hd 64, 128
-    and 256, and the dkdv sum; no bf16 SIMT instance is left."""
+    instructions in their SASS, and a hash of every instance's SASS
+    (``sass_sha256``, which ``scripts/kernel_ab.py``'s train step compares
+    between trees).  Exactly 19 instances: delta in both types, dkdv and
+    dq in float32 (SIMT) and bf16 (wgmma) at hd 64, 128 and 256 and at
+    MLA's (96, 64), and the dkdv sum; no bf16 SIMT instance is left."""
     from repro_torch.kernels import flash_attention as FA
     per = ptxas_by_instance(build.BUILD_INFO["flash_attention_bwd"]["log"],
                             _bwd_instance)
-    assert len(per) == 15, sorted(per)
+    assert len(per) == 19, sorted(per)
     assert not [n for n in per if n.split()[1:3] == ["bf16", "hd"]], per
     spills = {n: i for n, i in per.items()
               if max(i.get("spill_stores", 1), i.get("spill_loads", 1)) > 0}
@@ -3740,10 +3818,11 @@ def bwd_build(build):
     so = build.build_all(["flash_attention_bwd"])["flash_attention_bwd"]
     counts, _ = tensor_core_sass(build, so, _bwd_instance)
     for name, info in per.items():
+        info["sass_sha256"] = counts.get(name, {}).get("sass_sha256")
         if "wgmma" in name:
             info.update(counts.get(name, {}))
-            kind, hd = name.split()[0], int(name.split()[-1])
-            cfg = FA.bwd_tc_config(hd)[kind]
+            kind, dims = name.split()[0], name.split()[-1].split("/")
+            cfg = FA.bwd_tc_config(*map(int, dims))[kind]
             info.update(dynamic_smem_bytes=cfg["SMEM"], BQ=cfg["BQ"],
                         BK=cfg["BK"], stages=cfg["NS"])
             assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
@@ -3777,23 +3856,49 @@ def train_kernel_phase(build):
         # jamba's attention layer at its training microbatch
         ("jamba train H64 KV8 hd 128", 1, TRAIN_S, JAMBA_H, JAMBA_KV,
          JAMBA_HD, True, 0, 0.0)]
+    # MLA's (96, 64): minicpm3-4b's training microbatch, grouped heads (the
+    # bf16 partials summed at both widths), a softcap, a window across
+    # tiles, ragged S, S = 1
+    mla_cases = [   # label, B, S, H, KV, causal, window, cap
+        ("mla train H40", MLA_TRAIN_MICRO_B, TRAIN_S, MLA_H, MLA_H, True,
+         0, 0.0),
+        ("mla G4 H8 KV2", 1, 512, 8, 2, True, 0, 0.0),
+        ("mla softcap 30", 1, 512, 8, 8, True, 0, 30.0),
+        ("mla window 100 across tiles", 1, 700, 8, 8, True, 100, 0.0),
+        ("mla ragged S=1000", 1, 1000, 8, 8, True, 0, 0.0),
+        ("mla S=1", 2, 1, 8, 8, True, 0, 0.0)]
     rel, worst = {}, {}
+
+    def run(label, args, dt, seed, key, hdv=None):
+        r = check_flash_bwd(label, *args, dt, seed, hdv=hdv)
+        rel[f"{label} {dt}"] = r
+        worst[key] = max([worst.get(key, 0.0)] + [
+            r[n]["max_abs_err"] for n in ("dq", "dk", "dv")])
+        if "sum_max_abs_err" in r:     # the bf16 dkdv sum's cases
+            worst["sum"] = max(worst.get("sum", 0.0), r["sum_max_abs_err"])
+        _free_card()
     for i, c in enumerate(cases):
         for dt in ("bfloat16", "float32"):
-            r = check_flash_bwd(*c, dt, 50 + i)
-            rel[f"{c[0]} {dt}"] = r
-            worst[dt] = max([worst.get(dt, 0.0)] + [
-                r[n]["max_abs_err"] for n in ("dq", "dk", "dv")])
-            if "sum_max_abs_err" in r:     # the bf16 dkdv sum's cases
-                worst["sum"] = max(worst.get("sum", 0.0),
-                                   r["sum_max_abs_err"])
-            _free_card()
+            run(c[0], c[1:], dt, 50 + i, dt)
+    for i, (label, b, s_, h, kv, causal, window, cap) in enumerate(mla_cases):
+        for dt in ("bfloat16", "float32"):
+            run(label, (b, s_, h, kv, MLA_HDQK, causal, window, cap), dt,
+                70 + i, f"mla {dt}", hdv=MLA_HDV)
+            if "sum_max_abs_err" in rel[f"{label} {dt}"]:
+                worst["mla sum"] = max(worst.get("mla sum", 0.0), rel[
+                    f"{label} {dt}"]["sum_max_abs_err"])
     times = {}
     for name, window in (("global", 0), ("local", 512)):
         for dt in ("bfloat16", "float32"):
             times[f"{name} {dt}"] = flash_bwd_times(9, B, S, 4, 1, 256,
                                                     window, dt)
             _free_card()
+    # MLA's training microbatch: bf16, the main path's type, and float32
+    for dt in ("bfloat16", "float32"):
+        times[f"mla {dt}"] = flash_bwd_times(
+            11, MLA_TRAIN_MICRO_B, TRAIN_S, MLA_H, MLA_H, MLA_HDQK, 0, dt,
+            hdv=MLA_HDV, trace=False)
+        _free_card()
     emit("train_kernel", t0, ptxas=per, cases=rel, max_abs_err=worst,
          tolerances={"float32": FLASH_BWD_F32_REL,
                      "bfloat16": FLASH_BWD_BF16_REL}, times=times)
@@ -3812,8 +3917,15 @@ def _train_flops(cfg, B, S):
     embed = cfg.padded_vocab_size * cfg.d_model
     dense = 6.0 * (counts["active"] - embed) * B * S
     head = 6.0 * cfg.d_model * cfg.padded_vocab_size * B * S
-    hd, H = cfg.resolved_head_dim, cfg.n_heads
-    attn = sum(3.0 * 4 * hd * H * B * kept_pairs(
+    # 2 (q.k head + v head) a kept pair and head in the forward: MLA's
+    # q/k heads are nope + rope and its v heads its own (minicpm3-4b: 96
+    # and 64), the other families' both resolved_head_dim
+    H = cfg.n_heads
+    if cfg.use_mla:
+        hd_qk, hd_v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        hd_qk = hd_v = cfg.resolved_head_dim
+    attn = sum(3.0 * 2 * (hd_qk + hd_v) * H * B * kept_pairs(
         S, True, cfg.window_size if cfg.layer_kind(i) == "attn_local" else 0)
         for i in range(cfg.n_layers)
         if cfg.layer_kind(i) in ("attn", "attn_local"))
@@ -3921,8 +4033,10 @@ def _grad_rel(got, want):
 
 
 def _step_on(model, batch):
-    """Gradients, metrics and the parameters after one AdamW step, on the
-    CPU (float32 copies)."""
+    """Gradients, metrics and the parameters after one AdamW step, as
+    float32 on the card (a model on the CPU: its readings moved to the
+    card, where ``_compare_step`` reads them all)."""
+    import torch
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import get_optimizer
     grads, metrics = TS.compute_grads(model, batch)
@@ -3930,9 +4044,11 @@ def _step_on(model, batch):
     params = TS.params_of(model)
     _, _, gnorm = opt.update(grads, opt.init(params), params)
     sync()
-    return ({n: g.float().cpu() for n, g in grads.items()},
+    return ({n: g.detach().to(LM_DEVICE, torch.float32)
+             for n, g in grads.items()},
             {"loss": float(metrics["loss"]), "grad_norm": float(gnorm)},
-            {n: p.detach().float().cpu() for n, p in params.items()})
+            {n: p.detach().to(LM_DEVICE, torch.float32)
+             for n, p in params.items()})
 
 
 def _adamw_eps():
@@ -3996,44 +4112,12 @@ def train_parity_phase():
     card with the backward's delta set to 0).  Then crash-restart on the
     card at full width with 2 layers: a crash after step 2 of 4, the
     resumed run's final loss against the uninterrupted run's."""
-    import dataclasses
     import tempfile
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
-    from repro_torch.modeling.model import Model, init_params
-    from repro_torch.train.data import make_batch
     t0 = time.perf_counter()
     cfg = get_config("gemma3-1b", n_layers=6, grad_accum=1)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params = init_params(cfg32, 4, "cpu")
-    batch = make_batch(cfg, PARITY_TRAIN_B, PARITY_TRAIN_S, 0, seed=4)
-    on_card = {n: t.to(LM_DEVICE) for n, t in batch.items()}
-
-    def to(tree, dtype):
-        return _map_tree(lambda t: t.to(LM_DEVICE, dtype, copy=True), tree)
-    f32 = _step_on(Model(cfg32, to(params, torch.float32)).trainable(),
-                   on_card)
-    bf16 = _step_on(Model(cfg, to(params, torch.bfloat16)).trainable(),
-                    on_card)
-    real_delta = FA.flash_bwd_delta
-    try:           # the control: the backward's delta set to 0
-        FA.flash_bwd_delta = lambda o, do: torch.zeros(
-            o.shape[0], o.shape[2], o.shape[1], dtype=torch.float32,
-            device=o.device)
-        control = _step_on(Model(cfg32, to(params, torch.float32))
-                           .trainable(), on_card)
-    finally:
-        FA.flash_bwd_delta = real_delta
-    _free_card()
-    t1 = time.perf_counter()         # last: the step updates params in place
-    cpu = _step_on(Model(dataclasses.replace(cfg32, remat="none"),
-                         params).trainable(), batch)
-    cpu_s = time.perf_counter() - t1
-    del params
-    r = {"float32": _compare_step(f32, cpu), "bfloat16": _compare_step(
-        bf16, cpu), "control_delta_0": _compare_step(control, cpu)}
+    r, cpu_s = _parity_step_readings(cfg, PARITY_TRAIN_B, PARITY_TRAIN_S, 4)
 
     # crash-restart on the card: 2 layers, batch 4 x 512, 4 steps
     kw = dict(smoke=False, n_layers=2, device=LM_DEVICE)
@@ -4057,19 +4141,174 @@ def train_parity_phase():
          crash_restart={"layers": 2, "batch": 4, "seq": 512,
                         "losses": ref, "resumed_losses": resumed,
                         "bit_equal": resumed[-1] == ref[-1]})
+    _assert_parity("train_parity", r)
+    assert len(resumed) == 2, resumed
+    assert abs(resumed[-1] - ref[-1]) <= 1e-4 * abs(ref[-1]), (ref, resumed)
+    return r
+
+
+def _parity_step_readings(cfg, B, S, seed):
+    """One AdamW step of ``cfg`` (grad_accum 1) from the same float32
+    weights drawn on the CPU (seed ``seed``), batch B x S: the card in
+    float32 (SIMT forward and backward, TF32 off), in bfloat16 (the weights
+    rounded; the wgmma kernels) and the control (float32 on the card with
+    the flash backward's delta set to 0) against the CPU in float32 (plain
+    versions, remat none), each ``_compare_step``'s readings; and the
+    CPU step's seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.modeling.model import Model, init_params
+    from repro_torch.train.data import make_batch
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = init_params(cfg32, seed, "cpu")
+    batch = make_batch(cfg, B, S, 0, seed=seed)
+    on_card = {n: t.to(LM_DEVICE) for n, t in batch.items()}
+
+    def to(tree, dtype):
+        return _map_tree(lambda t: t.to(LM_DEVICE, dtype, copy=True), tree)
+    f32 = _step_on(Model(cfg32, to(params, torch.float32)).trainable(),
+                   on_card)
+    bf16 = _step_on(Model(cfg, to(params, torch.bfloat16)).trainable(),
+                    on_card)
+    real_delta = FA.flash_bwd_delta
+    try:           # the control: the backward's delta set to 0
+        FA.flash_bwd_delta = lambda o, do: torch.zeros(
+            o.shape[0], o.shape[2], o.shape[1], dtype=torch.float32,
+            device=o.device)
+        control = _step_on(Model(cfg32, to(params, torch.float32))
+                           .trainable(), on_card)
+    finally:
+        FA.flash_bwd_delta = real_delta
+    _free_card()
+    t1 = time.perf_counter()         # last: the step updates params in place
+    cpu = _step_on(Model(dataclasses.replace(cfg32, remat="none"),
+                         params).trainable(), batch)
+    cpu_s = time.perf_counter() - t1
+    del params
+    return {"float32": _compare_step(f32, cpu), "bfloat16": _compare_step(
+        bf16, cpu), "control_delta_0": _compare_step(control, cpu)}, cpu_s
+
+
+def _assert_parity(name, r):
+    """float32 within TRAIN_F32_REL (and TRAIN_F32_FAR_REL where |g| >>
+    eps), bf16 within TRAIN_BF16_REL, and the control beyond it."""
     a = r["float32"]
     for key in ("loss_rel", "grad_norm_rel", "grad_rel_max",
                 "params_after_rel_max"):
-        assert a[key] <= TRAIN_F32_REL, f"train_parity float32 {key}: {a}"
+        assert a[key] <= TRAIN_F32_REL, f"{name} float32 {key}: {a}"
     assert a["params_after_rel_far"] <= TRAIN_F32_FAR_REL, \
-        f"train_parity float32 where |g| >> eps: {a['params_after_rel_by_g']}"
+        f"{name} float32 where |g| >> eps: {a['params_after_rel_by_g']}"
     b = r["bfloat16"]
     assert b["loss_rel"] <= TRAIN_BF16_REL and \
-        b["grad_rel_max"] <= TRAIN_BF16_REL, f"train_parity bfloat16: {b}"
+        b["grad_rel_max"] <= TRAIN_BF16_REL, f"{name} bfloat16: {b}"
     assert r["control_delta_0"]["grad_rel_max"] > TRAIN_BF16_REL, \
-        f"train_parity: the control passes: {r['control_delta_0']}"
-    assert len(resumed) == 2, resumed
-    assert abs(resumed[-1] - ref[-1]) <= 1e-4 * abs(ref[-1]), (ref, resumed)
+        f"{name}: the control passes: {r['control_delta_0']}"
+
+
+def mla_train_phase():
+    """minicpm3-4b at full width (d 2560, 40 heads, q_lora 768, kv_lora
+    256, d_ff 6400, vocab 73,448) and the depth ``launch.train`` trains
+    (``train_config``) through ``repro_torch.launch.train.run``: 4 steps of
+    batch 8 x 4096 (remat full, AdamW, grad_accum 8), the weights drawn on
+    the card.  The counts are set to 0 just before the run and read just
+    after it: every microbatch and layer runs the flash forward's (96, 64)
+    instance twice (remat) and delta, dkdv and dq once each, and no dkdv
+    sum (40 heads over 40).  The first step is the warm-up, outside the
+    runtime log's median."""
+    import tempfile
+    import torch
+    from repro_torch.configs import CUT_KEYS, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import autoconfig as AC
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    cfg = train.train_config(MLA_ARCH)
+    assert (cfg.remat, cfg.optimizer, cfg.grad_accum) == ("full", "adamw", 8)
+    hist = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log = os.path.join(tmp, "runtime.jsonl")
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        FA.LAUNCHES = FA.DELTA_LAUNCHES = FA.DKDV_LAUNCHES = 0
+        FA.DKDV_SUM_LAUNCHES = FA.DQ_LAUNCHES = 0
+        t1 = time.perf_counter()
+        losses = train.run(MLA_ARCH, MLA_TRAIN_STEPS, TRAIN_B, TRAIN_S,
+                           smoke=False, device=LM_DEVICE, runtime_log=log,
+                           history=hist)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = {"flash_attention": FA.LAUNCHES,
+                    "flash_bwd_delta": FA.DELTA_LAUNCHES,
+                    "flash_bwd_dkdv": FA.DKDV_LAUNCHES,
+                    "flash_bwd_dkdv_sum": FA.DKDV_SUM_LAUNCHES,
+                    "flash_bwd_dq": FA.DQ_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+    _free_card()
+    step_s = rec["median_step_s"]
+    model_flops, hw_flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    job = ShapeConfig("chip_smoke_train", TRAIN_S, TRAIN_B, "train")
+    predicted = AC.predicted_step_time(cfg, job, AC.GPU_FAMILIES["h100-sxm"],
+                                       1)
+    emit("mla_train", t0, arch=MLA_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, q_lora=cfg.q_lora_rank,
+         kv_lora=cfg.kv_lora_rank, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         batch=TRAIN_B, seq=TRAIN_S, grad_accum=cfg.grad_accum,
+         remat=cfg.remat, optimizer=cfg.optimizer,
+         params=cfg.param_counts()["total"], losses=losses, history=hist,
+         run_wall_s=wall, step_s=step_s,
+         tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+         model_flops_per_step=model_flops,
+         mfu=model_flops / step_s / BF16_OPS_PER_S,
+         hfu_with_remat=hw_flops / step_s / BF16_OPS_PER_S,
+         peak_device_bytes=peak, launches=launches,
+         launches_per_step={n: c / MLA_TRAIN_STEPS
+                            for n, c in launches.items()},
+         runtime_log_line=rec,
+         analytic={"predicted_step_s_h100_row": predicted,
+                   "measured_step_s": step_s,
+                   "measured_over_predicted": step_s / predicted})
+    assert len(losses) == MLA_TRAIN_STEPS and all(map(math.isfinite, losses))
+    assert losses[-1] < losses[0], f"mla_train: the loss did not fall: {losses}"
+    micro = MLA_TRAIN_STEPS * cfg.grad_accum * cfg.n_layers
+    assert cfg.n_heads == MLA_H and cfg.use_mla
+    assert launches == {"flash_attention": 2 * micro,
+                        "flash_bwd_delta": micro, "flash_bwd_dkdv": micro,
+                        "flash_bwd_dkdv_sum": 0,
+                        "flash_bwd_dq": micro}, launches
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["final_loss"] == losses[-1]
+    # the runtime-log record names a depth cut where train_config made one
+    assert {k: rec[k] for k in CUT_KEYS if k in rec} == (
+        {"n_layers": cfg.n_layers}
+        if cfg.n_layers != get_config(MLA_ARCH).n_layers else {}), rec
+    return launches
+
+
+def mla_train_parity_phase():
+    """minicpm3-4b at full width cut to 4 layers, batch 2, sequence 512,
+    one AdamW step from the same float32 weights drawn on the CPU: the card
+    in float32 (the SIMT (96, 64) instances) and in bfloat16 (the wgmma
+    ones) against the CPU in float32, and the delta-0 control, held to
+    train_parity's limits."""
+    from repro_torch.launch.train import train_config
+    t0 = time.perf_counter()
+    cfg = train_config(MLA_ARCH, n_layers=MLA_PARITY_TRAIN_LAYERS,
+                       grad_accum=1)
+    r, cpu_s = _parity_step_readings(cfg, MLA_PARITY_TRAIN_B,
+                                     MLA_PARITY_TRAIN_S, 5)
+    emit("mla_train_parity", t0, arch=MLA_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=cfg.param_counts()["total"],
+         batch=MLA_PARITY_TRAIN_B, seq=MLA_PARITY_TRAIN_S, cpu_step_s=cpu_s,
+         readings=r,
+         tolerances={"float32": TRAIN_F32_REL, "bfloat16": TRAIN_BF16_REL,
+                     "float32_params_where_g_over_eps_above":
+                     [ADAMW_FAR_EPS, TRAIN_F32_FAR_REL]})
+    _assert_parity("mla_train_parity", r)
+    _free_card()
     return r
 
 
@@ -4752,6 +4991,41 @@ def bwd_kernel_line(name, launches, err, times):
     return out
 
 
+def mla_bwd_kernel_line(name, launches, err, times):
+    """The ``kernels`` line's entry of one flash backward launch at MLA's
+    (96, 64) instance: times at minicpm3-4b's training microbatch, bf16
+    (the main path's type), beside float32's; launches on mla_train's
+    path; the library time SDPA's whole backward at the same shape, with
+    the backend that took it."""
+    t, f32 = times["mla bfloat16"], times["mla float32"]
+    sdpa = t["sdpa"]
+    out = {"name": f"{name}_mla", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:72 (its "
+                       "gradient: the JAX package has no Pallas backward)",
+           "instance": "q/k head 96, v head 64 (q and k in three 32-column "
+                       "boxes with 64-byte swizzle; dK and dQ one m64n96 "
+                       "product a step)",
+           "launches": launches,
+           "max_abs_err": max(err["mla bfloat16"], err["mla float32"]),
+           "max_abs_err_by_dtype": {"bfloat16": err["mla bfloat16"],
+                                    "float32": err["mla float32"]},
+           "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
+           "bound_ms": t[name]["bound_ms"], "bound_by": t[name]["bound_by"],
+           "library_ms": None, "ms_from": "cuda events",
+           "shape": f"minicpm3-4b training microbatch B={MLA_TRAIN_MICRO_B} "
+                    f"S={TRAIN_S} H=KV={MLA_H} q/k hd={MLA_HDQK} v "
+                    f"hd={MLA_HDV} causal bf16",
+           "ms_float32": f32[name]["ms"],
+           "bound_ms_float32": f32[name]["bound_ms"]}
+    if name != "flash_bwd_delta":
+        out.update(library_ms=sdpa and sdpa["backward_ms"],
+                   library_backend=sdpa and sdpa["backend"],
+                   library_covers="SDPA's whole backward (dq, dk and dv): "
+                                  "forward and backward less the forward")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4834,6 +5108,12 @@ def main():
     bwd_err, bwd_times = train_kernel_phase(build)
     train_launches = train_phase()
     train_parity_phase()
+
+    # ---- main path of slice 16: minicpm3-4b training (mla_train sets the
+    # flash counts to 0 itself and reads them after)
+    _free_card()
+    mla_train_launches = mla_train_phase()
+    mla_train_parity_phase()
 
     # ---- main paths of slice 12: RWKV and Mamba training (each phase
     # sets the counts to 0 itself and reads them after)
@@ -4952,7 +5232,8 @@ def main():
         "tflops": fm["tflops"],
         "shape": f"minicpm3-4b prefill B={SERVE_B} S={SERVE_PROMPT} "
                  f"H=KV={MLA_H} q/k hd={MLA_HDQK} v hd={MLA_HDV} causal "
-                 "bf16"}, {
+                 "bf16",
+        "launches_mla_train": mla_train_launches["flash_attention"]}, {
         "name": "mla_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
         "replaces": "src/repro/modeling/attention.py:457 (MLA's absorbed "
@@ -4999,6 +5280,9 @@ def main():
                              bwd_times),
              launches_jamba_train=jamba_train_launches[name])
         for name in BWD_KERNELS] + [
+        mla_bwd_kernel_line(name, mla_train_launches[name], bwd_err,
+                            bwd_times)
+        for name in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")] + [
         dict(ssm_bwd_kernel_line("wkv6_bwd",
                                  rwkv_train_launches["wkv6_bwd"], ssm_err,
                                  ssm_times),

@@ -33,12 +33,17 @@ at gemma3-1b's global and local layers (B 8, S 2048, 4 heads over 1 of
 instructions of the bf16 serving instances in ``cuobjdump --dump-sass``
 of the built library (the instance without the training lse output), so
 that two trees show whether serving runs the same code.  The step
-"train" (also run only when ``--only`` names it) times the bf16 flash
+"train" (also run only when ``--only`` names it) hashes the SASS of every
+kernel function of the flash backward's library (``bwd_sass``, the names
+keyed alike across the change of the backward's template from one head
+dim to a q/k and a v head dim), times the bf16 flash
 backward at gemma3-1b's training microbatch (B 2, S 4096, 4 query heads
 over 1 of 256, causal; the global layer and window 512) by CUDA events:
 the whole backward (``flash_attention_bwd``) and each public launch
 wrapper (delta, dkdv with its head sum where the tree has one, dq), with
-SDPA's backward beside them; then a gemma3-1b training run at full width
+SDPA's backward beside them, and the same at MLA's (96, 64) on
+minicpm3-4b's microbatch (B 1, S 4096, 40 heads) where the tree's backward
+takes that pair; then a gemma3-1b training run at full width
 and depth (10 steps of 8 x 4096, the runtime log's median step, warm-up
 excluded).  Each step of that run also records its wall and process CPU
 seconds on the host, and what ``nvidia-smi`` sampled during it every
@@ -200,7 +205,19 @@ MLA_DECODE = (8, 2120, 2080)
 # kernel functions that differ between trees by design in the mla step:
 # MLA's flash instance (its wgmma kernel, whatever its name) and decode
 MLA_FUNCTIONS = re.compile(r"flash_fwd_mla_kernel|flash_fwd_wgmma_kernelILi96ELi64E"
-                           r"|mla_(decode|merge)")
+                           r"|mla_(decode|merge)|flash_bwd_\w+ILi96ELi64E")
+
+
+def sass_name(mangled):
+    """A kernel function's name without the anonymous namespace's per-file
+    tag, which differs between trees, and with the flash backward's head
+    dims as one number where they are equal (``<64>`` before the backward
+    took a q/k and a v head dim, ``<64, 64>`` since), so that two trees
+    key the same function alike."""
+    name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
+    if "flash_bwd" in name:
+        name = re.sub(r"Li(\d+)ELi\1E", r"Li\1E", name)
+    return name
 
 
 def all_sass(built):
@@ -217,8 +234,7 @@ def all_sass(built):
                               capture_output=True, text=True, check=True,
                               timeout=600).stdout
         for part in sass.split("Function : ")[1:]:
-            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
-                          part.split()[0])
+            name = sass_name(part.split()[0])
             ops = [op.strip() for op in
                    re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
             to = mla if MLA_FUNCTIONS.search(name) else other
@@ -342,6 +358,9 @@ def flash(label):
 
 
 TRAIN_BWD = {"bwd_global": 0, "bwd_local": 512}   # window
+# minicpm3-4b's training microbatch: B 1, S 4096, 40 heads over 40 of q/k
+# head 96 and v head 64, causal (a tree whose backward takes the pair)
+TRAIN_BWD_MLA = (1, 4096, 40, 96, 64)
 TRAIN_STEPS = 10
 SMI_QUERY = "clocks.sm,power.draw,utilization.gpu,{}"
 SMI_REASONS = ("clocks_event_reasons.active",
@@ -403,8 +422,11 @@ def train(label):
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as T
-    build.build_all(["flash_attention", "flash_attention_bwd"])
+    built = build.build_all(["flash_attention", "flash_attention_bwd"])
     out = {"label": label, "card": CS.nvidia_smi()}
+    sass, _ = all_sass({"flash_attention_bwd":
+                        built["flash_attention_bwd"]})
+    out["bwd_sass"] = sass.get("flash_attention_bwd", {})
     B, S, H, KV, hd = CS.TRAIN_MICRO_B, CS.TRAIN_S, 4, 1, 256
     for name, window in TRAIN_BWD.items():
         q, k, v, do = CS._tensors(9, ((B, S, H, hd), (B, S, KV, hd),
@@ -424,6 +446,29 @@ def train(label):
             "sdpa": CS.sdpa_backward_times(q, k, v, do, window)}
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
+    Bm, Sm, Hm, hdq, hdv = TRAIN_BWD_MLA
+    q, k, v, do = CS._tensors(9, ((Bm, Sm, Hm, hdq), (Bm, Sm, Hm, hdq),
+                                  (Bm, Sm, Hm, hdv), (Bm, Sm, Hm, hdv)),
+                              "bfloat16")
+    if (hdq, hdv) in getattr(FA, "HEAD_DIM_PAIRS", ()):
+        o, lse = FA.flash_attention_lse(q, k, v)
+        try:
+            FA.flash_attention_bwd(q, k, v, o, lse, do)
+        except ValueError as e:          # a tree before the (96, 64) backward
+            out["bwd_mla"] = {"refused": str(e)}
+        else:
+            delta = FA.flash_bwd_delta(o, do)
+            out["bwd_mla"] = {
+                "backward_ms": CS.cuda_ms(lambda: FA.flash_attention_bwd(
+                    q, k, v, o, lse, do), 10, warm=2),
+                "delta_ms": CS.cuda_ms(lambda: FA.flash_bwd_delta(o, do), 10),
+                "dkdv_ms": CS.cuda_ms(lambda: FA.flash_bwd_dkdv(
+                    q, k, v, do, lse, delta), 10, warm=2),
+                "dq_ms": CS.cuda_ms(lambda: FA.flash_bwd_dq(
+                    q, k, v, do, lse, delta), 10, warm=2),
+                "sdpa": CS.sdpa_backward_times(q, k, v, do, 0)}
+    del q, k, v, do
+    torch.cuda.empty_cache()
     history, samples, stop = StepStamps(), [], threading.Event()
     sampler = threading.Thread(target=smi_sampler, args=(stop, samples))
     with tempfile.TemporaryDirectory() as tmp:

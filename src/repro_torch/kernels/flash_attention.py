@@ -8,11 +8,11 @@ scores ``(q * scale) . k`` (scale hd**-0.5 by default), an optional logit
 softcap ``cap * tanh(s / cap)``, a causal mask (k <= q), a sliding window
 (k > q - window) and grouped KV heads (the kv head of query head h is
 h // (H // KV)).  Masked scores take the finite NEG_INF = -2e38.  hdv is
-hd (64, 128 or 256) but for MLA's prefill (minicpm3: q and k heads of 96,
-the rope part shared by every head, v heads of 64), the pair a bf16
-kernel of its own computes (``HEAD_DIM_PAIRS``; ``tile_config(96, 64)``
-reads its ``tc::MlaCfg``); its backward is not written yet, so the
-backward refuses it.  It is the
+hd (64, 128 or 256) but for MLA's prefill and training (minicpm3: q and k
+heads of 96, the rope part shared by every head, v heads of 64), the pair
+a bf16 kernel of its own computes (``HEAD_DIM_PAIRS``;
+``tile_config(96, 64)`` reads its ``tc::MlaCfg``) and the backward
+kernels take as instances of their own.  It is the
 port of ``repro/kernels/flash_attention.py`` (the Pallas kernel), whose
 oracle is ``repro/kernels/ref.py:attention_ref``.
 
@@ -46,9 +46,12 @@ forward's:
   swizzled stages, a producer warp, two consumer warpgroups running
   ``wgmma`` for all five products).  dkdv runs one block per key tile and
   *query* head; with G = H / KV > 1 it writes each head's dK and dV as
-  float32 partials into a scratch tensor, and ``flash_bwd_dkdv_sum`` adds
-  a group's heads in the order g = 0 .. G-1 and rounds once.  P and dS are
-  rounded to bf16 before their products, as the forward rounds P.
+  float32 partials (dK's [B, S, H, hd] and dV's [B, S, H, hdv], one
+  scratch buffer), and ``flash_bwd_dkdv_sum`` adds a group's heads in the
+  order g = 0 .. G-1 and rounds once.  P and dS are rounded to bf16 before
+  their products, as the forward rounds P.  At MLA's (96, 64) q and k come
+  in as three 32-column boxes with 64-byte swizzle, so that dK and dQ are
+  one product of width 96 a step.
 - float32: the first SIMT design, float32 FMAs (dkdv one block per key
   tile and kv head, the group's heads summed in registers).
 
@@ -153,7 +156,8 @@ def flash_bwd_delta_plain(o, do) -> torch.Tensor:
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, window, softcap, scale):
     """P recomputed from the saved LSE, and dS = P (dP - delta) dtanh, both
-    [B, KV, G, S, Sk] float32; with the scaled q groups and dO groups."""
+    [B, KV, G, S, Sk] float32; with the scaled q groups (head dim hd) and
+    dO groups (v's head dim)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -161,7 +165,7 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal, window, softcap, scale):
     rows = (B, KV, G, S, 1)
     p = torch.where(ok, torch.exp(c - lse.float().reshape(rows)),
                     torch.zeros((), device=q.device))
-    dog = do.float().reshape(B, S, KV, G, hd)
+    dog = do.float().reshape(B, S, KV, G, do.shape[-1])
     dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
     ds = p * (dp - delta.float().reshape(rows))
     if dt is not None:
@@ -184,28 +188,31 @@ def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
 
 def flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta, *, causal=True,
                                   window=0, softcap=0.0, scale=None):
-    """float32 [2, B, S, H, hd]: each query head's own dK (first) and dV
-    (second), before a group's heads are added: what the bf16 dkdv kernel
+    """(dK [B, S, H, hd], dV [B, S, H, hdv]) float32: each query head's own
+    dK and dV, before a group's heads are added: what the bf16 dkdv kernel
     writes when G > 1."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
     p, ds, qg, dog = _probs_and_ds(q, k, v, do, lse, delta, causal, window,
                                    softcap, scale)
     dv = torch.einsum("bkgqs,bqkgh->bskgh", p, dog)
     dk = torch.einsum("bkgqs,bqkgh->bskgh", ds, qg)
-    return torch.stack([dk, dv]).reshape(2, B, S, H, hd)
+    return dk.reshape(B, S, H, hd), dv.reshape(B, S, H, v.shape[-1])
 
 
 def flash_bwd_dkdv_sum_plain(part, kv_heads, dtype=torch.bfloat16):
-    """(dk, dv) in ``dtype`` from the partials [2, B, S, H, hd]: a group's
-    heads added in the order g = 0 .. G-1 in float32, rounded once."""
-    _, B, S, H, hd = part.shape
-    p = part.float().reshape(2, B, S, kv_heads, H // kv_heads, hd)
-    acc = p[:, :, :, :, 0]
-    for g in range(1, H // kv_heads):
-        acc = acc + p[:, :, :, :, g]
-    return acc[0].to(dtype), acc[1].to(dtype)
+    """(dk, dv) in ``dtype`` from the partials (dK [B, S, H, hd], dV
+    [B, S, H, hdv]): a group's heads added in the order g = 0 .. G-1 in
+    float32, rounded once."""
+    out = []
+    for t in part:
+        B, S, H, d = t.shape
+        p = t.float().reshape(B, S, kv_heads, H // kv_heads, d)
+        acc = p[:, :, :, 0]
+        for g in range(1, H // kv_heads):
+            acc = acc + p[:, :, :, g]
+        out.append(acc.to(dtype))
+    return out[0], out[1]
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=True, window=0,
@@ -252,32 +259,36 @@ def _bwd_source() -> str:
             "flash_attention_bwd.cu").read_text()
 
 
-def bwd_tile_config(hd) -> dict:
-    """The float32 (SIMT) backward kernels' tiling at head dim ``hd``, read
-    from ``Tiles<HD>`` in ``csrc/flash_attention_bwd.cu``: BQ query rows a
-    step, BK keys a tile, LD and PLD (padded rows, floats), and the dynamic
-    shared memory of a dkdv and a dq block in bytes."""
+def bwd_tile_config(hd, hdv=None) -> dict:
+    """The float32 (SIMT) backward kernels' tiling at q/k head dim ``hd``
+    and v head dim ``hdv`` (default ``hd``), read from ``Tiles<HDQK, HDV>``
+    in ``csrc/flash_attention_bwd.cu``: BQ query rows a step, BK keys a
+    tile, LD, LDV and PLD (padded rows, floats), NG and NGV (float4 column
+    groups a thread), and the dynamic shared memory of a dkdv and a dq
+    block in bytes."""
     body = re.search(r"struct Tiles \{(.*?)\n\};", _bwd_source(), re.S)[1]
-    env = _constexprs(body, {"HD": hd})
+    env = _constexprs(body, {"HDQK": hd, "HDV": hd if hdv is None else hdv})
     env["DKDV_SMEM"] = 4 * env["DKDV_FLOATS"]
     env["DQ_SMEM"] = 4 * env["DQ_FLOATS"]
     return env
 
 
-def bwd_tc_config(hd) -> dict:
-    """The bf16 (wgmma) backward kernels' tiling at head dim ``hd``, read
-    from ``tc::DkdvCfg<HD>`` and ``tc::DqCfg<HD>`` in the source:
-    {"dkdv": {BK keys a block, BQ query rows a stage, NS stages, SMEM bytes
-    of dynamic shared memory a block, ...}, "dq": {BQ rows a block, BK keys
-    a stage, NS, SMEM, ...}}."""
+def bwd_tc_config(hd, hdv=None) -> dict:
+    """The bf16 (wgmma) backward kernels' tiling at q/k head dim ``hd`` and
+    v head dim ``hdv`` (default ``hd``), read from ``tc::DkdvCfg<HDQK,
+    HDV>`` and ``tc::DqCfg<HDQK, HDV>`` in the source: {"dkdv": {BK keys a
+    block, BQ query rows a stage, NS stages, CW columns of a q/k chunk,
+    SMEM bytes of dynamic shared memory a block, ...}, "dq": {BQ rows a
+    block, BK keys a stage, NS, SMEM, ...}}."""
     tc = _bwd_source()
     tc = tc[tc.index("namespace tc {"):]
+    env = {"HDQK": hd, "HDV": hd if hdv is None else hdv}
     return {name: _constexprs(re.search(
-        rf"struct {struct} \{{(.*?)\n\}};", tc, re.S)[1], {"HD": hd})
+        rf"struct {struct} \{{(.*?)\n\}};", tc, re.S)[1], dict(env))
         for name, struct in (("dkdv", "DkdvCfg"), ("dq", "DqCfg"))}
 
 
-def bwd_plan(S, hd, causal, window, dtype=torch.float32) -> dict:
+def bwd_plan(S, hd, causal, window, dtype=torch.float32, hdv=None) -> dict:
     """The backward kernels' launch plan along the sequence for ``dtype``'s
     route, as their loops compute it: {"route": "simt" or "wgmma", "dkdv":
     {"BQ", "BK", "blocks": [(k0, [first rows of the query tiles it
@@ -285,11 +296,11 @@ def bwd_plan(S, hd, causal, window, dtype=torch.float32) -> dict:
     key tiles it visits]), ...] in launch order}}.  A simt dkdv block covers
     every query head of a kv group; a wgmma one a single query head."""
     if dtype == torch.bfloat16:
-        t = bwd_tc_config(hd)
+        t = bwd_tc_config(hd, hdv)
         tiles = {n: (t[n]["BQ"], t[n]["BK"]) for n in ("dkdv", "dq")}
         route = "wgmma"
     else:
-        t = bwd_tile_config(hd)
+        t = bwd_tile_config(hd, hdv)
         tiles = dict.fromkeys(("dkdv", "dq"), (t["BQ"], t["BK"]))
         route = "simt"
     BQ, BK = tiles["dkdv"]
@@ -311,14 +322,14 @@ def bwd_plan(S, hd, causal, window, dtype=torch.float32) -> dict:
             "dq": {"BQ": BQ2, "BK": BK2, "blocks": dq}}
 
 
-def bwd_schedule(S, hd, causal, window, B, H, KV, dtype) -> dict:
+def bwd_schedule(S, hd, causal, window, B, H, KV, dtype, hdv=None) -> dict:
     """Blocks and makespan of each backward launch, in tile steps (one
     step: a query tile of a dkdv block, a key tile of a dq block; a simt
     dkdv block takes G steps a query tile): the blocks in launch order,
     each to the SM that frees first, one block an SM (shared memory allows
     no second)."""
     import heapq
-    plan = bwd_plan(S, hd, causal, window, dtype)
+    plan = bwd_plan(S, hd, causal, window, dtype, hdv)
     G = H // KV
     if plan["route"] == "wgmma":      # key / query tiles slowest
         dkdv = [len(t) for _, t in plan["dkdv"]["blocks"]
@@ -410,11 +421,11 @@ def _bwd_lib(fn_name):
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
         elif fn_name == "flash_bwd_dkdv_sum_launch":
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
         else:
             n_ptr = 9 if fn_name == "flash_bwd_dkdv_launch" else 7
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p]
     return fn
@@ -464,21 +475,15 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
     return _forward(q, k, v, causal, window, softcap, scale, True)
 
 
-def _one_head_dim(q, v):
-    """The backward kernels take one head dim for q, k and v."""
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"the flash backward takes one head dim for q, k "
-                         f"and v; (q/k {q.shape[-1]}, v {v.shape[-1]}) is "
-                         f"MLA training's, not written yet (ROADMAP.md §1)")
-
-
 def _check_bwd(q, k, v, do, lse, delta, window):
-    _one_head_dim(q, v)
+    """The forward's checks (``_check``: the head-dim pair among
+    ``HEAD_DIM_PAIRS``), and do [B, S, H, hdv], lse and delta [B, H, S]."""
     B, S, H, KV, hd = _check(q, k, v, window)
-    if do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape) \
+    want = (B, S, H, v.shape[-1])
+    if do.dtype != q.dtype or tuple(do.shape) != want \
             or not do.is_contiguous() or do.device != q.device:
-        raise ValueError(f"do must be a contiguous {q.dtype} "
-                         f"{tuple(q.shape)} on {q.device}")
+        raise ValueError(f"do must be a contiguous {q.dtype} {want} on "
+                         f"{q.device}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B, H, S) \
                 or not t.is_contiguous() or t.device != q.device:
@@ -514,7 +519,8 @@ def flash_bwd_delta(o, do) -> torch.Tensor:
 
 def _launch_dkdv(q, k, v, do, lse, delta, outs, kw):
     """One launch of the dkdv kernel into ``outs``: (dk, dv), or the bf16
-    route's float32 partials [2, B, S, H, hd]."""
+    route's float32 partials, one buffer of dK's [B, S, H, hd] then dV's
+    [B, S, H, hdv]."""
     global DKDV_LAUNCHES
     B, S, H, KV, hd = _check_bwd(q, k, v, do, lse, delta, kw["window"])
     scale = hd ** -0.5 if kw["scale"] is None else kw["scale"]
@@ -529,7 +535,8 @@ def _launch_dkdv(q, k, v, do, lse, delta, outs, kw):
     rc = _bwd_lib("flash_bwd_dkdv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *ptrs, B, S, H, KV, hd,
-        DTYPES[q.dtype], float(scale), int(kw["causal"]), int(kw["window"]),
+        v.shape[-1], DTYPES[q.dtype], float(scale), int(kw["causal"]),
+        int(kw["window"]),
         float(kw["softcap"]), q.device.index or 0, stream)
     _raise_on(rc, "flash_bwd_dkdv")
     DKDV_LAUNCHES += 1
@@ -537,44 +544,56 @@ def _launch_dkdv(q, k, v, do, lse, delta, outs, kw):
 
 def flash_bwd_dkdv_partials(q, k, v, do, lse, delta, *, causal=True,
                             window=0, softcap=0.0, scale=None):
-    """float32 [2, B, S, H, hd], each query head's dK and dV before its
-    group is summed: one launch of the bf16 ``flash_bwd_dkdv`` kernel on a
-    CUDA tensor, ``flash_bwd_dkdv_partials_plain`` on the CPU."""
+    """(dK [B, S, H, hd], dV [B, S, H, hdv]) float32, each query head's dK
+    and dV before its group is summed: one launch of the bf16
+    ``flash_bwd_dkdv`` kernel on a CUDA tensor, which writes both into one
+    buffer (dV's after dK's), ``flash_bwd_dkdv_partials_plain`` on the
+    CPU."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_partials_plain(q, k, v, do, lse, delta, **kw)
     _cuda_only(q, "flash_bwd_dkdv")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the partials are the bf16 route's, got {q.dtype}")
-    part = torch.empty((2,) + tuple(q.shape), dtype=torch.float32,
-                       device=q.device)
-    _launch_dkdv(q, k, v, do, lse, delta, part, kw)
-    return part
+    B, S, H, hd = q.shape
+    hdv = v.shape[-1]
+    buf = torch.empty(B * S * H * (hd + hdv), dtype=torch.float32,
+                      device=q.device)
+    _launch_dkdv(q, k, v, do, lse, delta, buf, kw)
+    n = B * S * H * hd
+    return buf[:n].view(B, S, H, hd), buf[n:].view(B, S, H, hdv)
 
 
 def flash_bwd_dkdv_sum(part, kv_heads):
-    """(dk, dv) in bf16 from the partials [2, B, S, H, hd]: one launch of
-    ``flash_bwd_dkdv_sum`` on a CUDA tensor, ``flash_bwd_dkdv_sum_plain``
-    on the CPU."""
+    """(dk, dv) in bf16 from the partials (dK [B, S, H, hd], dV [B, S, H,
+    hdv]): one launch of ``flash_bwd_dkdv_sum`` on a CUDA tensor,
+    ``flash_bwd_dkdv_sum_plain`` on the CPU."""
     global DKDV_SUM_LAUNCHES
-    if part.device.type == "cpu":
+    pk, pv = part
+    if pk.device.type == "cpu":
         return flash_bwd_dkdv_sum_plain(part, kv_heads)
-    _cuda_only(part, "flash_bwd_dkdv_sum")
-    if part.dtype != torch.float32 or part.dim() != 5 or part.shape[0] != 2 \
-            or not part.is_contiguous() or kv_heads < 1 or part.shape[3] % kv_heads \
-            or part.shape[4] not in HEAD_DIMS:
-        raise ValueError("part must be a contiguous float32 [2, B, S, H, hd] "
-                         "with H a multiple of kv_heads, summed into bf16")
-    _, B, S, H, hd = part.shape
+    _cuda_only(pk, "flash_bwd_dkdv_sum")
+    if any(t.dtype != torch.float32 or t.dim() != 4 or not t.is_contiguous()
+           or t.device != pk.device for t in part) \
+            or pk.shape[:3] != pv.shape[:3] or kv_heads < 1 \
+            or pk.shape[2] % kv_heads \
+            or (pk.shape[3], pv.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError("part must be contiguous float32 [B, S, H, hd] and "
+                         "[B, S, H, hdv] with H a multiple of kv_heads and "
+                         f"(hd, hdv) among {HEAD_DIM_PAIRS}, summed into "
+                         "bf16")
+    B, S, H, hd = pk.shape
+    hdv = pv.shape[3]
     dk = torch.empty(B, S, kv_heads, hd, dtype=torch.bfloat16,
-                     device=part.device)
-    dv = torch.empty_like(dk)
+                     device=pk.device)
+    dv = torch.empty(B, S, kv_heads, hdv, dtype=torch.bfloat16,
+                     device=pk.device)
     if B * S == 0:
         return dk, dv
-    stream = torch.cuda.current_stream(part.device).cuda_stream
+    stream = torch.cuda.current_stream(pk.device).cuda_stream
     rc = _bwd_lib("flash_bwd_dkdv_sum_launch")(
-        part.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, kv_heads,
-        H // kv_heads, hd, part.device.index or 0, stream)
+        pk.data_ptr(), pv.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S,
+        kv_heads, H // kv_heads, hd, hdv, pk.device.index or 0, stream)
     _raise_on(rc, "flash_bwd_dkdv_sum")
     DKDV_SUM_LAUNCHES += 1
     return dk, dv
@@ -615,7 +634,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
     rc = _bwd_lib("flash_bwd_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, KV, hd,
-        DTYPES[q.dtype], float(scale), int(causal), int(window),
+        v.shape[-1], DTYPES[q.dtype], float(scale), int(causal), int(window),
         float(softcap), q.device.index or 0, stream)
     _raise_on(rc, "flash_bwd_dq")
     DQ_LAUNCHES += 1
@@ -629,7 +648,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    _one_head_dim(q, v)
+    # every check before the first launch (delta will have lse's shape)
+    _check_bwd(q, k, v, do, lse, lse, window)
     delta = flash_bwd_delta(o, do)
     dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)

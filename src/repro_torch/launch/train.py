@@ -16,7 +16,8 @@ Port of ``repro/launch/train.py`` on one device (there is no mesh):
     "d_ff" and "moe_d_ff" where the widths were cut);
     ``repro_torch.launch.autoconfig.records_from_runtime_log`` reads it.
 On the card every attention layer runs the flash-attention kernel forward
-(twice under ``remat="full"``) and its backward kernels, every RWKV layer
+(twice under ``remat="full"``) and its backward kernels (an MLA layer their
+q/k head 96, v head 64 instances), every RWKV layer
 the WKV6 kernel forward and its backward kernel, every Mamba layer the
 selective-scan kernel forward and its backward kernel.
 
@@ -25,7 +26,7 @@ selective-scan kernel forward and its backward kernel.
 first 4 layers (``launch.serve.card_config``, every kind of layer) and its
 FFN and expert widths cut from 24,576 to 2,048 (``TRAIN_WIDTHS``) (3.66 B parameters; the 4
 layers at full width, 22.48 B, cannot hold parameters and gradients on
-one card).  gemma3-1b and rwkv6-3b train whole.
+one card).  gemma3-1b, rwkv6-3b and minicpm3-4b train whole.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
@@ -38,6 +39,8 @@ Usage:
       --full --steps 4 --batch 8 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-1.5-large-398b --full --steps 4 --batch 8 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \\
+      --full --steps 4 --batch 8 --seq 4096          # 62 layers, 4.07 B
 """
 from __future__ import annotations
 

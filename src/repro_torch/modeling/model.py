@@ -2,9 +2,9 @@
 the tied head.
 
 Port of ``repro/modeling/model.py`` for the dense attention families
-(gemma3, gemma2, deepseek-7b), multi-head latent attention (minicpm3-4b,
-served but not trained yet), RWKV6 (rwkv6-3b), the Mamba + attention
-hybrid (jamba-1.5-large) and attention + MoE (olmoe-1b-7b).  The JAX
+(gemma3, gemma2, deepseek-7b), multi-head latent attention (minicpm3-4b),
+RWKV6 (rwkv6-3b), the Mamba + attention hybrid (jamba-1.5-large) and
+attention + MoE (olmoe-1b-7b).  The JAX
 package scans over pattern periods to keep its compiled graph small;
 PyTorch runs eagerly, so the blocks and the tail are one loop over
 ``cfg.n_layers`` layers, each an attention (MLA where ``cfg.use_mla``),
@@ -24,10 +24,12 @@ chunked loss) in train mode with a gradient runs each layer under
 ``cfg.remat``: "full" recomputes the layer in the backward
 (``torch.utils.checkpoint``, the JAX package's ``nothing_saveable``),
 "dots" keeps the outputs of its matrix products and recomputes the rest,
-"none" keeps everything.  On the card an RWKV layer's WKV6 and a Mamba
-layer's scan run through their autograd Functions (``kernels.wkv6.WKV6``,
+"none" keeps everything.  On the card an attention layer's flash
+attention (MLA's at q/k head 96, v head 64), an RWKV layer's WKV6 and a
+Mamba layer's scan run through their autograd Functions
+(``kernels.flash_attention.FlashAttention``, ``kernels.wkv6.WKV6``,
 ``kernels.mamba_scan.MambaScan``: the forward kernel, then its hand-written
-backward kernel), so under "full" the forward kernel runs twice a layer;
+backward kernels), so under "full" the forward kernel runs twice a layer;
 on the CPU autograd differentiates their plain versions.
 """
 from __future__ import annotations
@@ -65,15 +67,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port can train ``cfg``:
-    what ``check_supported`` refuses, and MLA, which the port serves but
-    whose flash backward (q/k head 96, v head 64) is not written yet."""
+    """Raise ``NotImplementedError`` unless the port can train ``cfg``: it
+    trains what it serves (``check_supported``), MLA included, whose
+    attention runs the flash backward's (96, 64) instances on the card."""
     check_supported(cfg)
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: training MLA attention "
-                                  f"(the flash backward at q/k head "
-                                  f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, v "
-                                  f"head {cfg.v_head_dim}): {_WAITS}")
 
 
 # the matrix products whose outputs remat="dots" keeps (the JAX package's

@@ -1,9 +1,10 @@
 """The flash-attention backward on the CPU: ``flash_attention_bwd_plain``
 against autograd of ``flash_attention_plain`` and against ``jax.vjp`` of
 ``repro.kernels.ref.attention_ref`` (windows, softcap, G 1/2/4/8, ragged
-and non-causal S), the log-sum-exp the forward kernel writes, and a CPU
-replay of both routes' launch plans (tiles read from ``Tiles<HD>``,
-``tc::DkdvCfg`` and ``tc::DqCfg`` in the CUDA source): which query tiles a
+and non-causal S, and MLA's q/k head 96 with v head 64), the log-sum-exp
+the forward kernel writes, and a CPU replay of both routes' launch plans
+(tiles read from ``Tiles<HDQK, HDV>``, ``tc::DkdvCfg`` and ``tc::DqCfg``
+in the CUDA source, at equal head dims and at (96, 64)): which query tiles a
 key tile's dkdv block visits and which key tiles a query tile's dq block
 visits under the masks; dK / dV summed per kv group over (head, query
 tile) in the simt kernel's order, or per query head into float32 partials
@@ -30,21 +31,30 @@ from repro_torch.kernels import flash_attention as FA
 ATOL, RTOL = 2e-5, 1e-4
 
 CASES = [
-    # (B, S, H, KV, hd, causal, window, cap)
+    # (B, S, H, KV, hd, causal, window, cap[, hdv: v's head dim, else hd])
     (2, 37, 4, 2, 32, True, 0, 0.0),        # G 2, ragged
     (1, 50, 4, 1, 16, True, 8, 30.0),       # G 4, window, softcap
     (2, 20, 2, 2, 8, False, 0, 0.0),        # G 1, non-causal
     (1, 33, 8, 2, 16, False, 5, 10.0),      # non-causal with a window
     (1, 70, 8, 1, 16, True, 17, 0.0),       # G 8
     (1, 1, 4, 1, 8, True, 0, 0.0),          # S = 1
+    # MLA's (96, 64): heads of one group each, grouped, masks, softcap
+    (1, 45, 3, 3, 96, True, 0, 0.0, 64),
+    (2, 29, 4, 2, 96, True, 9, 30.0, 64),
+    (1, 24, 2, 1, 96, False, 0, 0.0, 64),
 ]
+
+
+def _hdv(case):
+    return case[8] if len(case) > 8 else case[4]
 
 
 def _inputs(case, seed=0):
     B, S, H, KV, hd = case[:5]
+    hdv = _hdv(case)
     rng = np.random.default_rng(seed + S)
     return [rng.standard_normal(s).astype(np.float32) for s in
-            ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+            ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hdv), (B, S, H, hdv))]
 
 
 def _kw(case):
@@ -72,12 +82,21 @@ def test_bwd_plain_matches_autograd_of_plain(case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_bwd_plain_matches_jax_grad_of_attention_ref(case):
+    """``attention_ref`` takes one head dim; at hdv < hd, v and dO are
+    zero-padded to hd: the padded output columns are zero and take no
+    gradient, so dq and dk are unchanged and dv's first hdv columns are
+    the unpadded dv."""
     arrays = _inputs(case, 1)
     got, _ = _plain_bwd(case, arrays)
-    q, k, v, do = (jnp.asarray(a) for a in arrays)
+    hd, hdv = case[4], _hdv(case)
+    pad = [(0, 0)] * 3 + [(0, hd - hdv)]
+    q, k, v, do = (jnp.asarray(np.pad(a, pad) if i >= 2 else a)
+                   for i, a in enumerate(arrays))
     grads = jax.jit(lambda q, k, v, do: jax.vjp(
         lambda q, k, v: attention_ref(q, k, v, **_kw(case)), q, k, v)[1](do))
-    for g, w in zip(got, grads(q, k, v, do)):
+    want = list(grads(q, k, v, do))
+    want[2] = np.asarray(want[2])[..., :hdv]
+    for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
                                    rtol=RTOL)
 
@@ -95,66 +114,92 @@ def test_lse_reproduces_the_forward(case):
                              hd ** -0.5)
     p = torch.where(ok, torch.exp(c - lse.reshape(B, KV, H // KV, S, 1)),
                     torch.zeros(()))
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v).reshape(B, S, H, hd)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v).reshape(B, S, H, _hdv(case))
     torch.testing.assert_close(o, FA.flash_attention_plain(q, k, v, **kw),
                                atol=ATOL, rtol=RTOL)
 
 
 def test_bwd_tile_config_read_from_the_source():
-    for hd in (64, 128, 256):
-        t = FA.bwd_tile_config(hd)
+    """The SIMT kernels' tiles at every head-dim pair; at (96, 64) q/k rows
+    of 100 floats, v rows of 68, two float4 column groups a thread for q/k
+    (the second over columns 64-95 only: 16 + 8 threads of a row group
+    cover 96 columns once) and one for v."""
+    for hd, hdv in FA.HEAD_DIM_PAIRS:
+        t = FA.bwd_tile_config(hd, hdv)
         assert t["BQ"] == 64 and t["BK"] == (32 if hd == 256 else 64)
-        assert t["LD"] == hd + 4 and t["PLD"] == t["BK"] + 1
+        assert t["LD"] == hd + 4 and t["LDV"] == hdv + 4
+        assert t["PLD"] == t["BK"] + 1
+        assert t["NGV"] == hdv // 64
+        # thread tc's group gg: columns 64 gg + 4 tc .. + 3 inside the row
+        cols = [64 * gg + 4 * tc + e for gg in range(t["NG"])
+                for tc in range(16) for e in range(4) if 64 * gg + 4 * tc < hd]
+        assert sorted(cols) == list(range(hd))
         # a block's shared memory fits what Hopper gives one block
         assert max(t["DKDV_SMEM"], t["DQ_SMEM"]) <= 232448
+    assert FA.bwd_tile_config(96, 64)["NG"] == 2
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
-def test_bwd_tc_config_read_from_the_source(hd):
+@pytest.mark.parametrize("hd,hdv", [(64, 64), (128, 128), (256, 256),
+                                    (96, 64)])
+def test_bwd_tc_config_read_from_the_source(hd, hdv):
     """The bf16 kernels' tiles, read from ``tc::DkdvCfg`` / ``tc::DqCfg``:
     64 keys a dkdv block over 64-row query stages, 128 rows a dq block
     (two warpgroups of 64) over 32 or 64 keys a stage; wgmma's shapes
-    (rows of 64, widths a multiple of 16) and 128-byte column chunks; the
-    bytes of every tile a multiple of 1024 (the swizzle's atom), and the
-    shared memory within what Hopper gives one block."""
-    t = FA.bwd_tc_config(hd)
+    (rows of 64, widths a multiple of 16) and column chunks of 64 columns
+    (128 bytes) at equal head dims, of 32 (64 bytes) for q and k at MLA's
+    96; the bytes of every tile a multiple of 1024 (the 128-byte swizzle's
+    atom, twice the 64-byte one's), and the shared memory within what
+    Hopper gives one block."""
+    t = FA.bwd_tc_config(hd, hdv)
     kv, dq = t["dkdv"], t["dq"]
     assert (kv["BK"], kv["BQ"]) == (64, 64)
     assert (dq["BQ"], dq["BK"]) == (128, 32 if hd == 256 else 64)
     assert kv["NS"] >= 2 and dq["NS"] >= 2
-    assert kv["CHUNKS"] == dq["CHUNKS"] == hd // 64
+    cw = 64 if hd == hdv else 32
+    assert kv["CW"] == dq["CW"] == cw
+    assert kv["CHUNKS"] == dq["CHUNKS"] == hd // cw
+    assert kv["VCHUNKS"] == dq["VCHUNKS"] == hdv // 64
     for c in (kv, dq):
         assert c["BQ"] % 64 == 0 and c["BK"] % 16 == 0
-        assert c["Q_BYTES"] % 1024 == 0 and c["KV_BYTES"] % 1024 == 0
+        for n in ("Q_BYTES", "G_BYTES", "K_BYTES", "V_BYTES"):
+            assert c[n] % 1024 == 0, n
         assert c["SMEM"] <= 232448
+    assert (kv["K_BYTES"], kv["V_BYTES"]) == (128 * hd, 128 * hdv)
     assert kv["X_BYTES"] == 4 * kv["BK"] * kv["BQ"]    # float32 P dtanh
-    assert kv["SMEM"] == 1024 + 2 * kv["KV_BYTES"] + 2 * kv["NS"] * \
-        kv["Q_BYTES"] + kv["X_BYTES"] + kv["NS"] * kv["L_BYTES"] + \
-        kv["BAR_BYTES"]
-    # hd 256: K, V, two Q/dO stages and the exchange as the header says
+    assert kv["SMEM"] == 1024 + kv["K_BYTES"] + kv["V_BYTES"] + kv["NS"] * \
+        (kv["Q_BYTES"] + kv["G_BYTES"]) + kv["X_BYTES"] + \
+        kv["NS"] * kv["L_BYTES"] + kv["BAR_BYTES"]
+    assert dq["SMEM"] == 1024 + dq["Q_BYTES"] + dq["G_BYTES"] + dq["NS"] * \
+        (dq["K_BYTES"] + dq["V_BYTES"]) + dq["BAR_BYTES"]
+    # hd 256: K, V, two Q/dO stages and the exchange as the header says;
+    # (96, 64): 99 and 101 KB
     if hd == 256:
         assert round(kv["SMEM"] / 1024) == 210 and \
             round(dq["SMEM"] / 1024) == 193
+    if hd == 96:
+        assert round(kv["SMEM"] / 1024) == 99 and \
+            round(dq["SMEM"] / 1024) == 101
 
 
 ROUTES = [torch.float32, torch.bfloat16]
 PLAN_CASES = [
-    # (S, hd, causal, window)
-    (300, 256, True, 0), (300, 256, True, 40), (257, 64, True, 128),
-    (200, 128, False, 0), (130, 64, False, 17), (64, 128, True, 1),
-    (1, 64, True, 0),
+    # (S, hd, hdv, causal, window)
+    (300, 256, 256, True, 0), (300, 256, 256, True, 40),
+    (257, 64, 64, True, 128), (200, 128, 128, False, 0),
+    (130, 64, 64, False, 17), (64, 128, 128, True, 1), (1, 64, 64, True, 0),
+    (300, 96, 64, True, 0), (257, 96, 64, True, 100), (130, 96, 64, False, 0),
 ]
 
 
 @pytest.mark.parametrize("dtype", ROUTES)
-@pytest.mark.parametrize("S,hd,causal,window", PLAN_CASES)
-def test_bwd_plan_covers_every_kept_pair(S, hd, causal, window, dtype):
+@pytest.mark.parametrize("S,hd,hdv,causal,window", PLAN_CASES)
+def test_bwd_plan_covers_every_kept_pair(S, hd, hdv, causal, window, dtype):
     """Every (query, key) pair the masks keep lies in exactly one tile pair
     that a dkdv block visits for each query head (the simt block loops over
     its group's heads, the wgmma block is one head's) and in exactly one
     that a dq block visits; each key tile and each query tile has one
     block, query tiles launched longest causal rows first."""
-    plan = FA.bwd_plan(S, hd, causal, window, dtype)
+    plan = FA.bwd_plan(S, hd, causal, window, dtype, hdv)
     assert plan["route"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
     qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
     ok = np.ones((S, S), bool)
@@ -202,6 +247,12 @@ def test_bwd_schedule_fills_the_card_at_the_training_shape():
     simt = FA.bwd_schedule(S, hd, True, 0, B, H, KV, torch.float32)
     assert simt["dkdv"]["blocks"] == 256 and \
         simt["dkdv"]["makespan"] == simt["dkdv"]["longest"] == 256
+    # MLA's training microbatch (B 1, S 4096, 40 heads over 40, causal):
+    # the (96, 64) tiles are those of hd 64, one head a group
+    mla = FA.bwd_schedule(4096, 96, True, 0, 1, 40, 40, torch.bfloat16, 64)
+    assert mla["dkdv"]["blocks"] == 2560 and mla["dq"]["blocks"] == 1280
+    for name in ("dkdv", "dq"):
+        assert mla[name]["makespan"] <= 1.02 * mla[name]["steps"] / 132
 
 
 def _round(x, dtype):
@@ -221,15 +272,18 @@ def _replay(case, arrays, hd_tiles, dtype=torch.float32, drop=None,
     leaves out the last query tile of every key tile, "head" the last head
     of every group from the sum (controls).  ``p_type`` rounds P and dS to
     that type before their products (the bf16 route's roundings)."""
-    B, S, H, KV, hd, causal, window, cap = case
+    B, S, H, KV, hd, causal, window, cap = case[:8]
+    hdv = _hdv(case)
     q, k, v, do = (torch.tensor(a) for a in arrays)
     kw = _kw(case)
     o = FA.flash_attention_plain(q, k, v, **kw)
     lse = FA.flash_attention_lse_plain(q, k, **kw)
     delta = FA.flash_bwd_delta_plain(o, do)
-    plan = FA.bwd_plan(S, hd_tiles, causal, window, dtype)
+    hd_tiles, hdv_tiles = hd_tiles if isinstance(hd_tiles, tuple) else \
+        (hd_tiles, hd_tiles)
+    plan = FA.bwd_plan(S, hd_tiles, causal, window, dtype, hdv_tiles)
     G, scale = H // KV, hd ** -0.5
-    part = torch.zeros(2, B, S, H, hd)
+    part = (torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hdv))
     dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
 
     def tile(b, h, q0, k0, BQ, BK):
@@ -260,14 +314,15 @@ def _replay(case, arrays, hd_tiles, dtype=torch.float32, drop=None,
                 for q0 in tiles:
                     p, ds, qs, _, g = tile(b, h, q0, k0, BQ, BK)
                     if plan["route"] == "wgmma":
-                        part[1, b, k0:k0 + BK, h] += p.T @ g
-                        part[0, b, k0:k0 + BK, h] += ds.T @ qs
+                        part[1][b, k0:k0 + BK, h] += p.T @ g
+                        part[0][b, k0:k0 + BK, h] += ds.T @ qs
                     else:
                         dv[b, k0:k0 + BK, h // G] += p.T @ g
                         dk[b, k0:k0 + BK, h // G] += ds.T @ qs
     if plan["route"] == "wgmma":
         if drop == "head":
-            part.reshape(2, B, S, KV, G, hd)[:, :, :, :, G - 1] = 0.0
+            for t in part:
+                t.reshape(B, S, KV, G, -1)[:, :, :, G - 1] = 0.0
         dk, dv = FA.flash_bwd_dkdv_sum_plain(part, KV, torch.float32)
     BQ, BK = plan["dq"]["BQ"], plan["dq"]["BK"]
     for b in range(B):
@@ -290,6 +345,9 @@ def _rel(a, b):
     ((2, 300, 4, 1, 16, True, 40, 0.0), 256, torch.bfloat16),  # G 4
     ((1, 257, 8, 2, 16, True, 0, 30.0), 64, torch.bfloat16),
     ((1, 200, 4, 4, 16, False, 17, 0.0), 128, torch.bfloat16),  # G 1
+    # the (96, 64) instances' plans, at q/k 24 and v 16
+    ((1, 150, 4, 2, 24, True, 0, 0.0, 16), (96, 64), torch.float32),
+    ((1, 150, 4, 2, 24, True, 30, 20.0, 16), (96, 64), torch.bfloat16),
 ])
 def test_replay_of_the_kernel_plan_matches_plain(case, hd_tiles, dtype):
     """The plan of the kernel instance at ``hd_tiles`` (its tile sizes)
@@ -310,18 +368,22 @@ def test_replay_of_the_kernel_plan_matches_plain(case, hd_tiles, dtype):
         assert _rel(control[2], want[2]) > 1e-2, drop
 
 
-def test_dkdv_partials_summed_in_head_order_give_the_plain_dkdv():
+@pytest.mark.parametrize("case", [(2, 37, 8, 2, 32, True, 9, 20.0),
+                                  (1, 37, 8, 2, 96, True, 9, 20.0, 64)])
+def test_dkdv_partials_summed_in_head_order_give_the_plain_dkdv(case):
     """``flash_bwd_dkdv_partials_plain`` summed by
     ``flash_bwd_dkdv_sum_plain`` (g = 0 .. G-1, float32, one rounding)
-    equals ``flash_bwd_dkdv_plain``; the CPU wrappers route to them."""
-    case = (2, 37, 8, 2, 32, True, 9, 20.0)
+    equals ``flash_bwd_dkdv_plain``, each partial at its own width; the CPU
+    wrappers route to them."""
     q, k, v, do = (torch.tensor(a) for a in _inputs(case, 3))
     kw = _kw(case)
     o = FA.flash_attention_plain(q, k, v, **kw)
     lse = FA.flash_attention_lse_plain(q, k, **kw)
     delta = FA.flash_bwd_delta_plain(o, do)
     part = FA.flash_bwd_dkdv_partials(q, k, v, do, lse, delta, **kw)
-    assert part.shape == (2,) + tuple(q.shape) and part.dtype == torch.float32
+    assert [tuple(t.shape) for t in part] == [tuple(q.shape),
+                                              tuple(do.shape)]
+    assert all(t.dtype == torch.float32 for t in part)
     dk, dv = FA.flash_bwd_dkdv_sum_plain(part, 2, torch.float32)
     want = FA.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
     for g, w in zip((dk, dv), want):

@@ -143,11 +143,12 @@ FLASH_BF16_REL = 5e-3
 DECODE_BF16_REL = 5e-3
 
 
-def _qkv(seed, B, S, H, KV, hd, dtype, device, L=None):
+def _qkv(seed, B, S, H, KV, hd, dtype, device, L=None, hdv=None):
     rng = np.random.default_rng(seed)
     L = S if L is None else L
+    hdv = hd if hdv is None else hdv
     t = [rng.standard_normal(s).astype(np.float32)
-         for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+         for s in ((B, S, H, hd), (B, L, KV, hd), (B, L, KV, hdv))]
     return [torch.as_tensor(a, device=device).to(dtype) for a in t]
 
 
@@ -439,19 +440,35 @@ def test_mla_decode_tiling_reported_by_the_library(cuda_device, dtype):
 
 
 def test_mla_training_and_other_shapes_are_refused(cuda_device):
-    """The flash backward refuses (96, 64) before it launches anything;
-    the model refuses to train MLA; the MLA decode takes only minicpm3's
-    (40, 256, 32) and a pos inside the cache."""
+    """The flash backward at MLA's (96, 64) launches delta, dkdv and dq
+    once each and matches its plain version; it refuses (96, 32) before it
+    launches anything; the model trains MLA; the MLA decode takes only
+    minicpm3's (40, 256, 32) and a pos inside the cache."""
     from repro_torch.modeling.model import check_trainable
+    for dtype, limit in ((torch.float32, FLASH_BWD_F32_REL),
+                         (torch.bfloat16, FLASH_BWD_BF16_REL)):
+        q, k, v = _qkv(11, 1, 200, 8, 8, 96, dtype, cuda_device, hdv=64)
+        o, lse = FA.flash_attention_lse(q, k, v)
+        do = torch.randn_like(o)
+        before = (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES,
+                  FA.DKDV_SUM_LAUNCHES)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        assert (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES,
+                FA.DKDV_SUM_LAUNCHES) == tuple(n + 1 for n in before[:3]) + \
+            before[3:]
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and _within(g, w, limit), _rel(g, w)
     q = torch.zeros(1, 64, 4, 96, device=cuda_device)
-    v = torch.zeros(1, 64, 4, 64, device=cuda_device)
-    o, lse = FA.flash_attention_lse(q, q, v)
+    v = torch.zeros(1, 64, 4, 32, device=cuda_device)
+    o = torch.zeros(1, 64, 4, 32, device=cuda_device)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
     before = (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
-    with pytest.raises(ValueError, match="MLA training"):
+    with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention_bwd(q, q, v, o, lse, torch.zeros_like(o))
     assert (FA.DELTA_LAUNCHES, FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == before
-    with pytest.raises(NotImplementedError, match="MLA"):
-        check_trainable(smoke_config("minicpm3-4b"))
+    check_trainable(smoke_config("minicpm3-4b"))
     ins = _mla_inputs(0, 2, 100, torch.float32, cuda_device)
     with pytest.raises(ValueError):
         DA.mla_decode_attention(*ins, 100, MLA_SCALE)
@@ -895,7 +912,7 @@ FLASH_BWD_F32_REL = 1e-5
 FLASH_BWD_BF16_REL = 5e-3
 
 FLASH_BWD_CASES = [
-    # (B, S, H, KV, hd, causal, window, cap)
+    # (B, S, H, KV, hd, causal, window, cap[, hdv: v's head dim, else hd])
     (2, 256, 4, 1, 256, True, 0, 0.0),
     (1, 300, 4, 1, 256, True, 64, 0.0),       # ragged, window, G 4
     (2, 200, 8, 4, 128, True, 0, 30.0),       # softcap, G 2
@@ -904,6 +921,13 @@ FLASH_BWD_CASES = [
     (2, 1, 4, 1, 64, True, 0, 0.0),
     (1, 77, 2, 2, 256, False, 16, 0.0),       # non-causal with a window
     (2, 1024, 4, 1, 256, True, 512, 0.0),     # gemma3's local layer
+    # MLA's (96, 64): minicpm3's 40 heads, grouped heads (the bf16 partials
+    # summed at 96 and at 64), a window across tiles with a softcap,
+    # ragged and non-causal S, S = 1
+    (1, 512, 40, 40, 96, True, 0, 0.0, 64),
+    (1, 300, 8, 2, 96, True, 100, 30.0, 64),
+    (2, 129, 4, 4, 96, False, 0, 0.0, 64),
+    (2, 1, 4, 1, 96, True, 0, 0.0, 64),
 ]
 
 
@@ -928,10 +952,12 @@ def test_flash_backward_kernels_match_plain(cuda_device, case, dtype):
     on the same inputs (the forward kernel's o and lse); the lse against
     its plain version; a second call gives the same bits (no atomics)."""
     assert not torch.backends.cuda.matmul.allow_tf32
-    B, S, H, KV, hd, causal, window, cap = case
+    B, S, H, KV, hd, causal, window, cap = case[:8]
+    hdv = case[8] if len(case) > 8 else hd
     kw = dict(causal=causal, window=window, softcap=cap)
-    q, k, v = _qkv(S + hd + 1, B, S, H, KV, hd, dtype, cuda_device)
-    do = torch.randn(q.shape, device=cuda_device,
+    q, k, v = _qkv(S + hd + 1, B, S, H, KV, hd, dtype, cuda_device,
+                   hdv=hdv)
+    do = torch.randn((B, S, H, hdv), device=cuda_device,
                      generator=torch.Generator(cuda_device).manual_seed(S)
                      ).to(dtype)
     o, lse = FA.flash_attention_lse(q, k, v, **kw)
@@ -1018,22 +1044,25 @@ def test_flash_autograd_bf16_runs_the_wgmma_backward(cuda_device, H, KV, hd):
         assert _within(g, w, FLASH_BWD_BF16_REL), _rel(g, w)
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 4096, 4, 1, 256),
-                                         (1, 77, 16, 2, 64),
-                                         (2, 130, 8, 4, 128)])
+@pytest.mark.parametrize("B,S,H,KV,hd,hdv", [(2, 4096, 4, 1, 256, 256),
+                                             (1, 77, 16, 2, 64, 64),
+                                             (2, 130, 8, 4, 128, 128),
+                                             (1, 300, 40, 8, 96, 64)])
 def test_flash_bwd_dkdv_sum_matches_plain_bit_for_bit(cuda_device, B, S, H,
-                                                      KV, hd):
+                                                      KV, hd, hdv):
     """The dkdv sum adds a group's heads in the order g = 0 .. G-1 in
-    float32 and rounds once, as its plain version does: the same bits."""
+    float32 and rounds once, as its plain version does: the same bits, dK
+    at hd and dV at hdv."""
     g = torch.Generator(cuda_device).manual_seed(S)
-    part = torch.randn(2, B, S, H, hd, generator=g, device=cuda_device)
+    part = tuple(torch.randn(B, S, H, d, generator=g, device=cuda_device)
+                 for d in (hd, hdv))
     before = FA.DKDV_SUM_LAUNCHES
     got = FA.flash_bwd_dkdv_sum(part, KV)
     torch.cuda.synchronize()
     assert FA.DKDV_SUM_LAUNCHES == before + 1
     want = FA.flash_bwd_dkdv_sum_plain(part, KV)
-    for a, b in zip(got, want):
-        assert a.shape == (B, S, KV, hd) and a.dtype == torch.bfloat16
+    for a, b, d in zip(got, want, (hd, hdv)):
+        assert a.shape == (B, S, KV, d) and a.dtype == torch.bfloat16
         assert torch.equal(a, b)
 
 

@@ -6,7 +6,9 @@ the reference's decode attention over [ckv | krope] keys and ckv values,
 at the smoke widths and at minicpm3-4b's (40 heads, latent 256, rope 32);
 ``flash_attention_plain`` at unequal q/k and v heads against
 ``attention_reference``; the kernel's launch plan and the merge of its
-parts, replayed; the wrappers' refusals; the seven MLA leaves carried by
+parts, replayed; the wrappers' checks (the flash backward takes (96, 64)
+and refuses other unequal pairs); a trainable MLA model (the gradient
+reaches every leaf, and it still serves); the seven MLA leaves carried by
 ``params_from_jax``; the seeded init's distributions.
 
 The layer tests draw every leaf from numpy, the two norms included
@@ -17,6 +19,8 @@ untested), and hand the same arrays to both sides.  ``smoke_config
 outputs of magnitude ~1, for sums taken in another order (observed
 differences are below 1e-6).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,18 +179,25 @@ def test_flash_plain_at_unequal_heads_matches_reference(B, S, H, KV,
 
 
 def test_flash_and_mla_wrappers_check_their_shapes():
-    """The checks run before any launch: the flash forward takes (96, 64)
-    and no other unequal pair, its backward refuses (96, 64) with a clear
-    error, and the MLA decode takes minicpm3's (40, 256, 32) only, pos in
-    the cache."""
+    """The checks run before any launch: the flash forward and its
+    backward take (96, 64) and no other unequal pair, the backward's dO at
+    v's head dim, and the MLA decode takes minicpm3's (40, 256, 32) only,
+    pos in the cache."""
     f = torch.zeros
     FA._check(f(1, 8, 4, 96), f(1, 8, 2, 96), f(1, 8, 2, 64), 0)
     for hd, hdv in ((96, 96), (64, 96), (128, 64), (96, 32)):
         with pytest.raises(ValueError, match="head dims"):
             FA._check(f(1, 8, 4, hd), f(1, 8, 2, hd), f(1, 8, 2, hdv), 0)
     q, k, v = f(1, 8, 4, 96), f(1, 8, 2, 96), f(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="MLA training"):
-        FA._check_bwd(q, k, v, f(1, 8, 4, 96), f(1, 4, 8), f(1, 4, 8), 0)
+    rows = (f(1, 4, 8), f(1, 4, 8))
+    assert FA._check_bwd(q, k, v, f(1, 8, 4, 64), *rows, 0) == \
+        (1, 8, 4, 2, 96)
+    with pytest.raises(ValueError, match="do must be"):
+        FA._check_bwd(q, k, v, f(1, 8, 4, 96), *rows, 0)
+    for hd, hdv in ((96, 32), (64, 96), (128, 64)):
+        with pytest.raises(ValueError, match="head dims"):
+            FA._check_bwd(f(1, 8, 4, hd), f(1, 8, 2, hd), f(1, 8, 2, hdv),
+                          f(1, 8, 4, hdv), *rows, 0)
     good = [f(2, 40, 256), f(2, 40, 32), f(2, 50, 256), f(2, 50, 32)]
     assert DA._mla_check(*good, 49) == (2, 50)
     with pytest.raises(ValueError, match="pos"):
@@ -383,8 +394,26 @@ def test_seeded_init_has_materialize_distributions():
 
 
 def test_training_mla_is_refused_with_a_clear_error():
+    """MLA trains: ``check_trainable`` passes it, every weight of a
+    trainable model requires grad, the loss's gradient reaches all seven
+    MLA leaves of every layer, and the trainable model still serves the
+    logits of a frozen one under ``no_grad``.  What ``check_supported``
+    refuses, MLA with a logit softcap, is still refused."""
     _, pcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP.md"):
-        check_trainable(pcfg)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Model.from_seed(pcfg, 0, "cpu").trainable()
+    check_trainable(pcfg)
+    model = Model.from_seed(pcfg, 0, "cpu").trainable()
+    assert all(p.requires_grad for p in model.parameters())
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, pcfg.vocab_size, (2, 16)))
+    h, _ = model.hidden_forward(tokens)
+    grads = torch.autograd.grad(h.float().square().mean(),
+                                [layer.attn[n] for layer in model.layers
+                                 for n in PA.mla_defs(pcfg)])
+    assert all(bool(g.isfinite().all()) for g in grads)
+    assert all(bool(g.any()) for g in grads)
+    with torch.no_grad():
+        got, _ = model(tokens)
+    want, _ = Model.from_seed(pcfg, 0, "cpu")(tokens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="MLA with a logit"):
+        check_trainable(dataclasses.replace(pcfg, attn_logit_softcap=30.0))

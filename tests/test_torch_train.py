@@ -2,9 +2,10 @@
 optimizers on a seeded tree, the cross-entropies, the loss, router aux and
 every gradient of reduced models under ``jax.value_and_grad`` with the train
 state carried across, gradient accumulation, three train steps, the
-error-feedback compressor bit for bit, a train step of reduced rwkv6 and
-jamba (Adafactor, bf16 accumulation); and the port's own behaviour: remat
-modes (RWKV and Mamba layers too), what trains and what serves, the data law,
+error-feedback compressor bit for bit, a train step of reduced rwkv6,
+jamba (Adafactor, bf16 accumulation) and minicpm3 (MLA, remat full and
+dots); and the port's own behaviour: remat modes (RWKV, Mamba and MLA
+layers too), what trains and what serves, the data law,
 checkpoints (keep, torn writes, a corrupt newest one, dtype casts, bf16),
 crash-restart determinism and the runtime-log line.
 
@@ -188,6 +189,9 @@ def _by_name(pcfg, jtree, ref_tree):
     # first 4 layers (mamba, mamba + MoE, mamba, attention + MoE), the
     # card's cut, hold every kind of layer
     ("jamba-1.5-large-398b", {"loss_chunk": 16, "n_layers": 4}),
+    # MLA: q/k heads of nope + rope, v heads of their own, the seven
+    # leaves of every layer
+    ("minicpm3-4b", {"loss_chunk": 16}),
 ])
 def test_loss_aux_and_gradients_match_jax(arch, kw):
     jcfg, pcfg, jstate, pstate = _pair(arch, **kw)
@@ -334,10 +338,14 @@ def test_compress_decompress_rounds_half_to_even():
     ("jamba-1.5-large-398b", {"grad_accum": 2, "optimizer": "adafactor",
                               "grad_accum_dtype": "bfloat16",
                               "n_layers": 4}),
+    # MLA under both recomputing remat modes, with AdamW
+    ("minicpm3-4b", {"grad_accum": 2, "remat": "full"}),
+    ("minicpm3-4b", {"grad_accum": 2, "remat": "dots"}),
 ])
 def test_rwkv_and_mamba_train_step_matches_jax(arch, kw):
-    """A train step of a reduced rwkv6 and jamba (the chunked WKV6 and the
-    Mamba chunk at S 32, two microbatches) from a JAX train state one step
+    """A train step of a reduced rwkv6, jamba and minicpm3 (the chunked
+    WKV6 and the Mamba chunk at S 32, MLA's attention, two microbatches)
+    from a JAX train state one step
     in, so that ``train_state_from_jax`` carries moments that are not
     zeros (AdamW's m and v, Adafactor's vr, vc and v): the metrics, the
     parameters after the step and the optimizer's state.  jamba
@@ -388,11 +396,12 @@ def test_rwkv_and_mamba_train_step_matches_jax(arch, kw):
                 assert _rel(_np(leaves[n][k]), a) <= 1e-3, (n, k)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b",
+                                  "minicpm3-4b"])
 def test_rwkv_and_mamba_are_trainable_and_still_serve(arch):
     """``check_trainable`` refuses only what ``check_supported`` refuses:
-    RWKV and Mamba layers train, and a trainable model still serves under
-    ``no_grad``, with the logits of a frozen one."""
+    RWKV, Mamba and MLA layers train, and a trainable model still serves
+    under ``no_grad``, with the logits of a frozen one."""
     cfg = smoke_config(arch)
     state = PT.init_train_state(cfg, 0, "cpu")
     model = state["model"]
@@ -403,15 +412,15 @@ def test_rwkv_and_mamba_are_trainable_and_still_serve(arch):
         got, _ = model.hidden_forward(tokens)
     want, _ = Model.from_seed(cfg, 0, "cpu").hidden_forward(tokens)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        PT.init_train_state(smoke_config("minicpm3-4b"), 0, "cpu")
 
 
 @pytest.mark.parametrize("arch,kw", [("rwkv6-3b", {}),
-                                     ("jamba-1.5-large-398b", {"n_layers": 4})])
+                                     ("jamba-1.5-large-398b", {"n_layers": 4}),
+                                     ("minicpm3-4b", {})])
 def test_remat_recomputes_rwkv_and_mamba_layers(arch, kw):
-    """remat "full" and "dots" give an RWKV or Mamba layer's gradients of
-    remat "none" (the chunked WKV6 and the Mamba chunk at S 32)."""
+    """remat "full" and "dots" give an RWKV, Mamba or MLA layer's gradients
+    of remat "none" (the chunked WKV6 and the Mamba chunk at S 32; MLA's
+    einsums, which "dots" keeps as bmm outputs)."""
     jcfg, pcfg, jstate, pstate = _pair(arch, **kw)
     _, pb = _jbatch(jcfg, 2, 32)
     grads = {}
