@@ -1610,8 +1610,9 @@ def _route_call(kind, a):
     (``kind`` "flash") or decode_attention ("decode") on ``_qkv``'s seeded
     inputs, or mla_decode_attention ("mla") on ``_mla_inputs``', ``a``
     the shape's arguments; or ("bwd") flash_attention_bwd in
-    ``a["dtype"]`` at the training microbatch (4 query heads over 1 of
-    256), ``a["window"]`` its window."""
+    ``a["dtype"]`` at the shape ``a`` names (B, S, H, KV, hd, hdv; by
+    default gemma3-1b's training microbatch, 4 query heads over 1 of 256),
+    ``a["window"]`` its window."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.modeling.attention import ring_positions
@@ -1625,12 +1626,15 @@ def _route_call(kind, a):
         return (lambda: DA.mla_decode_attention(*ins, a["pos"], MLA_SCALE),
                 lambda names: any("mla_decode_wgmma_kernel" in n for n in names))
     if kind == "bwd":
-        B, S, H, KV, hd = TRAIN_MICRO_B, TRAIN_S, 4, 1, 256
+        B, S, H, KV, hd = (a.get(n, d) for n, d in (
+            ("B", TRAIN_MICRO_B), ("S", TRAIN_S), ("H", 4), ("KV", 1),
+            ("hd", 256)))
+        hdv = a.get("hdv") or hd
         q, k, v, do = _tensors(9, ((B, S, H, hd), (B, S, KV, hd),
-                                   (B, S, KV, hd), (B, S, H, hd)),
+                                   (B, S, KV, hdv), (B, S, H, hdv)),
                                a["dtype"])
         o, lse = FA.flash_attention_lse(q, k, v, window=a["window"])
-        need = bwd_route_kernels(a["dtype"])[1]
+        need = bwd_route_kernels(a["dtype"], (hd, hdv))[1]
         return (lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
                                                window=a["window"]),
                 lambda names: need <= _bwd_kernels_seen(names))
@@ -3492,11 +3496,16 @@ BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dkdv_sum",
 
 def _bwd_instance(mangled):
     """A label of a mangled kernel name of flash_attention_bwd.cu, such as
-    'dkdv bf16 wgmma hd 256', 'dq f32 hd 64' (the SIMT route), 'dkdv bf16
-    wgmma hd 96/64' (MLA's q/k and v head dims), 'dkdv sum' or 'delta
-    f32', else None."""
+    'dkdv bf16 wgmma hd 256', 'dq f32 hd 64' (the SIMT route), 'dq f32 hd
+    96/64' (MLA's q/k and v head dims), 'dkdv bf16 mla hd 96/64' (the bf16
+    (96, 64) kernels of their own, flash_bwd_dkdv_mla_kernel and
+    flash_bwd_dq_mla_kernel), 'dkdv sum' or 'delta f32', else
+    None."""
     def dims(hd, hdv):
         return hd if hdv in (None, hd) else f"{hd}/{hdv}"
+    m = re.search(r"flash_bwd_(dkdv|dq)_mla_kernel", mangled)
+    if m:
+        return f"{m.group(1)} bf16 mla hd 96/64"
     m = re.search(r"flash_bwd_(dkdv|dq)_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?",
                   mangled)
     if m:
@@ -3726,9 +3735,12 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype, hdv=None,
     apart, the sum beside one ``torch.sum`` over the heads of the same
     partials (float32 out: without the rounding).  With ``trace``, the
     kernel names that
-    profiled calls of the whole backward show (``route_trace`` "bwd") go
-    with the times, and those the traces missed; fails unless the route's
-    dkdv and dq kernels were seen, and on any kernel of the other route."""
+    profiled calls of the whole backward show (``route_trace`` "bwd", at
+    this shape) go with the times, and those the traces missed; fails
+    unless the route's dkdv and dq kernels were seen (at the bf16 (96, 64)
+    flash_bwd_dkdv_mla and flash_bwd_dq_mla), and on any kernel of another
+    route.  In bf16 the dkdv and dq launches are also repeated three times
+    and must give the same bits (``repeat_bit_equal``)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     kw = dict(window=window)
@@ -3758,6 +3770,18 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype, hdv=None,
                lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw))]
     out = {}
+    if dtype == "bfloat16":
+        for name, fn, _ in steps[1:]:
+            if name == "flash_bwd_dkdv_sum":
+                continue
+            runs = [fn() for _ in range(3)]
+            sync()
+            runs = [r if isinstance(r, (tuple, list)) else (r,) for r in runs]
+            same = all(torch.equal(a, b) for r in runs[1:]
+                       for a, b in zip(runs[0], r))
+            assert same, f"flash backward {dtype} {name}: repeats differ"
+            out.setdefault("repeat_bit_equal", {})[name] = same
+            del runs
     for name, fn, plain in steps:
         out[name] = {"ms": cuda_ms(fn, 10, warm=2),
                      "plain_ms": cuda_ms(plain, 3, warm=1)}
@@ -3770,8 +3794,10 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype, hdv=None,
             lambda: [torch.sum(t, dim=3) for t in grouped], 10, warm=2)
         del part, grouped
     if trace:
-        traced, traced_in = route_trace("bwd", dtype=dtype, window=window)
-        want, need = bwd_route_kernels(dtype)
+        traced, traced_in = route_trace(
+            "bwd", dtype=dtype, window=window, B=B, S=S, H=H, KV=KV, hd=hd,
+            hdv=hdv)
+        want, need = bwd_route_kernels(dtype, (hd, hdv))
         seen = _bwd_kernels_seen(traced)
         assert need <= seen <= want, \
             f"flash backward {dtype} window {window}: the trace shows {seen}"
@@ -3785,10 +3811,15 @@ def flash_bwd_times(seed, B, S, H, KV, hd, window, dtype, hdv=None,
     return out
 
 
-def bwd_route_kernels(dtype):
-    """The kernels flash_attention_bwd launches in ``dtype`` with more
-    query heads than kv heads: (all of them, the dkdv and dq kernels a
-    trace must show)."""
+def bwd_route_kernels(dtype, dims=None):
+    """The kernels flash_attention_bwd launches in ``dtype`` at the head
+    dims ``dims`` (q/k, v) with more query heads than kv heads: (all of
+    them, the dkdv and dq kernels a trace must show).  The bf16 (96, 64)
+    runs kernels of its own, flash_bwd_dkdv_mla and flash_bwd_dq_mla."""
+    if dtype == "bfloat16" and dims == (MLA_HDQK, MLA_HDV):
+        need = {"flash_bwd_dkdv_mla_kernel", "flash_bwd_dq_mla_kernel"}
+        return need | {"flash_bwd_delta_kernel",
+                       "flash_bwd_dkdv_sum_kernel"}, need
     if dtype == "bfloat16":
         need = {"flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"}
         return need | {"flash_bwd_delta_kernel",
@@ -3806,28 +3837,60 @@ def bwd_build(build):
     (``sass_sha256``, which ``scripts/kernel_ab.py``'s train step compares
     between trees).  Exactly 19 instances: delta in both types, dkdv and
     dq in float32 (SIMT) and bf16 (wgmma) at hd 64, 128 and 256 and at
-    MLA's (96, 64), and the dkdv sum; no bf16 SIMT instance is left."""
+    MLA's (96, 64) (bf16: its own kernels, 'dkdv bf16 mla hd 96/64' and
+    'dq bf16 mla hd 96/64', with their consumer warpgroups and registers
+    from ``bwd_tc_config``), and the dkdv sum; no bf16 SIMT instance is
+    left, and no wgmma is serialised."""
     from repro_torch.kernels import flash_attention as FA
     per = ptxas_by_instance(build.BUILD_INFO["flash_attention_bwd"]["log"],
                             _bwd_instance)
     assert len(per) == 19, sorted(per)
     assert not [n for n in per if n.split()[1:3] == ["bf16", "hd"]], per
+    assert {"dkdv bf16 mla hd 96/64", "dq bf16 mla hd 96/64"} <= set(per)
     spills = {n: i for n, i in per.items()
-              if max(i.get("spill_stores", 1), i.get("spill_loads", 1)) > 0}
+              if max(i.get("spill_stores", 1), i.get("spill_loads", 1)) > 0
+              or i.get("wgmma_serialized")}
     assert not spills, spills
     so = build.build_all(["flash_attention_bwd"])["flash_attention_bwd"]
     counts, _ = tensor_core_sass(build, so, _bwd_instance)
     for name, info in per.items():
         info["sass_sha256"] = counts.get(name, {}).get("sass_sha256")
-        if "wgmma" in name:
+        if "wgmma" in name or "mla" in name:
             info.update(counts.get(name, {}))
             kind, dims = name.split()[0], name.split()[-1].split("/")
             cfg = FA.bwd_tc_config(*map(int, dims))[kind]
             info.update(dynamic_smem_bytes=cfg["SMEM"], BQ=cfg["BQ"],
                         BK=cfg["BK"], stages=cfg["NS"])
+            if "mla" in name:
+                info.update(kernel=f"flash_bwd_{kind}_mla_kernel",
+                            consumer_warpgroups=cfg["NWG"],
+                            threads=cfg["THREADS"],
+                            producer_registers=cfg["PRODUCER_REGS"],
+                            consumer_registers=cfg["CONSUMER_REGS"])
             assert info.get("HGMMA", 0) > 0 and info.get("UTMALDG", 0) > 0, \
                 (name, info)
     return per
+
+
+# MLA's (96, 64): minicpm3-4b's training microbatch, grouped heads (the
+# bf16 partials summed at both widths), a softcap, a window across
+# tiles, ragged S, S = 1; and the bf16 kernels' 128-key and 128-row
+# items: the last item's second warpgroup wholly past S (S = 1,050), a
+# window of 100 that ends inside the second warpgroup's keys, more
+# pairs of items than SMs under G 4 (the partials and their sum at both
+# widths)
+MLA_BWD_CASES = [   # label, B, S, H, KV, causal, window, cap
+    ("mla train H40", MLA_TRAIN_MICRO_B, TRAIN_S, MLA_H, MLA_H, True,
+     0, 0.0),
+    ("mla G4 H8 KV2", 1, 512, 8, 2, True, 0, 0.0),
+    ("mla softcap 30", 1, 512, 8, 8, True, 0, 30.0),
+    ("mla window 100 across tiles", 1, 700, 8, 8, True, 100, 0.0),
+    ("mla ragged S=1000", 1, 1000, 8, 8, True, 0, 0.0),
+    ("mla S=1", 2, 1, 8, 8, True, 0, 0.0),
+    ("mla S=1050 second warpgroup past S", 1, 1050, 8, 8, True, 0, 0.0),
+    ("mla window 100 ending in the second warpgroup", 1, 1000, 8, 8,
+     True, 100, 0.0),
+    ("mla G4 B2 S2048 H40 KV10", 2, 2048, MLA_H, 10, True, 0, 0.0)]
 
 
 def train_kernel_phase(build):
@@ -3856,17 +3919,6 @@ def train_kernel_phase(build):
         # jamba's attention layer at its training microbatch
         ("jamba train H64 KV8 hd 128", 1, TRAIN_S, JAMBA_H, JAMBA_KV,
          JAMBA_HD, True, 0, 0.0)]
-    # MLA's (96, 64): minicpm3-4b's training microbatch, grouped heads (the
-    # bf16 partials summed at both widths), a softcap, a window across
-    # tiles, ragged S, S = 1
-    mla_cases = [   # label, B, S, H, KV, causal, window, cap
-        ("mla train H40", MLA_TRAIN_MICRO_B, TRAIN_S, MLA_H, MLA_H, True,
-         0, 0.0),
-        ("mla G4 H8 KV2", 1, 512, 8, 2, True, 0, 0.0),
-        ("mla softcap 30", 1, 512, 8, 8, True, 0, 30.0),
-        ("mla window 100 across tiles", 1, 700, 8, 8, True, 100, 0.0),
-        ("mla ragged S=1000", 1, 1000, 8, 8, True, 0, 0.0),
-        ("mla S=1", 2, 1, 8, 8, True, 0, 0.0)]
     rel, worst = {}, {}
 
     def run(label, args, dt, seed, key, hdv=None):
@@ -3880,7 +3932,8 @@ def train_kernel_phase(build):
     for i, c in enumerate(cases):
         for dt in ("bfloat16", "float32"):
             run(c[0], c[1:], dt, 50 + i, dt)
-    for i, (label, b, s_, h, kv, causal, window, cap) in enumerate(mla_cases):
+    for i, (label, b, s_, h, kv, causal, window, cap) in enumerate(
+            MLA_BWD_CASES):
         for dt in ("bfloat16", "float32"):
             run(label, (b, s_, h, kv, MLA_HDQK, causal, window, cap), dt,
                 70 + i, f"mla {dt}", hdv=MLA_HDV)
@@ -3893,12 +3946,14 @@ def train_kernel_phase(build):
             times[f"{name} {dt}"] = flash_bwd_times(9, B, S, 4, 1, 256,
                                                     window, dt)
             _free_card()
-    # MLA's training microbatch: bf16, the main path's type, and float32
+    # MLA's training microbatch: bf16, the main path's type (its trace must
+    # name flash_bwd_dkdv_mla and flash_bwd_dq_mla), and float32
     for dt in ("bfloat16", "float32"):
         times[f"mla {dt}"] = flash_bwd_times(
             11, MLA_TRAIN_MICRO_B, TRAIN_S, MLA_H, MLA_H, MLA_HDQK, 0, dt,
-            hdv=MLA_HDV, trace=False)
+            hdv=MLA_HDV, trace=dt == "bfloat16")
         _free_card()
+    times["mla_ptxas"] = {n: i for n, i in per.items() if "mla" in n}
     emit("train_kernel", t0, ptxas=per, cases=rel, max_abs_err=worst,
          tolerances={"float32": FLASH_BWD_F32_REL,
                      "bfloat16": FLASH_BWD_BF16_REL}, times=times)
@@ -4991,14 +5046,27 @@ def bwd_kernel_line(name, launches, err, times):
     return out
 
 
+# what ``bwd_build`` read from the build log and the SASS of an instance
+# (its tiles and register budgets come from the source: the phase's record)
+BUILD_MEASURED = ("registers", "spill_stores", "spill_loads", "stack_bytes",
+                  "static_smem_bytes", "wgmma_serialized", "HGMMA",
+                  "UTMALDG", "sass_sha256")
+
+
 def mla_bwd_kernel_line(name, launches, err, times):
     """The ``kernels`` line's entry of one flash backward launch at MLA's
     (96, 64) instance: times at minicpm3-4b's training microbatch, bf16
     (the main path's type), beside float32's; launches on mla_train's
     path; the library time SDPA's whole backward at the same shape, with
-    the backend that took it."""
+    the backend that took it.  dkdv and dq run bf16 kernels of their own:
+    their function, what ptxas and the SASS show of them and what the
+    trace saw go with them."""
     t, f32 = times["mla bfloat16"], times["mla float32"]
     sdpa = t["sdpa"]
+    kind = name[len("flash_bwd_"):]
+    ptxas = times["mla_ptxas"].get(f"{kind} bf16 mla hd 96/64")
+    if ptxas:       # what the build log and SASS show, not the config
+        ptxas = {k: v for k, v in ptxas.items() if k in BUILD_MEASURED}
     out = {"name": f"{name}_mla", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:72 (its "
@@ -5006,6 +5074,11 @@ def mla_bwd_kernel_line(name, launches, err, times):
            "instance": "q/k head 96, v head 64 (q and k in three 32-column "
                        "boxes with 64-byte swizzle; dK and dQ one m64n96 "
                        "product a step)",
+           "kernel": f"flash_bwd_{kind}_mla_kernel" if ptxas
+           else "flash_bwd_delta_kernel",
+           "ptxas": ptxas,
+           "traced": sorted(k for k in t.get("trace_kernels", ())
+                            if kind in k) if ptxas else None,
            "launches": launches,
            "max_abs_err": max(err["mla bfloat16"], err["mla float32"]),
            "max_abs_err_by_dtype": {"bfloat16": err["mla bfloat16"],

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Compare two trees of the PyTorch/CUDA port on one card, in turns.
 
-    python3 scripts/kernel_ab.py [--only STEP[,STEP...]] A_SRC B_SRC
+    python3 scripts/kernel_ab.py [--only STEP[,STEP...]] A_SRC B_SRC [C_SRC ...]
 
-A_SRC and B_SRC are directories that hold a ``repro_torch`` package (for
+A_SRC, B_SRC, ... are directories that hold a ``repro_torch`` package (for
 example ``src`` of a ``git archive`` of the parent commit and ``src`` of
-this checkout).  Every step runs in a fresh process, in the order A, B,
-B, A, and prints one JSON line.  First gbm_predict on chip_smoke.py's
+this checkout).  Every step runs in a fresh process a tree, in the order
+A, B, B, A (with more trees A, B, C, C, B, A), and prints one JSON line.  First gbm_predict on chip_smoke.py's
 seeded ensembles (T 200, depth 3) at the serving shape (n 24,576 at d 2,
 3 and 4) and at n = 2^20 (d 3), by CUDA events over calls queued behind a
 sleeping kernel (``queued_ms``, the card's time) and back to back
@@ -45,7 +45,12 @@ SDPA's backward beside them, and the same at MLA's (96, 64) on
 minicpm3-4b's microbatch (B 1, S 4096, 40 heads) where the tree's backward
 takes that pair; then a gemma3-1b training run at full width
 and depth (10 steps of 8 x 4096, the runtime log's median step, warm-up
-excluded).  Each step of that run also records its wall and process CPU
+excluded) and minicpm3-4b's as ``chip_smoke.py``'s mla_train runs it (62
+layers, 4 steps of 8 x 4096, the first the warm-up).  ``bwd_sass`` leaves
+out the (96, 64) functions (the SIMT instances and, since the bf16 ones
+became kernels of their own, flash_bwd_dkdv_mla and flash_bwd_dq_mla), so
+that two trees show whether the other 14 backward functions and the head
+sum kept their SASS.  Each step of that run also records its wall and process CPU
 seconds on the host, and what ``nvidia-smi`` sampled during it every
 0.1 s or so: SM clock, power draw, utilization and the clock-event
 (throttle) reasons.  The step "recurrences" (run only when ``--only``
@@ -70,7 +75,17 @@ has it, the launch without its merge; and it hashes the SASS of every
 other kernel function of every library (``all_sass``), so that two
 trees show that only MLA's kernels changed, and apart those of MLA's
 kernels (``mla_sass``), which two trees share where only the sources'
-layout changed.  Needs a CUDA card.
+layout changed.  The step "mla_bwd" (only when ``--only`` names it)
+reports one tree's bf16 flash backward at (96, 64): ptxas's registers,
+spills and ``wgmma`` serialisation notes for every backward function, the
+bf16 cases of ``chip_smoke.MLA_BWD_CASES`` against plain and autograd,
+and delta, dkdv and dq by CUDA events at minicpm3-4b's microbatch; with
+several trees it compares variants of those kernels.  The step
+"train_profile" (only when ``--only`` names it) trains gemma3-1b and
+minicpm3-4b (62 layers) for 3 steps of 8 x 4096 and profiles the second:
+the card's busy time (the union of its kernels) and idle share of the
+step, the flash backward's kernels, the heaviest kernels and the heaviest
+host ops.  Needs a CUDA card.
 """
 import hashlib
 import json
@@ -84,7 +99,6 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ORDER = (0, 1, 1, 0)
 ARCHS = ("gemma3-1b", "rwkv6-3b", "jamba-1.5-large-398b")
 GBM_SHAPES = ((24576, 2, 500), (24576, 3, 500), (24576, 4, 500),
               (2 ** 20, 3, 50))                       # n, d, calls timed
@@ -205,7 +219,8 @@ MLA_DECODE = (8, 2120, 2080)
 # kernel functions that differ between trees by design in the mla step:
 # MLA's flash instance (its wgmma kernel, whatever its name) and decode
 MLA_FUNCTIONS = re.compile(r"flash_fwd_mla_kernel|flash_fwd_wgmma_kernelILi96ELi64E"
-                           r"|mla_(decode|merge)|flash_bwd_\w+ILi96ELi64E")
+                           r"|mla_(decode|merge)|flash_bwd_\w+ILi96ELi64E"
+                           r"|flash_bwd_\w+_mla_kernel")
 
 
 def sass_name(mangled):
@@ -468,27 +483,153 @@ def train(label):
                     q, k, v, do, lse, delta), 10, warm=2),
                 "sdpa": CS.sdpa_backward_times(q, k, v, do, 0)}
     del q, k, v, do
-    torch.cuda.empty_cache()
-    history, samples, stop = StepStamps(), [], threading.Event()
-    sampler = threading.Thread(target=smi_sampler, args=(stop, samples))
-    with tempfile.TemporaryDirectory() as tmp:
-        log = os.path.join(tmp, "runtime.jsonl")
-        torch.cuda.reset_peak_memory_stats()
-        sampler.start()
-        t0, cpu0 = time.perf_counter(), time.process_time()
-        try:
-            losses = T.run("gemma3-1b", TRAIN_STEPS, CS.TRAIN_B, CS.TRAIN_S,
-                           smoke=False, device="cuda", runtime_log=log,
-                           history=history)
-        finally:
-            stop.set()
-            sampler.join()
-        rec = json.loads(open(log).read().splitlines()[-1])
-    out["train"] = {"median_step_s": rec["median_step_s"], "losses": losses,
+    for key, arch, steps in (("train", "gemma3-1b", TRAIN_STEPS),
+                             ("mla_train", CS.MLA_ARCH, CS.MLA_TRAIN_STEPS)):
+        torch.cuda.empty_cache()
+        history, samples, stop = StepStamps(), [], threading.Event()
+        sampler = threading.Thread(target=smi_sampler, args=(stop, samples))
+        with tempfile.TemporaryDirectory() as tmp:
+            log = os.path.join(tmp, "runtime.jsonl")
+            torch.cuda.reset_peak_memory_stats()
+            sampler.start()
+            t0, cpu0 = time.perf_counter(), time.process_time()
+            try:
+                losses = T.run(arch, steps, CS.TRAIN_B, CS.TRAIN_S,
+                               smoke=False, device="cuda", runtime_log=log,
+                               history=history)
+            finally:
+                stop.set()
+                sampler.join()
+            rec = json.loads(open(log).read().splitlines()[-1])
+        out[key] = {"arch": arch, "median_step_s": rec["median_step_s"],
+                    "losses": losses,
                     "tokens_per_s": CS.TRAIN_B * CS.TRAIN_S
                     / rec["median_step_s"],
                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
                     "steps": step_table(t0, cpu0, history, samples)}
+    return out
+
+
+def mla_bwd(label):
+    """One tree's bf16 flash backward at MLA's (96, 64): what ptxas made of
+    every backward function (registers, spills, ``wgmma`` serialisation
+    notes, by ``chip_smoke.ptxas_by_instance``), the bf16 cases of
+    ``chip_smoke.MLA_BWD_CASES`` held to plain and autograd
+    (``check_flash_bwd``: the worst relative error of dq, dk and dv), and
+    delta, dkdv and dq at minicpm3-4b's training microbatch by CUDA events
+    (20 calls after 3; dkdv and dq twice)."""
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    t0 = time.perf_counter()
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    out = {"label": label, "card": CS.nvidia_smi(),
+           "build_s": time.perf_counter() - t0,
+           "ptxas": CS.ptxas_by_instance(
+               build.BUILD_INFO["flash_attention_bwd"]["log"],
+               CS._bwd_instance)}
+    rel = {}
+    for i, (name, B, S, H, KV, causal, window, cap) in enumerate(
+            CS.MLA_BWD_CASES):
+        r = CS.check_flash_bwd(name, B, S, H, KV, 96, causal, window, cap,
+                               "bfloat16", 70 + i, hdv=64)
+        rel[name] = max(r[n]["rel"] or 0 for n in ("dq", "dk", "dv"))
+        torch.cuda.empty_cache()
+    out["rel"] = rel
+    B, S, H, hdq, hdv = TRAIN_BWD_MLA
+    q, k, v, do = CS._tensors(11, ((B, S, H, hdq), (B, S, H, hdq),
+                                   (B, S, H, hdv), (B, S, H, hdv)),
+                              "bfloat16")
+    o, lse = FA.flash_attention_lse(q, k, v)
+    delta = FA.flash_bwd_delta(o, do)
+    for rep in range(2):
+        out[f"dkdv_ms_{rep}"] = CS.cuda_ms(
+            lambda: FA.flash_bwd_dkdv(q, k, v, do, lse, delta), 20, warm=3)
+        out[f"dq_ms_{rep}"] = CS.cuda_ms(
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta), 20, warm=3)
+    out["delta_ms"] = CS.cuda_ms(lambda: FA.flash_bwd_delta(o, do), 20)
+    return out
+
+
+class ProfiledSteps(StepStamps):
+    """``history`` that moves a torch profiler on at the end of each step."""
+
+    def __init__(self, prof):
+        super().__init__()
+        self.prof = prof
+
+    def append(self, rec):
+        super().append(rec)
+        self.prof.step()
+
+
+def step_profile(prof, seconds):
+    """Of one profiled training step: the card's kernels (count, summed
+    device ms, busy ms as the union of their intervals, idle share of the
+    step's wall time), the flash backward's and the heaviest kernels by
+    device time, and the heaviest host ops by self CPU time."""
+    import torch
+    spans, by = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith("ProfilerStep")):   # the step's span
+            r = e.time_range
+            spans.append((r.start, r.end))
+            n, ms = by.get(e.name[:90], (0, 0.0))
+            by[e.name[:90]] = (n + 1, ms + r.elapsed_us() / 1e3)
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e3
+    top = sorted(by.items(), key=lambda x: -x[1][1])
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda x: -x[2])
+    return {"step_s": seconds, "kernels": len(spans),
+            "kernel_ms": sum(ms for _, ms in by.values()),
+            "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / (1e3 * seconds),
+            "flash_bwd": {n: v for n, v in by.items() if "flash_bwd" in n},
+            "top_kernels": top[:12],
+            "top_host_self_ms": host[:12]}
+
+
+def train_profile(label):
+    """gemma3-1b and minicpm3-4b (62 layers) trained as the step "train"
+    trains them, 3 steps of 8 x 4096: the first a warm-up, the second
+    under torch.profiler (CPU and CUDA activities; ``step_profile``), the
+    third plain; each step's wall seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    import chip_smoke as CS
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as T
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    out = {"label": label, "card": CS.nvidia_smi()}
+    for key, arch in (("train", "gemma3-1b"), ("mla_train", CS.MLA_ARCH)):
+        torch.cuda.empty_cache()
+        got = {}
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=1, warmup=0, active=1,
+                                         repeat=1),
+                       on_trace_ready=lambda p: got.setdefault(
+                           "profiled", step_profile(
+                               p, history[-1]["seconds"])))
+        history = ProfiledSteps(prof)
+        with prof:
+            T.run(arch, 3, CS.TRAIN_B, CS.TRAIN_S, smoke=False,
+                  device="cuda", history=history)
+        out[key] = {"arch": arch,
+                    "steps_s": [h["seconds"] for h in history],
+                    "profiled": got.get("profiled", "not traced")}
     return out
 
 
@@ -543,7 +684,8 @@ def one(src, label, what):
     """One step in this process, with ``src``'s repro_torch."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
     step = {"gbm": gbm, "kernels": kernels, "flash": flash,
-            "train": train, "recurrences": recurrences, "mla": mla}.get(what)
+            "train": train, "recurrences": recurrences, "mla": mla,
+            "mla_bwd": mla_bwd, "train_profile": train_profile}.get(what)
     if what in SSM_TRAIN:
         res = ssm_train(label, what)
     else:
@@ -556,15 +698,16 @@ def main(argv):
     if len(argv) == 4 and argv[0] == "--one":
         return one(*argv[1:])
     steps = ("gbm", "kernels") + ARCHS
-    if len(argv) == 4 and argv[0] == "--only":
+    if len(argv) >= 4 and argv[0] == "--only":
         steps, argv = tuple(argv[1].split(",")), argv[2:]
-    if len(argv) != 2:
+    if not 2 <= len(argv) <= 26:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
+    order = list(range(len(argv))) + list(reversed(range(len(argv))))
     for what in steps:
-        for i in ORDER:
-            label = f"{'AB'[i]}:{argv[i]}"
+        for i in order:
+            label = f"{chr(ord('A') + i)}:{argv[i]}"
             p = subprocess.run([sys.executable, os.path.abspath(__file__),
                                 "--one", argv[i], label, what],
                                capture_output=True, text=True)

@@ -84,36 +84,21 @@
 // spills (chip_smoke.py's train_kernel phase checks).
 //
 // MLA's head dims (minicpm3-4b's training: q and k heads of 96, v heads of
-// 64) are a pair of their own, (HDQK, HDV) = (96, 64), on both routes; the
-// (64, 64), (128, 128) and (256, 256) instances compile the code they
-// compiled before (the 96-only code sits in if-constexpr branches).  At the
-// MLA training microbatch (B 1, S 4096, 40 heads over 40, causal: 335.6 M
-// kept pairs) dkdv does 640 FLOP a pair (S and dK over 96, dP and dV over
+// 64) are a pair of their own, (HDQK, HDV) = (96, 64), on both routes.  At
+// the MLA training microbatch (B 1, S 4096, 40 heads over 40, causal: 335.6
+// M kept pairs) dkdv does 640 FLOP a pair (S and dK over 96, dP and dV over
 // 64), 0.2172 ms at 989 TFLOP/s, and dq 512 (S, dQ over 96, dP over 64),
-// 0.1737 ms, against tens of MB: the tensor cores bound both.  The bf16
-// design is the one above, widths split:
-//   - q's and k's 96 columns come in as three 32-column boxes with 64-byte
-//     swizzle (one tensor map each, as at the other widths), so that a
-//     96-column operand is one swizzle mode across three 32-column atoms:
-//     S = Q . K^T and S^T = K . Q^T take six k16 steps, two in each box,
-//     and dK += dS^T . Q and dQ += dS . K are one m64n96k16 product a k16
-//     step with Q or K as the MN-major B (atoms BQ or BK rows of 64 bytes
-//     apart).  A 128-byte-swizzled box of 64 and a 64-byte one of 32 would
-//     split those products in two, and 96 is not a multiple of the
-//     128-byte swizzle's 64-column atom;
-//   - v and dO keep their 64-column, 128-byte-swizzled chunk;
-//   - the dkdv warpgroups' accumulators differ: dV 64 columns (32
-//     registers), dK 96 (48);
-//   - with G > 1 the partials are dK's [B, S, H, 96] followed by dV's
-//     [B, S, H, 64] in one scratch buffer, and flash_bwd_dkdv_sum adds each
-//     at its own width.
-// Shared memory at (96, 64): dkdv 99 KB (K 12 KB and V 8 KB resident, three
-// Q/dO stages of 12 + 8 KB, the exchange), dq 101 KB (Q 24 KB, dO 16 KB,
-// three K/V stages of 12 + 8 KB).  float32: the SIMT kernels with q/k rows
-// padded to 100 floats and v/dO rows to 68; a thread's float4 column
-// groups cover columns 64 gg + 4 tc, and at 96 the second group only for
-// tc < 8 (in_row), so that each column has one thread; shared memory 117 KB
-// (dkdv) and 100 KB (dq).
+// 0.1737 ms, against tens of MB: the tensor cores bound both.  bf16 runs
+// two kernels of its own, flash_bwd_dkdv_mla and flash_bwd_dq_mla ("MLA's
+// backward" below: persistent, each consumer warpgroup on its own keys or
+// rows of an item end to end); with G > 1 the partials are
+// dK's [B, S, H, 96] followed by dV's [B, S, H, 64] in one scratch buffer,
+// and flash_bwd_dkdv_sum adds each at its own width.  The shared tc
+// kernels above serve the equal head dims only.  float32: the SIMT kernels
+// with q/k rows padded to 100 floats and v/dO rows to 68; a thread's float4
+// column groups cover columns 64 gg + 4 tc, and at 96 the second group
+// only for tc < 8 (in_row), so that each column has one thread; shared
+// memory 117 KB (dkdv) and 100 KB (dq).
 //
 // float32, the parity route: the first design, kept as it was.  wgmma
 // would take float32 only as TF32, about three decimal digits, which puts
@@ -630,19 +615,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // named barriers of the dkdv blocks' P dtanh exchange (0 is __syncthreads)
 constexpr int kXFull = 1, kXEmpty = 2;
 
-// HDQK: the head dim of q and k; HDV: of v and dO.  q and k come in as
-// CHUNKS column chunks of CW columns: 64 (128 bytes, 128-byte swizzle) at
-// hd 64 / 128 / 256, 32 (64 bytes, 64-byte swizzle) at MLA's 96, so that
-// one swizzle spans a 96-column operand (three 32-column atoms) and dK's and
-// dQ's products stay one wgmma of N 96; v and dO in 64-column chunks.
+// The equal-dim instances (HDQK = HDV = 64, 128, 256): q, k, v and dO in
+// 64-column (128-byte, 128-byte-swizzled) chunks.  MLA's (96, 64) has
+// kernels of their own (MlaDkdvCfg, MlaDqCfg below).
 template <int HDQK, int HDV>
 struct DkdvCfg {
   static constexpr int BK = 64;                  // keys a block, resident
   static constexpr int BQ = 64;                  // query rows a stage
   static constexpr int NS = HDQK == 256 ? 2 : 3; // stages of the Q/dO ring
-  static constexpr int CW = HDQK % 64 == 0 ? 64 : 32;  // q/k chunk columns
-  static constexpr int CHUNKS = HDQK / CW;       // q/k column chunks
-  static constexpr int VCHUNKS = HDV / 64;       // v/dO column chunks
+  static constexpr int CHUNKS = HDQK / 64;       // column chunks of a row
   static constexpr int K_BYTES = BK * HDQK * 2;  // K, resident
   static constexpr int V_BYTES = BK * HDV * 2;   // V, resident
   static constexpr int Q_BYTES = BQ * HDQK * 2;  // one Q stage
@@ -661,9 +642,7 @@ struct DqCfg {
   static constexpr int BQ = 128;                 // query rows a block
   static constexpr int BK = HDQK == 256 ? 32 : 64;  // keys a stage
   static constexpr int NS = HDQK == 256 ? 2 : 3; // stages of the K/V ring
-  static constexpr int CW = HDQK % 64 == 0 ? 64 : 32;
-  static constexpr int CHUNKS = HDQK / CW;
-  static constexpr int VCHUNKS = HDV / 64;
+  static constexpr int CHUNKS = HDQK / 64;
   static constexpr int Q_BYTES = BQ * HDQK * 2;  // Q, resident
   static constexpr int G_BYTES = BQ * HDV * 2;   // dO, resident
   static constexpr int K_BYTES = BK * HDQK * 2;  // one K stage
@@ -738,12 +717,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ra, size_t stride,
 // ka = k0 + 16 w + l / 4 and ka + 8; accumulator register 4 j + e of an
 // m64nN product holds column 8 j + 2 (l % 4) + (e & 1) of row ka (e < 2)
 // or ka + 8 (e >= 2), so a score tile's registers are already the
-// A-fragment layout of the products that take P^T and dS^T.  At MLA's
-// (96, 64) the two warpgroups' products differ in width: warpgroup 1 takes
-// S^T over 96 columns (six k16 steps in the 64-byte-swizzled chunks of K
-// and Q) and holds dV at N 64 (32 registers); warpgroup 2 takes dP^T over
-// 64 and holds dK at N 96 (48 registers), Q the MN-major B of three
-// 32-column atoms; each warpgroup's products sit in a branch of its own.
+// A-fragment layout of the products that take P^T and dS^T.
 template <int HDQK, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -759,7 +733,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             float softcap) {
   using C = DkdvCfg<HDQK, HDV>;
   constexpr int BK = C::BK, BQ = C::BQ, NS = C::NS, HD = HDQK;
-  constexpr bool kEq = HDQK == HDV;
+  static_assert(HDQK == HDV, "MLA's (96, 64) has kernels of its own");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023u) & ~1023u;
@@ -804,20 +778,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const size_t r_off = (static_cast<size_t>(b) * H + h) * S;
       if (lane == 0) {
         mbar_expect_tx(kv_full, C::K_BYTES + C::V_BYTES);
-        if constexpr (kEq) {
 #pragma unroll
-          for (int c = 0; c < C::CHUNKS; ++c) {
-            tma_load(sK + c * BK * 128, &tk, kv_full, c * 64, kh, k0, b);
-            tma_load(sV + c * BK * 128, &tv, kv_full, c * 64, kh, k0, b);
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < C::CHUNKS; ++c)
-            tma_load(sK + c * BK * 2 * C::CW, &tk, kv_full, c * C::CW, kh,
-                     k0, b);
-#pragma unroll
-          for (int c = 0; c < C::VCHUNKS; ++c)
-            tma_load(sV + c * BK * 128, &tv, kv_full, c * 64, kh, k0, b);
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(sK + c * BK * 128, &tk, kv_full, c * 64, kh, k0, b);
+          tma_load(sV + c * BK * 128, &tv, kv_full, c * 64, kh, k0, b);
         }
       }
       for (int i = 0; i < n_steps; ++i) {
@@ -836,28 +800,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           // the arrival releases the warp's stores with the TMA bytes
           const uint32_t bar = full0 + 8 * s;
           mbar_expect_tx(bar, C::Q_BYTES + C::G_BYTES);
-          if constexpr (kEq) {
 #pragma unroll
-            for (int c = 0; c < C::CHUNKS; ++c) {
-              tma_load(sQ + s * C::Q_BYTES + c * BQ * 128, &tq, bar, c * 64,
-                       h, q0, b);
-              tma_load(sG + s * C::G_BYTES + c * BQ * 128, &tdo, bar, c * 64,
-                       h, q0, b);
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < C::CHUNKS; ++c)
-              tma_load(sQ + s * C::Q_BYTES + c * BQ * 2 * C::CW, &tq, bar,
-                       c * C::CW, h, q0, b);
-#pragma unroll
-            for (int c = 0; c < C::VCHUNKS; ++c)
-              tma_load(sG + s * C::G_BYTES + c * BQ * 128, &tdo, bar, c * 64,
-                       h, q0, b);
+          for (int c = 0; c < C::CHUNKS; ++c) {
+            tma_load(sQ + s * C::Q_BYTES + c * BQ * 128, &tq, bar, c * 64,
+                     h, q0, b);
+            tma_load(sG + s * C::G_BYTES + c * BQ * 128, &tdo, bar, c * 64,
+                     h, q0, b);
           }
         }
       }
     }
-  } else if constexpr (kEq) {
+  } else {
     // ---- consumers: c 0 the P / dV warpgroup, c 1 the dS / dK warpgroup
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;
@@ -985,158 +938,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
               pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
       }
     }
-  } else {
-    // ---- consumers at (HDQK, HDV) = (96, 64): c 0 the P / dV warpgroup,
-    // c 1 the dS / dK warpgroup, as above with products of their own widths
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int c = wg - 1;
-    const int t = threadIdx.x % 128;
-    const int lane = t % 32;
-    const int ka = k0 + (t / 32) * 16 + lane / 4, kb = ka + 8;
-    const int col0 = 2 * (lane % 4);
-
-    float acc_v[HDV / 2], acc_k[HDQK / 2];   // dV (c 0), dK (c 1)
-#pragma unroll
-    for (int i = 0; i < HDV / 2; ++i) acc_v[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < HDQK / 2; ++i) acc_k[i] = 0.f;
-
-    mbar_wait(kv_full, 0);
-    for (int i = 0; i < n_steps; ++i) {
-      const int s = i % NS;
-      const int q0 = (t_lo + i) * BQ;
-      const uint32_t qst = sQ + s * C::Q_BYTES, gst = sG + s * C::G_BYTES;
-      mbar_wait(full0 + 8 * s, (i / NS) & 1);
-
-      float sc[BQ / 2];
-#pragma unroll
-      for (int j = 0; j < BQ / 2; ++j) sc[j] = 0.f;
-      if (c == 0) {
-        // S^T = K . Q^T over HDQK: two k16 steps (32 bytes) in each of the
-        // 64-byte-swizzled chunks of K and of the stage's Q
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < HDQK / 16; ++ks) {
-          const uint32_t off = (ks % 2) * 32;
-          wgmma_ss(sc, sw64_desc(sK + (ks / 2) * BK * 64 + off, 512),
-                   sw64_desc(qst + (ks / 2) * BQ * 64 + off, 512), 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-      } else {
-        // dP^T = V . dO^T over HDV, 128-byte-swizzled chunks
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < HDV / 16; ++ks) {
-          const uint32_t off = (ks % 4) * 32;
-          wgmma_ss(sc, sw128_desc(sV + (ks / 4) * BK * 128 + off, 16, 1024),
-                   sw128_desc(gst + (ks / 4) * BQ * 128 + off, 16, 1024), 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-      }
-      fence_regs(sc);
-
-      const float* ls = lds + s * 2 * BQ;
-      if (c == 0) {
-        const bool edge = q0 + BQ > S || k0 + BK > S ||
-                          (causal && k0 + BK - 1 > q0) ||
-                          (window && k0 <= q0 + BQ - 1 - window);
-        if (i > 0) named_sync(kXEmpty, 256);  // the last tile's is read
-#pragma unroll
-        for (int j = 0; j < BQ / 2; ++j) {
-          const int qc = 8 * (j / 4) + col0 + (j & 1);
-          float dt;
-          float p = exp2f(score_log2(sc[j], scale, softcap, dt) - ls[qc]);
-          if (edge) {
-            const int qi = q0 + qc, kj = (j & 2) ? kb : ka;
-            bool ok = qi < S && kj < S;
-            if (causal) ok = ok && kj <= qi;
-            if (window) ok = ok && kj > qi - window;
-            p = ok ? p : 0.f;
-          }
-          xch[j * 128 + t] = p * dt;
-          sc[j] = p;
-        }
-        named_arrive(kXFull, 256);
-      } else {
-        named_sync(kXFull, 256);
-#pragma unroll
-        for (int j = 0; j < BQ / 2; ++j) {
-          const int qc = 8 * (j / 4) + col0 + (j & 1);
-          sc[j] = xch[j * 128 + t] * (sc[j] - ls[BQ + qc]);
-        }
-        named_arrive(kXEmpty, 256);
-      }
-
-      uint32_t a[BQ / 4];
-#pragma unroll
-      for (int j = 0; j < BQ / 2; j += 2) a[j / 2] = pack_bf16(sc[j], sc[j + 1]);
-      if (c == 0) {
-        // dV += P^T . dO: dO the MN-major B, one 64-column chunk
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                                 a[4 * kk + 3]};
-          wgmma_rs(acc_v, f, sw128_desc(gst + kk * 16 * 128, BQ * 128, 1024));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc_v);
-      } else {
-        // dK += dS^T . Q: Q the MN-major B of N 96, its three 32-column
-        // atoms BQ rows of 64 bytes apart
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                                 a[4 * kk + 3]};
-          wgmma_rs(acc_k, f, sw64_desc(qst + kk * 16 * 64, BQ * 64, 512));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc_k);
-      }
-      if (t == 0) mbar_arrive(empty0 + 8 * s);
-    }
-    if (c == 0 && n_steps > 0) named_sync(kXEmpty, 256);  // the last read
-
-    // epilogue: dK carries the scale (q * scale in the product)
-    const size_t row = static_cast<size_t>(b) * S + ka;
-    if (part != nullptr) {
-      // this head's float32 partials: dK's [B, S, H, HDQK], then dV's
-      // [B, S, H, HDV]
-      const size_t sk = static_cast<size_t>(H) * HDQK;
-      const size_t sv = static_cast<size_t>(H) * HDV;
-      if (c == 0)
-        store_rows(part + static_cast<size_t>(B) * S * sk + row * sv +
-                       static_cast<size_t>(h) * HDV + col0,
-                   sv, acc_v, 1.f, ka < S, kb < S);
-      else
-        store_rows(part + row * sk + static_cast<size_t>(h) * HDQK + col0,
-                   sk, acc_k, scale, ka < S, kb < S);
-    } else {
-      // G = 1: the head is the group; round once to bf16
-      const size_t sk = static_cast<size_t>(KV) * HDQK;
-      const size_t sv = static_cast<size_t>(KV) * HDV;
-      if (c == 0)
-        store_rows(dv + row * sv + static_cast<size_t>(kh) * HDV + col0, sv,
-                   acc_v, 1.f, ka < S, kb < S);
-      else
-        store_rows(dk + row * sk + static_cast<size_t>(kh) * HDQK + col0, sk,
-                   acc_k, scale, ka < S, kb < S);
-    }
   }
 }
 
 // Block layout: thread 0 (warpgroup 0) loads; warpgroups 1 and 2 own query
 // rows q0 .. q0+63 and q0+64 .. q0+127, each computing S = Q . K^T and
 // dP = dO . V^T for its rows, dS, and dQ += dS . K.  Thread t holds rows
-// qa = row_lo + 16 w + l / 4 and qa + 8 (the forward's layout).  At MLA's
-// (96, 64) S takes six k16 steps in the 64-byte-swizzled chunks of Q and
-// K, and dQ is one m64n96 product a k16 step, K the MN-major B of three
-// 32-column atoms (48 accumulator registers).
+// qa = row_lo + 16 w + l / 4 and qa + 8 (the forward's layout).
 template <int HDQK, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1150,7 +958,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           float softcap) {
   using C = DqCfg<HDQK, HDV>;
   constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS, HD = HDQK;
-  constexpr bool kEq = HDQK == HDV;
+  static_assert(HDQK == HDV, "MLA's (96, 64) has kernels of its own");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sG = sQ + C::Q_BYTES;            // dO
@@ -1187,19 +995,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES + C::G_BYTES);
-      if constexpr (kEq) {
 #pragma unroll
-        for (int c = 0; c < C::CHUNKS; ++c) {
-          tma_load(sQ + c * BQ * 128, &tq, q_full, c * 64, h, q0, b);
-          tma_load(sG + c * BQ * 128, &tdo, q_full, c * 64, h, q0, b);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < C::CHUNKS; ++c)
-          tma_load(sQ + c * BQ * 2 * C::CW, &tq, q_full, c * C::CW, h, q0, b);
-#pragma unroll
-        for (int c = 0; c < C::VCHUNKS; ++c)
-          tma_load(sG + c * BQ * 128, &tdo, q_full, c * 64, h, q0, b);
+      for (int c = 0; c < C::CHUNKS; ++c) {
+        tma_load(sQ + c * BQ * 128, &tq, q_full, c * 64, h, q0, b);
+        tma_load(sG + c * BQ * 128, &tdo, q_full, c * 64, h, q0, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % NS;
@@ -1207,23 +1006,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t bar = full0 + 8 * s;
         mbar_expect_tx(bar, C::K_BYTES + C::V_BYTES);
         const int k0 = (t_lo + i) * BK;
-        if constexpr (kEq) {
 #pragma unroll
-          for (int c = 0; c < C::CHUNKS; ++c) {
-            tma_load(sK + s * C::K_BYTES + c * BK * 128, &tk, bar, c * 64, kh,
-                     k0, b);
-            tma_load(sV + s * C::V_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
-                     k0, b);
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < C::CHUNKS; ++c)
-            tma_load(sK + s * C::K_BYTES + c * BK * 2 * C::CW, &tk, bar,
-                     c * C::CW, kh, k0, b);
-#pragma unroll
-          for (int c = 0; c < C::VCHUNKS; ++c)
-            tma_load(sV + s * C::V_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
-                     k0, b);
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(sK + s * C::K_BYTES + c * BK * 128, &tk, bar, c * 64, kh,
+                   k0, b);
+          tma_load(sV + s * C::V_BYTES + c * BK * 128, &tv, bar, c * 64, kh,
+                   k0, b);
         }
       }
     }
@@ -1235,12 +1023,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_lo = q0 + (wg - 1) * 64;          // this warpgroup's rows
     const int qa = row_lo + (t / 32) * 16 + lane / 4, qb = qa + 8;
     const int col0 = 2 * (lane % 4);
-    // this warpgroup's 64 rows of Q (chunk c at + c BQ 2 CW) and of dO
-    // (chunk c at + c BQ 128); at equal head dims sQw shares the product
-    // (wg - 1) * 64 * 128 with sGw, which keeps those instances' SASS
-    uint32_t sQw;
-    if constexpr (kEq) sQw = sQ + (wg - 1) * 64 * 128;
-    else sQw = sQ + (wg - 1) * 64 * 2 * C::CW;
+    // this warpgroup's 64 rows of Q and of dO (chunk c at + c BQ 128)
+    const uint32_t sQw = sQ + (wg - 1) * 64 * 128;
     const uint32_t sGw = sG + (wg - 1) * 64 * 128;
     const size_t r_off = (static_cast<size_t>(b) * H + h) * S;
     const float l_a = qa < S ? lse[r_off + qa] * kLog2e : 0.f;
@@ -1267,21 +1051,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t kst = sK + s * C::K_BYTES;
         const uint32_t vst = sV + s * C::V_BYTES;
         wgmma_fence();
-        if constexpr (kEq) {
 #pragma unroll
-          for (int ks = 0; ks < HD / 16; ++ks) {
-            const uint32_t off = (ks % 4) * 32;  // 16 columns of a chunk
-            wgmma_ss(sc, sw128_desc(sQw + (ks / 4) * BQ * 128 + off, 16, 1024),
-                     sw128_desc(kst + (ks / 4) * BK * 128 + off, 16, 1024), 1);
-          }
-        } else {
-          // two k16 steps (32 bytes) in each 64-byte-swizzled chunk
-#pragma unroll
-          for (int ks = 0; ks < HDQK / 16; ++ks) {
-            const uint32_t off = (ks % 2) * 32;
-            wgmma_ss(sc, sw64_desc(sQw + (ks / 2) * BQ * 64 + off, 512),
-                     sw64_desc(kst + (ks / 2) * BK * 64 + off, 512), 1);
-          }
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;  // 16 columns of a chunk
+          wgmma_ss(sc, sw128_desc(sQw + (ks / 4) * BQ * 128 + off, 16, 1024),
+                   sw128_desc(kst + (ks / 4) * BK * 128 + off, 16, 1024), 1);
         }
 #pragma unroll
         for (int ks = 0; ks < HDV / 16; ++ks) {
@@ -1326,10 +1100,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                                  a[4 * kk + 3]};
-          if constexpr (kEq)
-            wgmma_rs(acc, f, sw128_desc(kst + kk * 16 * 128, BK * 128, 1024));
-          else   // three 32-column atoms, BK rows of 64 bytes apart
-            wgmma_rs(acc, f, sw64_desc(kst + kk * 16 * 64, BK * 64, 512));
+          wgmma_rs(acc, f, sw128_desc(kst + kk * 16 * 128, BK * 128, 1024));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1351,6 +1122,812 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (qb < S)
         *reinterpret_cast<uint32_t*>(ob + 8 * j) =
             pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+// ----------------------------------------- MLA's backward: q.k 96, v 64
+//
+// minicpm3-4b's training attends per head with q and k rows of 96 columns
+// and v rows of 64.  A kept pair costs 640 FLOP in dkdv (S^T and dK over
+// 96, dP^T and dV over 64) and 512 in dq, so at 64 x 64 tiles a product is
+// short, and the exponentials and the dS arithmetic between the products
+// take about as long as the products themselves.  The two kernels below
+// keep each consumer warpgroup on its own rows of one item end to end, so
+// that its elementwise work runs under its own products and under the
+// other warpgroup's, and nothing is exchanged between warpgroups:
+//   - dkdv: an item is BK = 128 keys of one (batch, head), K and V resident;
+//     each of the two consumer warpgroups owns 64 of the keys and computes
+//     all four products for them (S^T = K . Q^T over 96, dP^T = V . dO^T
+//     over 64, dV += P^T . dO at N 64, dK += dS^T . Q at N 96), so one
+//     64-row Q/dO stage of the ring feeds 128 keys.  Registers: dV 32, dK
+//     48, S^T 32, dP^T 32, the bf16 fragments of P^T and dS^T 16 + 16.
+//   - dq: an item is BQ = 64 NWG query rows of one (batch, head), Q and dO
+//     resident; each consumer warpgroup owns 64 rows (S = Q . K^T over 96,
+//     dP = dO . V^T over 64, dQ += dS . K at N 96); K/V stages of 64 keys.
+//     Registers: dQ 48, S 32, dP 32, the bf16 fragments of dS 16.
+//   - inside a warpgroup, step i issues S(i), then stage i - 1's
+//     accumulating products, then dP(i), as three commit groups; P's
+//     exponentials run as soon as S(i) lands (wgmma.wait_group 2: the
+//     accumulating products and dP(i) still in flight), dS after dP(i), so
+//     that the tensor cores hold this warpgroup's work while its threads
+//     compute.  The scale and log2 e fold into the exponent, p = ex2(s c -
+//     lse log2 e), one FFMA before a bare MUFU.EX2 (as the forward's
+//     flash_fwd_mla_kernel); a stage that crosses a mask edge, or any stage
+//     with a softcap, takes a general path that scores, caps and masks
+//     element by element after both products have landed;
+//   - every product is issued on a path that ptxas can see is the same for
+//     the whole warpgroup: the warpgroup index comes through __shfl_sync
+//     (warp-uniform), and the step loop is peeled (the first stage's S and
+//     dP before it, the last stage's accumulating products after it), so
+//     that no wgmma sits under a condition inside the loop.  With products
+//     issued under such conditions ptxas serializes the kernel's wgmma
+//     instructions (its notes C7520, "compiler-inserted WG.AR in divergent
+//     path", and, with the index alone, C7514, accumulator registers read
+//     between start and end of the pipeline stage), which chip_smoke.py's
+//     bwd_build refuses: on an H100 dkdv and dq then take about 1.0 ms
+//     together against 0.73 peeled;
+//   - tried and not kept: the two warpgroups taking turns at issuing their
+//     products (named barriers, a turn a stage), whose products sit under
+//     conditions (ptxas serialized it too, C7515; it was slower still);
+//     three consumer warpgroups (192 keys or rows an item), which at 160
+//     registers a consumer spill in both kernels; K in dq as a 64-column
+//     128-byte box and a 32-column 64-byte one (two products a k16 step),
+//     slower than three 32-column boxes (both measured before the loop was
+//     peeled);
+//   - a warpgroup skips the products of a stage that every mask empties for
+//     its own rows (the causal diagonal, a window, rows or keys past S) but
+//     still waits for the stage and arrives on its empty barrier;
+//   - q's and k's 96 columns come in as three 32-column boxes with 64-byte
+//     swizzle (one tensor map each), so that dK += dS^T . Q and dQ += dS .
+//     K are one m64n96k16 product a k16 step with Q or K as the MN-major B
+//     (atoms a box apart); v and dO in one 64-column 128-byte-swizzled box;
+//   - the grid is persistent, one block an SM: a block walks every
+//     gridDim.x-th *pair* of items of one (batch, head), tile t and tile
+//     n - 1 - t (``mla_bwd_item``), the longer first, so that under the
+//     causal mask every pair costs the same (at minicpm3-4b's microbatch
+//     127 + 3 = 130 warpgroup stages in dkdv); the pairs are (batch,
+//     head)-major, so that the ~132 in flight share the Q and dO (dkdv) or
+//     K and V (dq) of about 8 heads through L2.  The forward's order (single
+//     items, longest first, rotated by the head) gives a makespan of 846
+//     stages an SM against the pairs' 650, the ideal being 630
+//     (``bwd_schedule``); the producer loads the next item's resident tiles
+//     behind an empty barrier of their own while the consumers finish the
+//     current item's last products and its epilogue, and the ring's stage
+//     and phase count on across items.
+// At minicpm3-4b's microbatch (B 1, S 4096, 40 heads over 40, causal): dkdv
+// 1,280 items in 640 pairs on 132 blocks, 83,200 warpgroup stages of 4096
+// pairs, makespan 650; dq the same at NWG 2.  Shared memory: dkdv 123 KB
+// (K 24 KB and V 16 KB resident, four Q/dO stages of 12 + 8 KB with their
+// lse and delta), dq 121 KB (Q 24 KB, dO 16 KB, four K/V stages of 12 + 8
+// KB).  Registers: 168 a thread at launch, the producer at 40 and the
+// consumers at 232 after setmaxnreg.
+struct MlaDkdvCfg {
+  static constexpr int HDQK = 96;
+  static constexpr int HDV = 64;
+  static constexpr int NWG = 2;                    // consumer warpgroups
+  static constexpr int BK = 64 * NWG;              // keys an item, resident
+  static constexpr int BQ = 64;                    // query rows a stage
+  static constexpr int NS = 4;                     // stages of the Q/dO ring
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int CW = 32;                    // q/k box columns
+  static constexpr int CHUNKS = HDQK / CW;         // q/k boxes
+  static constexpr int K_BYTES = BK * HDQK * 2;    // K, resident
+  static constexpr int V_BYTES = BK * HDV * 2;     // V, resident
+  static constexpr int Q_BYTES = BQ * HDQK * 2;    // one Q stage
+  static constexpr int G_BYTES = BQ * HDV * 2;     // one dO stage
+  static constexpr int L_BYTES = 2 * BQ * 4;       // a stage's lse and delta
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * NS);
+  static constexpr int SMEM = 1024 + K_BYTES + V_BYTES +
+                              NS * (Q_BYTES + G_BYTES) + NS * L_BYTES +
+                              BAR_BYTES;
+};
+
+struct MlaDqCfg {
+  static constexpr int HDQK = 96;
+  static constexpr int HDV = 64;
+  static constexpr int NWG = 2;                    // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;              // query rows an item
+  static constexpr int BK = 64;                    // keys a stage
+  static constexpr int NS = 4;                     // stages of the K/V ring
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int CW = 32;                    // q/k box columns
+  static constexpr int CHUNKS = HDQK / CW;         // q/k boxes
+  static constexpr int Q_BYTES = BQ * HDQK * 2;    // Q, resident
+  static constexpr int G_BYTES = BQ * HDV * 2;     // dO, resident
+  static constexpr int K_BYTES = BK * HDQK * 2;    // one K stage
+  static constexpr int V_BYTES = BK * HDV * 2;     // one V stage
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * NS);
+  static constexpr int SMEM = 1024 + Q_BYTES + G_BYTES + NS * STAGE_BYTES +
+                              BAR_BYTES;
+};
+
+// An item of MLA's persistent backward: tile t0 (the item's first key in
+// dkdv, its first query row in dq) of one (batch, head), and the stages
+// [t_lo, t_lo + n) of the other side that some pair of it may keep.
+struct MlaBwdItem {
+  int t0, b, h, kh, t_lo, n;
+};
+
+// The number of items of pair ``unit`` (units are (batch, head)-major, np
+// a (batch, head)): tiles p and nt - 1 - p of the nt tiles of a (batch,
+// head), one item where they meet.
+__device__ __forceinline__ int mla_bwd_items(int unit, int np, int nt) {
+  const int p = unit % np;
+  return nt - 1 - p == p ? 1 : 2;
+}
+
+__device__ __forceinline__ MlaBwdItem mla_bwd_item(int unit, int half, int np,
+                                                   int nt, int tile_rows,
+                                                   int stage_rows,
+                                                   bool dkdv, int S, int H,
+                                                   int KV, int causal,
+                                                   int window) {
+  MlaBwdItem it;
+  const int bh = unit / np, p = unit % np;
+  const int first = dkdv ? p : nt - 1 - p;
+  it.t0 = (half ? nt - 1 - first : first) * tile_rows;
+  it.b = bh / H;
+  it.h = bh % H;
+  it.kh = it.h / (H / KV);
+  int lo, hi;
+  if (dkdv) {   // query rows that some key of the item may be attended from
+    lo = causal ? it.t0 : 0;
+    hi = window ? min(S, it.t0 + tile_rows - 1 + window) : S;
+  } else {      // keys that some row of the item may attend
+    hi = causal ? min(S, it.t0 + tile_rows) : S;
+    lo = window ? max(0, it.t0 - window + 1) : 0;
+  }
+  it.t_lo = lo / stage_rows;
+  it.n = (hi + stage_rows - 1) / stage_rows - it.t_lo;
+  return it;
+}
+
+// S^T = K . Q^T over 96 columns for a warpgroup's 64 keys (A, K-major)
+// and a stage's 64 query rows (B, K-major): two k16 steps (32 bytes) in
+// each 64-byte-swizzled 32-column box, K's boxes abox bytes apart, Q's
+// bbox.
+__device__ __forceinline__ void mla_bwd_issue_s(float (&sc)[32], uint32_t a,
+                                                uint32_t abox, uint32_t b,
+                                                uint32_t bbox) {
+#pragma unroll
+  for (int ks = 0; ks < 6; ++ks) {
+    const uint32_t off = (ks % 2) * 32;
+    wgmma_ss(sc, sw64_desc(a + (ks / 2) * abox + off, 512),
+             sw64_desc(b + (ks / 2) * bbox + off, 512), ks > 0);
+  }
+}
+
+// dP^T = V . dO^T over 64 columns, both operands K-major in one
+// 128-byte-swizzled box.
+__device__ __forceinline__ void mla_bwd_issue_dp(float (&dp)[32], uint32_t a,
+                                                 uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_ss(dp, sw128_desc(a + ks * 32, 16, 1024),
+             sw128_desc(b + ks * 32, 16, 1024), ks > 0);
+}
+
+// acc (m64n96) += A . B over 64 rows of B: A the bf16 fragments f (four a
+// k16 step), B MN-major in three 32-column atoms ``atoms`` bytes apart.
+__device__ __forceinline__ void mla_bwd_issue_n96(float (&acc)[48],
+                                                  const uint32_t (&f)[16],
+                                                  uint32_t b, uint32_t atoms) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                           f[4 * kk + 3]};
+    wgmma_rs(acc, a, sw64_desc(b + kk * 16 * 64, atoms, 512));
+  }
+}
+
+// acc (m64n64) += A . B over 64 rows of B: B MN-major in one 128-byte-
+// swizzled 64-column box.
+__device__ __forceinline__ void mla_bwd_issue_n64(float (&acc)[32],
+                                                  const uint32_t (&f)[16],
+                                                  uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                           f[4 * kk + 3]};
+    wgmma_rs(acc, a, sw128_desc(b + kk * 16 * 128, 64 * 128, 1024));
+  }
+}
+
+__device__ __forceinline__ void mla_bwd_pack(uint32_t (&f)[16],
+                                             const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) f[j] = pack_bf16(x[2 * j], x[2 * j + 1]);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers (four bf16x2 a
+// thread), B in shared memory K-major (B^T stored row by row).
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// The wgmma A fragments of a warpgroup's 64 resident rows (thread t: rows
+// r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns 16 ks + 2 (t % 4) + {0,
+// 1} and + 8 of k16 step ks) read out of a tile as TMA left it: 32-column
+// boxes of 64-byte rows with 64-byte swizzle, ``box`` bytes apart (q, k:
+// KS 6), or one 64-column box of 128-byte rows with 128-byte swizzle (v,
+// dO: KS 4).  The tile starts on a 1024-byte boundary; swizzling XORs the
+// 16-byte chunk index (bits 4+) with the row bits above 128 bytes.
+template <int KS>
+__device__ __forceinline__ void mla_bwd_frags(uint32_t (&f)[4 * KS],
+                                              uint32_t tile, uint32_t box,
+                                              int t) {
+  const uint32_t r = (t / 32) * 16 + (t % 32) / 4, c = 4 * (t % 4);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t row = r + 8 * (e & 1), col = c + 16 * (e >> 1);
+      uint32_t o;
+      if constexpr (KS == 6) {       // 64-byte rows: (2 bits) ^ (2 bits)
+        o = row * 64 + 32 * (ks % 2) + col;
+        o = (ks / 2) * box + (o ^ (((o >> 7) & 3u) << 4));
+      } else {                       // 128-byte rows: (3 bits) ^ (3 bits)
+        o = row * 128 + 32 * ks + col;
+        o ^= ((o >> 7) & 7u) << 4;
+      }
+      f[4 * ks + e] = lds32(tile + o);
+    }
+  }
+}
+
+// S = A . B^T over 96 columns with A's fragments in registers (f, six k16
+// steps) and B K-major in three 64-byte-swizzled 32-column boxes ``bbox``
+// bytes apart.
+__device__ __forceinline__ void mla_bwd_issue_s_rs(float (&sc)[32],
+                                                   const uint32_t (&f)[24],
+                                                   uint32_t b, uint32_t bbox) {
+#pragma unroll
+  for (int ks = 0; ks < 6; ++ks) {
+    const uint32_t a[4] = {f[4 * ks], f[4 * ks + 1], f[4 * ks + 2],
+                           f[4 * ks + 3]};
+    wgmma_rs_k(sc, a, sw64_desc(b + (ks / 2) * bbox + (ks % 2) * 32, 512),
+               ks > 0);
+  }
+}
+
+// dP = A . B^T over 64 columns, A's fragments in registers (four k16
+// steps), B K-major in one 128-byte-swizzled box.
+__device__ __forceinline__ void mla_bwd_issue_dp_rs(float (&dp)[32],
+                                                    const uint32_t (&f)[16],
+                                                    uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint32_t a[4] = {f[4 * ks], f[4 * ks + 1], f[4 * ks + 2],
+                           f[4 * ks + 3]};
+    wgmma_rs_k(dp, a, sw128_desc(b + ks * 32, 16, 1024), ks > 0);
+  }
+}
+
+// Block layout: warp 0 loads (lane 0 issues every TMA load, the warp
+// copies each stage's lse, in log2 units, and delta); consumer warpgroup
+// c = 1, 2 owns keys t0 + 64 (c - 1) .. + 63 of each item.  In a consumer
+// thread t (warp w, lane l) holds keys ka = 16 w + l / 4 and ka + 8 of
+// them; accumulator register 4 j + e of an m64nN product holds column
+// 8 j + 2 (l % 4) + (e & 1) of row ka (e < 2) or ka + 8, so the score
+// tiles' registers are the A-fragment layout of dV's and dK's products.
+// Every consumer warp arrives once on each empty barrier (count 4 NWG).
+__global__ void __launch_bounds__(MlaDkdvCfg::THREADS, 1)
+flash_bwd_dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ part, int B, int S, int H,
+                          int KV, float scale, int causal, int window,
+                          float softcap) {
+  using C = MlaDkdvCfg;
+  constexpr int BK = C::BK, BQ = C::BQ, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;     // three boxes of BK rows
+  const uint32_t sV = sK + C::K_BYTES;
+  const uint32_t sQ = sV + C::V_BYTES;            // NS stages of Q
+  const uint32_t sG = sQ + NS * C::Q_BYTES;       // NS stages of dO
+  const uint32_t sL = sG + NS * C::G_BYTES;       // NS stages of lse, delta
+  const uint32_t kv_full = sL + NS * C::L_BYTES;
+  const uint32_t kv_empty = kv_full + 8;
+  const uint32_t full0 = kv_empty + 8, empty0 = full0 + 8 * NS;
+  float* lds = reinterpret_cast<float*>(smem_raw + (sL - raw));
+  const int nk = (S + BK - 1) / BK, np = (nk + 1) / 2;
+  const int n_units = np * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 4 * C::NWG);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform (as the compiler sees it), so that the warpgroup's
+  // branches around its wgmma products are not divergent
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: warp 0
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(C::PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int g = 0, j = 0;   // Q/dO stages filled, items begun
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        for (int half = 0; half < mla_bwd_items(u, np, nk); ++half, ++j) {
+          const MlaBwdItem it = mla_bwd_item(u, half, np, nk, BK, BQ, true, S,
+                                             H, KV, causal, window);
+          mbar_wait(kv_empty, (j & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(kv_full, C::K_BYTES + C::V_BYTES);
+#pragma unroll
+            for (int c = 0; c < C::CHUNKS; ++c)
+              tma_load(sK + c * BK * 64, &tk, kv_full, c * C::CW, it.kh, it.t0,
+                       it.b);
+            tma_load(sV, &tv, kv_full, 0, it.kh, it.t0, it.b);
+          }
+          const size_t r_off = (static_cast<size_t>(it.b) * H + it.h) * S;
+          for (int i = 0; i < it.n; ++i, ++g) {
+            const int s = g % NS;
+            const int q0 = (it.t_lo + i) * BQ;
+            mbar_wait(empty0 + 8 * s, ((g / NS) & 1) ^ 1);
+            // the stage's lse (in log2 units) and delta; rows >= S read 0
+            float* ls = lds + s * 2 * BQ;
+            for (int r = lane; r < BQ; r += 32) {
+              const bool in = q0 + r < S;
+              ls[r] = in ? lse[r_off + q0 + r] * kLog2e : 0.f;
+              ls[BQ + r] = in ? delta[r_off + q0 + r] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) {
+              // the arrival releases the warp's stores with the TMA bytes
+              const uint32_t bar = full0 + 8 * s;
+              mbar_expect_tx(bar, C::Q_BYTES + C::G_BYTES);
+#pragma unroll
+              for (int c = 0; c < C::CHUNKS; ++c)
+                tma_load(sQ + s * C::Q_BYTES + c * BQ * 64, &tq, bar,
+                         c * C::CW, it.h, q0, it.b);
+              tma_load(sG + s * C::G_BYTES, &tdo, bar, 0, it.h, q0, it.b);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int col0 = 2 * (lane % 4);
+  const float cl = scale * kLog2e;
+  const uint32_t sKw = sK + c * 64 * 64;          // this warpgroup's keys
+  const uint32_t sVw = sV + c * 64 * 128;
+  int g = 0, j = 0;   // Q/dO stages consumed, items begun
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    for (int half = 0; half < mla_bwd_items(u, np, nk); ++half, ++j) {
+      const MlaBwdItem it = mla_bwd_item(u, half, np, nk, BK, BQ, true, S, H,
+                                         KV, causal, window);
+      const int kw0 = it.t0 + 64 * c;              // this warpgroup's keys
+      const int ka = kw0 + (t / 32) * 16 + lane / 4, kb = ka + 8;
+      // the stages with a pair of this warpgroup to add: [a, e); the
+      // causal mask empties a prefix, the window a suffix
+      auto q0_of = [&](int i) { return (it.t_lo + i) * BQ; };
+      auto dead = [&](int i) {
+        const int q0 = q0_of(i);
+        return kw0 >= S || (causal && q0 + BQ - 1 < kw0) ||
+               (window && q0 - window >= kw0 + 63);
+      };
+      int a = 0, e = it.n;
+      while (a < e && dead(a)) ++a;
+      while (e > a && dead(e - 1)) --e;
+      auto slot = [&](int i) { return (g + i) % NS; };
+      auto wait_full = [&](int i) {
+        mbar_wait(full0 + 8 * slot(i), ((g + i) / NS) & 1);
+      };
+      auto release = [&](int i) {
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot(i));
+      };
+      auto general = [&](int i) {
+        const int q0 = q0_of(i);
+        return softcap != 0.f || q0 + BQ > S || kw0 + 64 > S ||
+               (causal && kw0 + 63 > q0) ||
+               (window && kw0 <= q0 + BQ - 1 - window);
+      };
+
+      float acc_v[32], acc_k[48];                  // dV, dK of this thread
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc_v[x] = 0.f;
+#pragma unroll
+      for (int x = 0; x < 48; ++x) acc_k[x] = 0.f;
+      mbar_wait(kv_full, j & 1);
+      // S^T and dP^T of stage i, K and V (this warpgroup's rows) as A
+      auto issue_s = [&](float (&sc)[32], int i) {
+        mla_bwd_issue_s(sc, sKw, BK * 64, sQ + slot(i) * C::Q_BYTES, BQ * 64);
+      };
+      auto issue_dp = [&](float (&dp)[32], int i) {
+        mla_bwd_issue_dp(dp, sVw, sG + slot(i) * C::G_BYTES);
+      };
+      for (int i = 0; i < a; ++i) {
+        wait_full(i);
+        release(i);
+      }
+      if (a < e) {
+        float sc[32], dp[32];
+        uint32_t pf[16], df[16];
+        // stage i's P^T and dS^T from S^T (landed) and dP^T (in flight
+        // with stage i - 1's accumulating products), rounded to bf16 in
+        // registers; then stage i - 1's ring slot is free
+        auto step = [&](int i) {
+          fence_regs(sc);
+          const float* ls = lds + slot(i) * 2 * BQ;
+          const bool gen = general(i);
+          if (!gen) {
+#pragma unroll
+            for (int x = 0; x < 32; ++x) {
+              const int qc = 8 * (x / 4) + col0 + (x & 1);
+              sc[x] = ex2(fmaf(sc[x], cl, -ls[qc]));
+            }
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          if (i > a) release(i - 1);
+          if (i + 1 == e && lane == 0) mbar_arrive(kv_empty);
+          if (gen) {
+            // scores, caps and masks element by element
+            const int q0 = q0_of(i);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) {
+              const int qc = 8 * (x / 4) + col0 + (x & 1);
+              const int qi = q0 + qc, kj = (x & 2) ? kb : ka;
+              float dt;
+              const float y = score_log2(sc[x], scale, softcap, dt);
+              bool ok = qi < S && kj < S;
+              if (causal) ok = ok && kj <= qi;
+              if (window) ok = ok && kj > qi - window;
+              const float p = ok ? ex2(y - ls[qc]) : 0.f;
+              sc[x] = p;
+              dp[x] = p * dt * (dp[x] - ls[BQ + qc]);
+            }
+          } else {
+#pragma unroll
+            for (int x = 0; x < 32; ++x) {
+              const int qc = 8 * (x / 4) + col0 + (x & 1);
+              dp[x] = sc[x] * (dp[x] - ls[BQ + qc]);
+            }
+          }
+          mla_bwd_pack(pf, sc);
+          mla_bwd_pack(df, dp);
+        };
+        // dV += P^T . dO and dK += dS^T . Q of stage i, the stage's dO and
+        // Q as the MN-major B
+        auto issue_acc = [&](int i) {
+          mla_bwd_issue_n64(acc_v, pf, sG + slot(i) * C::G_BYTES);
+          mla_bwd_issue_n96(acc_k, df, sQ + slot(i) * C::Q_BYTES, BQ * 64);
+          wgmma_commit();
+        };
+        wait_full(a);
+        wgmma_fence();
+        issue_s(sc, a);
+        wgmma_commit();
+        issue_dp(dp, a);
+        wgmma_commit();
+        wgmma_wait<1>();
+        step(a);
+        for (int i = a + 1; i < e; ++i) {
+          // S^T(i), then stage i - 1's accumulating products and dP^T(i)
+          // run on while P^T(i) is computed
+          wait_full(i);
+          wgmma_fence();
+          issue_s(sc, i);
+          wgmma_commit();
+          issue_acc(i - 1);
+          issue_dp(dp, i);
+          wgmma_commit();
+          wgmma_wait<2>();
+          step(i);
+        }
+        wgmma_fence();
+        issue_acc(e - 1);
+        wgmma_wait<0>();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+        release(e - 1);
+      } else if (lane == 0) {
+        mbar_arrive(kv_empty);
+      }
+      for (int i = e; i < it.n; ++i) {
+        wait_full(i);
+        release(i);
+      }
+      g += it.n;
+
+      // epilogue, while the producer loads the next item's K and V: dK
+      // carries the scale (q * scale in the product)
+      const size_t row = static_cast<size_t>(it.b) * S + ka;
+      if (part != nullptr) {
+        // this head's float32 partials: dK's [B, S, H, 96], then dV's
+        // [B, S, H, 64]
+        const size_t sk = static_cast<size_t>(H) * C::HDQK;
+        const size_t sv = static_cast<size_t>(H) * C::HDV;
+        store_rows(part + static_cast<size_t>(B) * S * sk + row * sv +
+                       static_cast<size_t>(it.h) * C::HDV + col0,
+                   sv, acc_v, 1.f, ka < S, kb < S);
+        store_rows(part + row * sk + static_cast<size_t>(it.h) * C::HDQK +
+                       col0,
+                   sk, acc_k, scale, ka < S, kb < S);
+      } else {
+        // G = 1: the head is the group; round once to bf16
+        const size_t sk = static_cast<size_t>(KV) * C::HDQK;
+        const size_t sv = static_cast<size_t>(KV) * C::HDV;
+        store_rows(dv + row * sv + static_cast<size_t>(it.kh) * C::HDV + col0,
+                   sv, acc_v, 1.f, ka < S, kb < S);
+        store_rows(dk + row * sk + static_cast<size_t>(it.kh) * C::HDQK +
+                       col0,
+                   sk, acc_k, scale, ka < S, kb < S);
+      }
+    }
+  }
+}
+
+// Block layout: thread 0 (warpgroup 0) loads; consumer warpgroup w = 1 ..
+// NWG owns query rows t0 + 64 (w - 1) .. + 63 of each item, thread t rows
+// qa = 16 (t / 32) + (t % 32) / 4 and qa + 8 of them (the forward's
+// layout).  Every consumer warp arrives once on each empty barrier.
+__global__ void __launch_bounds__(MlaDqCfg::THREADS, 1)
+flash_bwd_dq_mla_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int B, int S, int H,
+                        int KV, float scale, int causal, int window,
+                        float softcap) {
+  using C = MlaDqCfg;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // three boxes
+  const uint32_t sG = sQ + C::Q_BYTES;            // dO
+  const uint32_t sK = sG + C::G_BYTES;            // NS stages [K | V]
+  const uint32_t q_full = sK + NS * C::STAGE_BYTES;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full0 = q_empty + 8, empty0 = full0 + 8 * NS;
+  const int nq = (S + BQ - 1) / BQ, np = (nq + 1) / 2;
+  const int n_units = np * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * C::NWG);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform (as the compiler sees it), so that the warpgroup's
+  // branches around its wgmma products are not divergent
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(C::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int g = 0, j = 0;   // K/V stages filled, items begun
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        for (int half = 0; half < mla_bwd_items(u, np, nq); ++half, ++j) {
+          const MlaBwdItem it = mla_bwd_item(u, half, np, nq, BQ, BK, false,
+                                             S, H, KV, causal, window);
+          mbar_wait(q_empty, (j & 1) ^ 1);
+          mbar_expect_tx(q_full, C::Q_BYTES + C::G_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::CHUNKS; ++c)
+            tma_load(sQ + c * BQ * 64, &tq, q_full, c * C::CW, it.h, it.t0,
+                     it.b);
+          tma_load(sG, &tdo, q_full, 0, it.h, it.t0, it.b);
+          for (int i = 0; i < it.n; ++i, ++g) {
+            const int s = g % NS;
+            mbar_wait(empty0 + 8 * s, ((g / NS) & 1) ^ 1);
+            const uint32_t bar = full0 + 8 * s, st = sK + s * C::STAGE_BYTES;
+            const int k0 = (it.t_lo + i) * BK;
+            mbar_expect_tx(bar, C::STAGE_BYTES);
+#pragma unroll
+            for (int c = 0; c < C::CHUNKS; ++c)
+              tma_load(st + c * BK * 64, &tk, bar, c * C::CW, it.kh, k0, it.b);
+            tma_load(st + C::K_BYTES, &tv, bar, 0, it.kh, k0, it.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
+  const int w = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int col0 = 2 * (lane % 4);
+  const float cl = scale * kLog2e;
+  const uint32_t sQw = sQ + w * 64 * 64;          // this warpgroup's rows
+  const uint32_t sGw = sG + w * 64 * 128;
+  const size_t q_stride = static_cast<size_t>(H) * C::HDQK;
+  int g = 0, j = 0;   // K/V stages consumed, items begun
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    for (int half = 0; half < mla_bwd_items(u, np, nq); ++half, ++j) {
+      const MlaBwdItem it = mla_bwd_item(u, half, np, nq, BQ, BK, false, S,
+                                         H, KV, causal, window);
+      const int row_lo = it.t0 + 64 * w;           // this warpgroup's rows
+      const int qa = row_lo + (t / 32) * 16 + lane / 4, qb = qa + 8;
+      const size_t r_off = (static_cast<size_t>(it.b) * H + it.h) * S;
+      const float l_a = qa < S ? lse[r_off + qa] * kLog2e : 0.f;
+      const float l_b = qb < S ? lse[r_off + qb] * kLog2e : 0.f;
+      const float d_a = qa < S ? delta[r_off + qa] : 0.f;
+      const float d_b = qb < S ? delta[r_off + qb] : 0.f;
+      // the stages with a pair of this warpgroup to add: [a, e); the
+      // window empties a prefix, the causal mask a suffix
+      auto k0_of = [&](int i) { return (it.t_lo + i) * BK; };
+      auto dead = [&](int i) {
+        const int k0 = k0_of(i);
+        return row_lo >= S || (causal && k0 > row_lo + 63) ||
+               (window && k0 + BK - 1 <= row_lo - window);
+      };
+      int a = 0, e = it.n;
+      while (a < e && dead(a)) ++a;
+      while (e > a && dead(e - 1)) --e;
+      auto slot = [&](int i) { return (g + i) % NS; };
+      auto stage = [&](int i) { return sK + slot(i) * C::STAGE_BYTES; };
+      auto wait_full = [&](int i) {
+        mbar_wait(full0 + 8 * slot(i), ((g + i) / NS) & 1);
+      };
+      auto release = [&](int i) {
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot(i));
+      };
+      auto general = [&](int i) {
+        const int k0 = k0_of(i);
+        return softcap != 0.f || k0 + BK > S || row_lo + 64 > S ||
+               (causal && k0 + BK - 1 > row_lo) ||
+               (window && k0 <= row_lo + 63 - window);
+      };
+
+      float acc[48];                               // dQ of this thread
+#pragma unroll
+      for (int x = 0; x < 48; ++x) acc[x] = 0.f;
+      mbar_wait(q_full, j & 1);
+      // this warpgroup's rows of Q and dO as the A fragments of S and dP,
+      // in registers for the whole item: the buffer is free for the next
+      // item's at once
+      uint32_t qf[24], gf[16];
+      mla_bwd_frags<6>(qf, sQw, BQ * 64, t);
+      mla_bwd_frags<4>(gf, sGw, 0, t);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
+      auto issue_s = [&](float (&sc)[32], int i) {
+        mla_bwd_issue_s_rs(sc, qf, stage(i), BK * 64);
+      };
+      auto issue_dp = [&](float (&dp)[32], int i) {
+        mla_bwd_issue_dp_rs(dp, gf, stage(i) + C::K_BYTES);
+      };
+      for (int i = 0; i < a; ++i) {
+        wait_full(i);
+        release(i);
+      }
+      if (a < e) {
+        float sc[32], dp[32];
+        uint32_t df[16];
+        // stage i's dS from S (landed) and dP (in flight with stage i - 1's
+        // dQ product), rounded to bf16 in registers; then stage i - 1's
+        // ring slot is free
+        auto step = [&](int i) {
+          fence_regs(sc);
+          const bool gen = general(i);
+          if (!gen) {
+#pragma unroll
+            for (int x = 0; x < 32; ++x)
+              sc[x] = ex2(fmaf(sc[x], cl, (x & 2) ? -l_b : -l_a));
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          if (i > a) release(i - 1);
+          if (gen) {
+            const int k0 = k0_of(i);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) {
+              const int kj = k0 + 8 * (x / 4) + col0 + (x & 1);
+              const int qi = (x & 2) ? qb : qa;
+              float dt;
+              const float y = score_log2(sc[x], scale, softcap, dt);
+              bool ok = qi < S && kj < S;
+              if (causal) ok = ok && kj <= qi;
+              if (window) ok = ok && kj > qi - window;
+              const float p = ok ? ex2(y - ((x & 2) ? l_b : l_a)) : 0.f;
+              dp[x] = p * dt * (dp[x] - ((x & 2) ? d_b : d_a));
+            }
+          } else {
+#pragma unroll
+            for (int x = 0; x < 32; ++x)
+              dp[x] = sc[x] * (dp[x] - ((x & 2) ? d_b : d_a));
+          }
+          mla_bwd_pack(df, dp);
+        };
+        // dQ += dS . K of stage i, the stage's K as the MN-major B
+        auto issue_acc = [&](int i) {
+          mla_bwd_issue_n96(acc, df, stage(i), BK * 64);
+          wgmma_commit();
+        };
+        wait_full(a);
+        wgmma_fence();
+        issue_s(sc, a);
+        wgmma_commit();
+        issue_dp(dp, a);
+        wgmma_commit();
+        wgmma_wait<1>();
+        step(a);
+        for (int i = a + 1; i < e; ++i) {
+          // S(i), then stage i - 1's dQ product and dP(i) run on while
+          // P(i) is computed
+          wait_full(i);
+          wgmma_fence();
+          issue_s(sc, i);
+          wgmma_commit();
+          issue_acc(i - 1);
+          issue_dp(dp, i);
+          wgmma_commit();
+          wgmma_wait<2>();
+          step(i);
+        }
+        wgmma_fence();
+        issue_acc(e - 1);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(e - 1);
+      }
+      for (int i = e; i < it.n; ++i) {
+        wait_full(i);
+        release(i);
+      }
+      g += it.n;
+
+      // epilogue, while the producer loads the next item: dq = scale * acc,
+      // rounded once to bf16
+      store_rows(dq + (static_cast<size_t>(it.b) * S + qa) * q_stride +
+                     static_cast<size_t>(it.h) * C::HDQK + col0,
+                 q_stride, acc, scale, qa < S, qb < S);
     }
   }
 }
@@ -1445,7 +2022,7 @@ int launch_dkdv_tc(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   using C = tc::DkdvCfg<HDQK, HDV>;
   CUtensorMap m[4];
-  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HDQK, HDV, C::CW, C::BQ,
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HDQK, HDV, 64, C::BQ,
                      C::BK);
   if (rc != 0) return rc;
   auto kernel = tc::flash_bwd_dkdv_wgmma_kernel<HDQK, HDV>;
@@ -1467,7 +2044,7 @@ int launch_dq_tc(const void* q, const void* k, const void* v,
                  int causal, int window, float softcap, cudaStream_t stream) {
   using C = tc::DqCfg<HDQK, HDV>;
   CUtensorMap m[4];
-  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HDQK, HDV, C::CW, C::BQ,
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, HDQK, HDV, 64, C::BQ,
                      C::BK);
   if (rc != 0) return rc;
   auto kernel = tc::flash_bwd_dq_wgmma_kernel<HDQK, HDV>;
@@ -1481,8 +2058,86 @@ int launch_dq_tc(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grid of MLA's persistent kernels: one block for each of the
+// ``units`` pairs of items, at most as many as fit on the card at once.
+// That bound (SMs times resident blocks) is asked of the runtime once a
+// kernel and device, on the first launch there.
+template <auto kernel>
+int persistent_grid(int threads, int smem, long long units, int* grid) {
+  constexpr int kDevices = 64;
+  static int most[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device < 0 || device >= kDevices))
+    err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && most[device] == 0) {
+    int sms = 0, resident = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                          threads, smem);
+    if (err == cudaSuccess) most[device] = sms * resident;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long bound = most[device];
+  *grid = static_cast<int>(units < bound ? units : bound);
+  return *grid > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// MLA's (96, 64) bf16 dkdv: q and k through 32-column maps (64-byte
+// swizzle), v and dO through 64-column ones; K and V boxes of an item's
+// 128 keys, Q and dO boxes of a stage's 64 rows.
+int launch_dkdv_mla(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, float* part, int B, int S, int H,
+                    int KV, float scale, int causal, int window, float softcap,
+                    cudaStream_t stream) {
+  using C = tc::MlaDkdvCfg;
+  CUtensorMap m[4];
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, C::HDQK, C::HDV, C::CW,
+                     C::BQ, C::BK);
+  if (rc != 0) return rc;
+  const long long units = static_cast<long long>((S + C::BK - 1) / C::BK + 1) /
+                          2 * B * H;
+  int grid = 0;
+  rc = persistent_grid<tc::flash_bwd_dkdv_mla_kernel>(C::THREADS, C::SMEM,
+                                                    units, &grid);
+  if (rc != 0) return rc;
+  tc::flash_bwd_dkdv_mla_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part, B, S, H, KV, scale, causal,
+      window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// MLA's (96, 64) bf16 dq: Q and dO boxes of an item's BQ rows, K and V
+// boxes of a stage's 64 keys.
+int launch_dq_mla(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, int B, int S, int H, int KV, float scale,
+                  int causal, int window, float softcap, cudaStream_t stream) {
+  using C = tc::MlaDqCfg;
+  CUtensorMap m[4];
+  int rc = make_maps(m, q, dout, k, v, B, S, H, KV, C::HDQK, C::HDV, C::CW,
+                     C::BQ, C::BK);
+  if (rc != 0) return rc;
+  const long long units = static_cast<long long>((S + C::BQ - 1) / C::BQ + 1) /
+                          2 * B * H;
+  int grid = 0;
+  rc = persistent_grid<tc::flash_bwd_dq_mla_kernel>(C::THREADS, C::SMEM,
+                                                  units, &grid);
+  if (rc != 0) return rc;
+  tc::flash_bwd_dq_mla_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), B,
+      S, H, KV, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The dkdv launch of the route and head-dim pair: (64, 64), (128, 128),
-// (256, 256) or MLA's (96, 64).
+// (256, 256) or MLA's (96, 64), whose bf16 route has a kernel of its own.
 template <int HDQK, int HDV>
 int launch_dkdv_pair(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
@@ -1491,8 +2146,12 @@ int launch_dkdv_pair(int dtype, const void* q, const void* k, const void* v,
                      float softcap, cudaStream_t s) {
   if (dtype == 0)
     return launch_dkdv<float, HDQK, HDV>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, causal, window, softcap, s);
-  if (dtype == 1)
-    return launch_dkdv_tc<HDQK, HDV>(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+  if (dtype == 1) {
+    if constexpr (HDQK != HDV)
+      return launch_dkdv_mla(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+    else
+      return launch_dkdv_tc<HDQK, HDV>(q, k, v, dout, lse, delta, dk, dv, part, B, S, H, KV, scale, causal, window, softcap, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1503,8 +2162,12 @@ int launch_dq_pair(int dtype, const void* q, const void* k, const void* v,
                    int causal, int window, float softcap, cudaStream_t s) {
   if (dtype == 0)
     return launch_dq<float, HDQK, HDV>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
-  if (dtype == 1)
-    return launch_dq_tc<HDQK, HDV>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+  if (dtype == 1) {
+    if constexpr (HDQK != HDV)
+      return launch_dq_mla(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+    else
+      return launch_dq_tc<HDQK, HDV>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, causal, window, softcap, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

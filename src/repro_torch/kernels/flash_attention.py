@@ -49,9 +49,13 @@ forward's:
   float32 partials (dK's [B, S, H, hd] and dV's [B, S, H, hdv], one
   scratch buffer), and ``flash_bwd_dkdv_sum`` adds a group's heads in the
   order g = 0 .. G-1 and rounds once.  P and dS are rounded to bf16 before
-  their products, as the forward rounds P.  At MLA's (96, 64) q and k come
-  in as three 32-column boxes with 64-byte swizzle, so that dK and dQ are
-  one product of width 96 a step.
+  their products, as the forward rounds P.  MLA's (96, 64) runs kernels of
+  its own, ``flash_bwd_dkdv_mla`` and ``flash_bwd_dq_mla``: persistent
+  grids walking pairs of 128-key (128-row) items, each consumer
+  warpgroup on its own 64 keys (rows) of an item end to end; q and k in
+  three 32-column boxes with 64-byte swizzle, so that dK and dQ are one
+  product of width 96 a step (``bwd_tc_config(96, 64)`` reads their
+  ``tc::MlaDkdvCfg`` and ``tc::MlaDqCfg``).
 - float32: the first SIMT design, float32 FMAs (dkdv one block per key
   tile and kv head, the group's heads summed in registers).
 
@@ -277,15 +281,84 @@ def bwd_tc_config(hd, hdv=None) -> dict:
     """The bf16 (wgmma) backward kernels' tiling at q/k head dim ``hd`` and
     v head dim ``hdv`` (default ``hd``), read from ``tc::DkdvCfg<HDQK,
     HDV>`` and ``tc::DqCfg<HDQK, HDV>`` in the source: {"dkdv": {BK keys a
-    block, BQ query rows a stage, NS stages, CW columns of a q/k chunk,
-    SMEM bytes of dynamic shared memory a block, ...}, "dq": {BQ rows a
-    block, BK keys a stage, NS, SMEM, ...}}."""
+    block, BQ query rows a stage, NS stages, CHUNKS 64-column chunks of a
+    q/k row, SMEM bytes of dynamic shared memory a block, ...}, "dq": {BQ
+    rows a block, BK keys a stage, NS, SMEM, ...}}.  For MLA's (96, 64)
+    its own kernels' ``tc::MlaDkdvCfg`` and ``tc::MlaDqCfg`` (NWG consumer
+    warpgroups of 64 keys or rows; dkdv: BK keys an item, BQ query rows a
+    stage; dq: BQ rows an item, BK keys a stage; CW columns of a q/k box,
+    NS, SMEM, THREADS, the registers of producer and consumers, ...)."""
     tc = _bwd_source()
     tc = tc[tc.index("namespace tc {"):]
-    env = {"HDQK": hd, "HDV": hd if hdv is None else hdv}
+    hdv = hd if hdv is None else hdv
+    env = {"HDQK": hd, "HDV": hdv}
+    structs = (("dkdv", "MlaDkdvCfg"), ("dq", "MlaDqCfg")) \
+        if (hd, hdv) == (96, 64) else (("dkdv", "DkdvCfg"), ("dq", "DqCfg"))
     return {name: _constexprs(re.search(
         rf"struct {struct} \{{(.*?)\n\}};", tc, re.S)[1], dict(env))
-        for name, struct in (("dkdv", "DkdvCfg"), ("dq", "DqCfg"))}
+        for name, struct in structs}
+
+
+def _mla_bwd_plan(S, causal, window) -> dict:
+    """The bf16 (96, 64) kernels' plan (``flash_bwd_dkdv_mla`` and
+    ``flash_bwd_dq_mla``) for one (batch, head), as their loops compute it:
+    items of ITEM keys (dkdv) or query rows (dq), NWG warpgroups of 64
+    each; "units", the pairs of items that a block of the persistent grid
+    takes at once (tiles p and n - 1 - p, the causal mask's longer first;
+    one item where they meet), in order; each item's stages (query rows of
+    BQ, key tiles of BK) and each warpgroup's live ones, the range left
+    when the stages that every mask empties for its own keys or rows are
+    taken off both ends.  "blocks" lists (first key or row of a
+    warpgroup, its live stages) for every warpgroup inside S, in the order
+    the items run."""
+    t = bwd_tc_config(96, 64)
+    out = {"route": "wgmma"}
+    for name in ("dkdv", "dq"):
+        c = t[name]
+        dkdv = name == "dkdv"
+        item, step = (c["BK"], c["BQ"]) if dkdv else (c["BQ"], c["BK"])
+        nt = -(-S // item)
+        units = []
+        for p in range((nt + 1) // 2):
+            first = p if dkdv else nt - 1 - p
+            units.append([first] + ([nt - 1 - first] if nt - 1 - p != p
+                                    else []))
+        items, blocks = [], []
+        for x in (x for u in units for x in u):
+            t0 = x * item
+            if dkdv:
+                lo = t0 if causal else 0
+                hi = min(S, t0 + item - 1 + window) if window else S
+            else:
+                hi = min(S, t0 + item) if causal else S
+                lo = max(0, t0 - window + 1) if window else 0
+            stages = list(range(lo // step * step, hi, step))
+            wgs = []
+            for w in range(c["NWG"]):
+                r0 = t0 + 64 * w
+
+                def dead(u, r0=r0):
+                    if r0 >= S:
+                        return True
+                    if dkdv:       # u: the stage's first query row
+                        return (causal and u + step - 1 < r0) or \
+                            (window and u - window >= r0 + 63)
+                    return (causal and u > r0 + 63) or \
+                        (window and u + step - 1 <= r0 - window)
+                a, e = 0, len(stages)
+                while a < e and dead(stages[a]):
+                    a += 1
+                while e > a and dead(stages[e - 1]):
+                    e -= 1
+                wgs.append((r0, stages[a:e]))
+                if r0 < S:
+                    blocks.append((r0, stages[a:e]))
+            items.append({"t0": t0, "stages": stages, "warpgroups": wgs})
+        out[name] = {"BQ": step if dkdv else item,
+                     "BK": item if dkdv else step, "ITEM": item,
+                     "NWG": c["NWG"], "units": [len(u) for u in units],
+                     "items": items, "blocks": blocks}
+    return out
 
 
 def bwd_plan(S, hd, causal, window, dtype=torch.float32, hdv=None) -> dict:
@@ -294,7 +367,11 @@ def bwd_plan(S, hd, causal, window, dtype=torch.float32, hdv=None) -> dict:
     {"BQ", "BK", "blocks": [(k0, [first rows of the query tiles it
     visits]), ...]}, "dq": {"BQ", "BK", "blocks": [(q0, [first keys of the
     key tiles it visits]), ...] in launch order}}.  A simt dkdv block covers
-    every query head of a kv group; a wgmma one a single query head."""
+    every query head of a kv group; a wgmma one a single query head.  The
+    bf16 (96, 64) route's persistent kernels: ``_mla_bwd_plan``."""
+    if dtype == torch.bfloat16 and (hd, hd if hdv is None else hdv) == \
+            (96, 64):
+        return _mla_bwd_plan(S, causal, window)
     if dtype == torch.bfloat16:
         t = bwd_tc_config(hd, hdv)
         tiles = {n: (t[n]["BQ"], t[n]["BK"]) for n in ("dkdv", "dq")}
@@ -324,13 +401,34 @@ def bwd_plan(S, hd, causal, window, dtype=torch.float32, hdv=None) -> dict:
 
 def bwd_schedule(S, hd, causal, window, B, H, KV, dtype, hdv=None) -> dict:
     """Blocks and makespan of each backward launch, in tile steps (one
-    step: a query tile of a dkdv block, a key tile of a dq block; a simt
-    dkdv block takes G steps a query tile): the blocks in launch order,
-    each to the SM that frees first, one block an SM (shared memory allows
-    no second)."""
+    step: a query tile of a dkdv block, a key tile of a dq block, 4096
+    pairs at 64 x 64; a simt dkdv block takes G steps a query tile): the
+    blocks in launch order, each to the SM that frees first, one block an
+    SM (shared memory allows no second).  The bf16 (96, 64) kernels are
+    persistent: min(units, 132) blocks, block x taking units x, x + 132,
+    ... of the (batch, head)-major order, an item costing its warpgroups'
+    live stages; with "items", "units" and "longest" (the costliest
+    item)."""
     import heapq
     plan = bwd_plan(S, hd, causal, window, dtype, hdv)
     G = H // KV
+    if "units" in plan["dkdv"]:
+        out = {}
+        for name in ("dkdv", "dq"):
+            p = plan[name]
+            cost = [sum(len(s) for _, s in it["warpgroups"])
+                    for it in p["items"]]
+            each = iter(cost)
+            units = [sum(next(each) for _ in range(n))
+                     for n in p["units"]] * (B * H)
+            grid = min(H100_SMS, len(units))
+            load = [0] * grid
+            for u, c in enumerate(units):
+                load[u % grid] += c
+            out[name] = {"blocks": grid, "items": len(cost) * B * H,
+                         "units": len(units), "steps": sum(units),
+                         "longest": max(cost), "makespan": max(load)}
+        return out
     if plan["route"] == "wgmma":      # key / query tiles slowest
         dkdv = [len(t) for _, t in plan["dkdv"]["blocks"]
                 for _ in range(B * H)]

@@ -4,9 +4,12 @@ against autograd of ``flash_attention_plain`` and against ``jax.vjp`` of
 and non-causal S, and MLA's q/k head 96 with v head 64), the log-sum-exp
 the forward kernel writes, and a CPU replay of both routes' launch plans
 (tiles read from ``Tiles<HDQK, HDV>``, ``tc::DkdvCfg`` and ``tc::DqCfg``
-in the CUDA source, at equal head dims and at (96, 64)): which query tiles a
-key tile's dkdv block visits and which key tiles a query tile's dq block
-visits under the masks; dK / dV summed per kv group over (head, query
+in the CUDA source at equal head dims, and ``tc::MlaDkdvCfg`` and
+``tc::MlaDqCfg`` of the bf16 (96, 64) kernels): which query tiles a key
+tile's dkdv block visits and which key tiles a query tile's dq block
+visits under the masks (at (96, 64) in bf16: the persistent kernels'
+128-key and 128-row items, each warpgroup's live stages and the pairs of
+items a block takes); dK / dV summed per kv group over (head, query
 tile) in the simt kernel's order, or per query head into float32 partials
 that are then added in head order (the wgmma route); the blocks and
 makespan of each launch at the training shape; and the wgmma route's
@@ -144,26 +147,48 @@ def test_bwd_tile_config_read_from_the_source():
 def test_bwd_tc_config_read_from_the_source(hd, hdv):
     """The bf16 kernels' tiles, read from ``tc::DkdvCfg`` / ``tc::DqCfg``:
     64 keys a dkdv block over 64-row query stages, 128 rows a dq block
-    (two warpgroups of 64) over 32 or 64 keys a stage; wgmma's shapes
-    (rows of 64, widths a multiple of 16) and column chunks of 64 columns
-    (128 bytes) at equal head dims, of 32 (64 bytes) for q and k at MLA's
-    96; the bytes of every tile a multiple of 1024 (the 128-byte swizzle's
-    atom, twice the 64-byte one's), and the shared memory within what
-    Hopper gives one block."""
+    (two warpgroups of 64) over 32 or 64 keys a stage, in column chunks of
+    64 columns (128 bytes).  MLA's (96, 64) has kernels of its own
+    (``tc::MlaDkdvCfg`` / ``tc::MlaDqCfg``): dkdv items of 128 keys on two
+    consumer warpgroups over 64-row Q/dO stages, dq items of 64 rows a
+    consumer warpgroup over 64-key K/V stages, q and k in three 32-column
+    (64-byte) boxes, and the registers setmaxnreg hands out within the
+    SM's 65,536.  wgmma's shapes (rows of 64, widths a multiple of 16); the
+    bytes of every tile a multiple of 1024 (the 128-byte swizzle's atom,
+    twice the 64-byte one's), and the shared memory within what Hopper
+    gives one block."""
     t = FA.bwd_tc_config(hd, hdv)
     kv, dq = t["dkdv"], t["dq"]
-    assert (kv["BK"], kv["BQ"]) == (64, 64)
-    assert (dq["BQ"], dq["BK"]) == (128, 32 if hd == 256 else 64)
     assert kv["NS"] >= 2 and dq["NS"] >= 2
-    cw = 64 if hd == hdv else 32
-    assert kv["CW"] == dq["CW"] == cw
-    assert kv["CHUNKS"] == dq["CHUNKS"] == hd // cw
-    assert kv["VCHUNKS"] == dq["VCHUNKS"] == hdv // 64
     for c in (kv, dq):
         assert c["BQ"] % 64 == 0 and c["BK"] % 16 == 0
         for n in ("Q_BYTES", "G_BYTES", "K_BYTES", "V_BYTES"):
             assert c[n] % 1024 == 0, n
         assert c["SMEM"] <= 232448
+    if (hd, hdv) == (96, 64):
+        assert (kv["NWG"], kv["BK"], kv["BQ"]) == (2, 128, 64)
+        assert (dq["NWG"], dq["BQ"], dq["BK"]) == (2, 128, 64)
+        for c in (kv, dq):
+            assert (c["HDQK"], c["HDV"], c["CW"], c["CHUNKS"]) == \
+                (96, 64, 32, 3)
+            assert c["THREADS"] == 128 * (c["NWG"] + 1)
+            assert (c["PRODUCER_REGS"], c["CONSUMER_REGS"]) == (40, 232)
+            assert 128 * (c["PRODUCER_REGS"] + c["NWG"] *
+                          c["CONSUMER_REGS"]) <= 65536
+        assert (kv["K_BYTES"], kv["V_BYTES"]) == (128 * 192, 128 * 128)
+        assert kv["SMEM"] == 1024 + kv["K_BYTES"] + kv["V_BYTES"] + \
+            kv["NS"] * (kv["Q_BYTES"] + kv["G_BYTES"] + kv["L_BYTES"]) + \
+            kv["BAR_BYTES"]
+        assert dq["STAGE_BYTES"] == dq["K_BYTES"] + dq["V_BYTES"]
+        assert dq["SMEM"] == 1024 + dq["Q_BYTES"] + dq["G_BYTES"] + \
+            dq["NS"] * dq["STAGE_BYTES"] + dq["BAR_BYTES"]
+        # the source header's 123 and 121 KB
+        assert round(kv["SMEM"] / 1024) == 123
+        assert round(dq["SMEM"] / 1024) == 121
+        return
+    assert (kv["BK"], kv["BQ"]) == (64, 64)
+    assert (dq["BQ"], dq["BK"]) == (128, 32 if hd == 256 else 64)
+    assert kv["CHUNKS"] == dq["CHUNKS"] == hd // 64
     assert (kv["K_BYTES"], kv["V_BYTES"]) == (128 * hd, 128 * hdv)
     assert kv["X_BYTES"] == 4 * kv["BK"] * kv["BQ"]    # float32 P dtanh
     assert kv["SMEM"] == 1024 + kv["K_BYTES"] + kv["V_BYTES"] + kv["NS"] * \
@@ -171,14 +196,10 @@ def test_bwd_tc_config_read_from_the_source(hd, hdv):
         kv["NS"] * kv["L_BYTES"] + kv["BAR_BYTES"]
     assert dq["SMEM"] == 1024 + dq["Q_BYTES"] + dq["G_BYTES"] + dq["NS"] * \
         (dq["K_BYTES"] + dq["V_BYTES"]) + dq["BAR_BYTES"]
-    # hd 256: K, V, two Q/dO stages and the exchange as the header says;
-    # (96, 64): 99 and 101 KB
+    # hd 256: K, V, two Q/dO stages and the exchange as the header says
     if hd == 256:
         assert round(kv["SMEM"] / 1024) == 210 and \
             round(dq["SMEM"] / 1024) == 193
-    if hd == 96:
-        assert round(kv["SMEM"] / 1024) == 99 and \
-            round(dq["SMEM"] / 1024) == 101
 
 
 ROUTES = [torch.float32, torch.bfloat16]
@@ -188,7 +209,20 @@ PLAN_CASES = [
     (257, 64, 64, True, 128), (200, 128, 128, False, 0),
     (130, 64, 64, False, 17), (64, 128, 128, True, 1), (1, 64, 64, True, 0),
     (300, 96, 64, True, 0), (257, 96, 64, True, 100), (130, 96, 64, False, 0),
+    # the (96, 64) bf16 items: the last item's second warpgroup past S, a
+    # window that ends inside the second warpgroup's keys
+    (1050, 96, 64, True, 0), (1000, 96, 64, True, 100),
 ]
+
+
+def _tiles(plan, name):
+    """(query rows, keys) of a plan's block entry: a block's tiles, or at
+    the bf16 (96, 64) one warpgroup's 64 keys (dkdv) or rows (dq) against
+    a stage."""
+    p = plan[name]
+    if "items" not in p:
+        return p["BQ"], p["BK"]
+    return (p["BQ"], 64) if name == "dkdv" else (64, p["BK"])
 
 
 @pytest.mark.parametrize("dtype", ROUTES)
@@ -196,9 +230,11 @@ PLAN_CASES = [
 def test_bwd_plan_covers_every_kept_pair(S, hd, hdv, causal, window, dtype):
     """Every (query, key) pair the masks keep lies in exactly one tile pair
     that a dkdv block visits for each query head (the simt block loops over
-    its group's heads, the wgmma block is one head's) and in exactly one
-    that a dq block visits; each key tile and each query tile has one
-    block, query tiles launched longest causal rows first."""
+    its group's heads, the wgmma block is one head's; at the bf16 (96, 64)
+    one warpgroup's keys) and in exactly one that a dq block visits; each
+    key tile and each query tile has one block, query tiles launched
+    longest causal rows first (at the bf16 (96, 64) the longest item
+    first)."""
     plan = FA.bwd_plan(S, hd, causal, window, dtype, hdv)
     assert plan["route"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
     qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
@@ -208,23 +244,108 @@ def test_bwd_plan_covers_every_kept_pair(S, hd, hdv, causal, window, dtype):
     if window:
         ok &= kp > qp - window
     for name in ("dkdv", "dq"):
-        BQ, BK = plan[name]["BQ"], plan[name]["BK"]
+        BQ, BK = _tiles(plan, name)
         seen = np.zeros((S, S), int)
         for t0, tiles in plan[name]["blocks"]:
             for u0 in tiles:
                 q0, k0 = (u0, t0) if name == "dkdv" else (t0, u0)
                 seen[q0:q0 + BQ, k0:k0 + BK] += 1
         assert (seen[ok] == 1).all(), name
-    BK = plan["dkdv"]["BK"]
-    assert [k0 for k0, _ in plan["dkdv"]["blocks"]] == list(range(0, S, BK))
-    BQ = plan["dq"]["BQ"]
+    BK = _tiles(plan, "dkdv")[1]
+    keys = [k0 for k0, _ in plan["dkdv"]["blocks"]]
+    BQ = _tiles(plan, "dq")[0]
     dq_rows = [q0 for q0, _ in plan["dq"]["blocks"]]
     assert sorted(dq_rows) == list(range(0, S, BQ))
-    assert dq_rows[0] == (S - 1) // BQ * BQ
+    if "items" in plan["dq"]:
+        assert sorted(keys) == list(range(0, S, BK))
+        item = plan["dq"]["ITEM"]
+        assert plan["dq"]["items"][0]["t0"] == (S - 1) // item * item
+        assert plan["dkdv"]["items"][0]["t0"] == 0
+    else:
+        assert keys == list(range(0, S, BK))
+        assert dq_rows[0] == (S - 1) // BQ * BQ
     if causal:                 # no tile entirely above the diagonal
         BQ = plan["dkdv"]["BQ"]
         for k0, q_tiles in plan["dkdv"]["blocks"]:
             assert all(q0 + BQ - 1 >= k0 for q0 in q_tiles)
+
+
+def _mla_seen(plan, name, S, drop=None):
+    """How often each (query, key) pair lies in a live stage of a warpgroup
+    of the bf16 (96, 64) plan's items; ``drop`` (item, warpgroup) leaves
+    out that warpgroup's last live stage (a control)."""
+    p = plan[name]
+    seen = np.zeros((S, S), int)
+    for x, it in enumerate(p["items"]):
+        for w, (r0, live) in enumerate(it["warpgroups"]):
+            if (x, w) == drop:
+                live = live[:-1]
+            for u0 in live:
+                if name == "dkdv":
+                    seen[u0:u0 + p["BQ"], r0:r0 + 64] += 1
+                else:
+                    seen[r0:r0 + 64, u0:u0 + p["BK"]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("S,causal,window", [
+    (4096, True, 0), (1050, True, 0), (1000, True, 100), (700, True, 100),
+    (2048, True, 0), (300, False, 0), (129, False, 40), (1, True, 0)])
+def test_mla_bwd_items_warpgroups_and_order_cover_each_kept_pair_once(
+        S, causal, window):
+    """The bf16 (96, 64) kernels' persistent plan: the units (pairs of
+    tiles p and n - 1 - p, the causal mask's longer first, one item where
+    they meet) take every item of a (batch, head) once; each warpgroup's
+    live stages cover every kept pair of its 64 keys (dkdv) or rows (dq)
+    exactly once, and the stages it skips hold no kept pair (nor does any
+    warpgroup past S); a plan that drops one warpgroup's last live stage
+    misses kept pairs.  The schedule's steps are the live warpgroup
+    stages."""
+    plan = FA.bwd_plan(S, 96, causal, window, torch.bfloat16, 64)
+    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    for name in ("dkdv", "dq"):
+        p = plan[name]
+        item = p["ITEM"]
+        nt = -(-S // item)
+        t0s = [it["t0"] for it in p["items"]]
+        assert sorted(t0s) == [x * item for x in range(nt)]
+        assert sum(p["units"]) == nt and p["units"].count(1) == nt % 2
+        assert len(p["units"]) == (nt + 1) // 2
+        x = 0
+        for n in p["units"]:
+            pair = t0s[x:x + n]
+            assert sum(pair) == (nt - 1) * item if n == 2 else \
+                pair[0] == (nt - 1) // 2 * item
+            if causal and n == 2:      # the longer first
+                assert (pair[0] < pair[1]) == (name == "dkdv")
+            x += n
+        seen = _mla_seen(plan, name, S)
+        assert (seen[ok] == 1).all(), name
+        assert seen.max() <= 1
+        for it in p["items"]:
+            for r0, live in it["warpgroups"]:
+                for u0 in it["stages"]:
+                    rows, keys = (slice(u0, u0 + p["BQ"]),
+                                  slice(r0, r0 + 64)) if name == "dkdv" \
+                        else (slice(r0, r0 + 64), slice(u0, u0 + p["BK"]))
+                    assert bool(ok[rows, keys].any()) == (u0 in live), \
+                        (name, r0, u0)
+                if r0 >= S:
+                    assert live == []
+        # the control: one warpgroup's last live stage left out
+        x, w = next((x, w) for x, it in enumerate(p["items"])
+                    for w, (_, live) in enumerate(it["warpgroups"]) if live)
+        assert (_mla_seen(plan, name, S, drop=(x, w))[ok] == 0).any(), name
+        sched = FA.bwd_schedule(S, 96, causal, window, 1, 1, 1,
+                                torch.bfloat16, 64)[name]
+        assert sched["steps"] == sum(len(live) for it in p["items"]
+                                     for _, live in it["warpgroups"])
+        assert sched["items"] == nt and sched["units"] == len(p["units"])
 
 
 def test_bwd_schedule_fills_the_card_at_the_training_shape():
@@ -248,11 +369,18 @@ def test_bwd_schedule_fills_the_card_at_the_training_shape():
     assert simt["dkdv"]["blocks"] == 256 and \
         simt["dkdv"]["makespan"] == simt["dkdv"]["longest"] == 256
     # MLA's training microbatch (B 1, S 4096, 40 heads over 40, causal):
-    # the (96, 64) tiles are those of hd 64, one head a group
+    # the (96, 64) kernels are persistent, one block an SM walking pairs of
+    # items (tile t and tile n - 1 - t of a head), each pair 127 + 3 = 130
+    # warpgroup stages: a makespan of 650 against the ideal 630.3 (the
+    # source header's numbers; single items in the forward's rotated order
+    # would take 846)
     mla = FA.bwd_schedule(4096, 96, True, 0, 1, 40, 40, torch.bfloat16, 64)
-    assert mla["dkdv"]["blocks"] == 2560 and mla["dq"]["blocks"] == 1280
-    for name in ("dkdv", "dq"):
-        assert mla[name]["makespan"] <= 1.02 * mla[name]["steps"] / 132
+    assert mla["dkdv"] == {"blocks": 132, "items": 1280, "units": 640,
+                           "steps": 83200, "longest": 127, "makespan": 650}
+    assert mla["dq"] == mla["dkdv"]
+    # more pairs than SMs under G 4 (B 2, S 2048, 40 heads over 10)
+    g4 = FA.bwd_schedule(2048, 96, True, 0, 2, 40, 10, torch.bfloat16, 64)
+    assert g4["dkdv"]["units"] == 640 and g4["dkdv"]["makespan"] == 330
 
 
 def _round(x, dtype):
@@ -306,7 +434,7 @@ def _replay(case, arrays, hd_tiles, dtype=torch.float32, drop=None,
         ds = p * dt * (g @ vs.T - delta[b, h, q0:q0 + BQ, None])
         return _round(p, p_type), _round(ds, p_type), qs, ks, g
 
-    BQ, BK = plan["dkdv"]["BQ"], plan["dkdv"]["BK"]
+    BQ, BK = _tiles(plan, "dkdv")
     for b in range(B):
         for k0, q_tiles in plan["dkdv"]["blocks"]:
             tiles = q_tiles[:-1] if drop == "tile" and q_tiles else q_tiles
@@ -324,7 +452,7 @@ def _replay(case, arrays, hd_tiles, dtype=torch.float32, drop=None,
             for t in part:
                 t.reshape(B, S, KV, G, -1)[:, :, :, G - 1] = 0.0
         dk, dv = FA.flash_bwd_dkdv_sum_plain(part, KV, torch.float32)
-    BQ, BK = plan["dq"]["BQ"], plan["dq"]["BK"]
+    BQ, BK = _tiles(plan, "dq")
     for b in range(B):
         for h in range(H):
             for q0, k_tiles in plan["dq"]["blocks"]:
@@ -348,6 +476,8 @@ def _rel(a, b):
     # the (96, 64) instances' plans, at q/k 24 and v 16
     ((1, 150, 4, 2, 24, True, 0, 0.0, 16), (96, 64), torch.float32),
     ((1, 150, 4, 2, 24, True, 30, 20.0, 16), (96, 64), torch.bfloat16),
+    # the bf16 (96, 64) items: the last one's second warpgroup past S
+    ((1, 210, 2, 1, 24, True, 0, 0.0, 16), (96, 64), torch.bfloat16),
 ])
 def test_replay_of_the_kernel_plan_matches_plain(case, hd_tiles, dtype):
     """The plan of the kernel instance at ``hd_tiles`` (its tile sizes)

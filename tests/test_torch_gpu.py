@@ -928,6 +928,12 @@ FLASH_BWD_CASES = [
     (1, 300, 8, 2, 96, True, 100, 30.0, 64),
     (2, 129, 4, 4, 96, False, 0, 0.0, 64),
     (2, 1, 4, 1, 96, True, 0, 0.0, 64),
+    # the bf16 (96, 64) kernels' items of 128 keys and 128 rows: the last
+    # item's second warpgroup past S, a window that ends inside the second
+    # warpgroup's keys, more pairs of items than SMs under G 4
+    (1, 1050, 8, 8, 96, True, 0, 0.0, 64),
+    (1, 1000, 8, 8, 96, True, 100, 0.0, 64),
+    (2, 2048, 40, 10, 96, True, 0, 0.0, 64),
 ]
 
 
